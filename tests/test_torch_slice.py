@@ -1,0 +1,124 @@
+"""The slice as a whole: sqz_tpu_torch.compress / decompress on the torch
+engine (plain PyTorch versions on the CPU) against the JAX package's
+engines, byte for byte."""
+
+import pytest
+import torch
+
+import sqz_tpu
+import sqz_tpu_torch
+from sqz_tpu.formats import container as sqzt
+from sqz_tpu.utils import corpus
+
+# the plain versions step over small tensors: one intra-op thread each,
+# so parallel test workers do not oversubscribe the cores
+torch.set_num_threads(1)
+
+TORCH_CPU = dict(engine="torch", device="cpu")
+
+
+def _data() -> bytes:
+    return (corpus.texty(2500, seed=4) + corpus.rle4(1000)
+            + corpus.zeros(700) + corpus.random_bytes(600, seed=2))
+
+
+def _sqz4(engine, **kw):
+    return dict(fmt="sqz4", engine=engine, blocks=True, blk_bits=10, **kw)
+
+
+def test_exact_container_equals_native_and_jax_engines():
+    data = _data()
+    got = sqz_tpu_torch.compress(data, parse="exact", device="cpu",
+                                 **_sqz4("torch"))
+    assert got == sqz_tpu.compress(data, **_sqz4("native"))
+    assert got == sqz_tpu.compress(data, parse="exact", **_sqz4("tpu"))
+
+
+def test_round_trip_and_containers_written_by_the_reference():
+    data = _data()
+    for parse in ("exact", "fast"):
+        blob = sqz_tpu_torch.compress(data, parse=parse, device="cpu",
+                                      **_sqz4("torch"))
+        assert sqz_tpu_torch.decompress(blob, **TORCH_CPU) == data
+        assert sqz_tpu.decompress(blob, engine="native") == data
+    for blob in (sqz_tpu.compress(data, parse="exact", **_sqz4("tpu")),
+                 sqz_tpu.compress(data, parse="fast", **_sqz4("native"))):
+        assert sqz_tpu_torch.decompress(blob, **TORCH_CPU) == data
+
+
+def test_empty_and_tiny_inputs_round_trip():
+    for data in (b"", b"a", corpus.hello()):
+        blob = sqz_tpu_torch.compress(data, parse="exact", device="cpu",
+                                      **_sqz4("torch"))
+        assert blob == sqz_tpu.compress(data, **_sqz4("native"))
+        assert sqz_tpu_torch.decompress(blob, **TORCH_CPU) == data
+
+
+def test_corrupt_payload_rejected():
+    data = _data()
+    blob = sqz_tpu.compress(data, **_sqz4("native"))
+    code, win_bits, blk_bits, osize, payloads, csum, _f, _a = \
+        sqzt.unpack(blob)
+    p = bytearray(payloads[1])
+    p[len(p) // 2] ^= 0xA5
+    payloads[1] = bytes(p)
+    bad = sqzt.pack(code, win_bits, blk_bits, osize, payloads, csum)
+    with pytest.raises(ValueError):
+        sqz_tpu_torch.decompress(bad, **TORCH_CPU)
+
+
+def test_cuda_device_without_a_card_raises():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device")
+    with pytest.raises(RuntimeError):
+        sqz_tpu_torch.compress(b"abc" * 100, device="cuda", **_sqz4("torch"))
+    blob = sqz_tpu.compress(b"abc" * 100, **_sqz4("native"))
+    with pytest.raises(RuntimeError):
+        sqz_tpu_torch.decompress(blob, engine="torch", device="cuda")
+
+
+def test_unported_requests_raise_not_implemented():
+    data = _data()
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+        sqz_tpu_torch.compress(data, warm=True, device="cpu",
+                               **_sqz4("torch"))
+    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+        sqz_tpu_torch.compress(data, fmt="squeeze", engine="torch",
+                               blocks=True, blk_bits=10, device="cpu")
+    warm_blob = sqz_tpu.compress(corpus.texty(4096, seed=9), warm=True,
+                                 **_sqz4("native"))
+    _c, _w, _b, _o, _p, _cs, fresh, _a = sqzt.unpack(warm_blob)
+    assert not all(fresh)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+        sqz_tpu_torch.decompress(warm_blob, **TORCH_CPU)
+    sq_blob = sqz_tpu.compress(data, fmt="squeeze", engine="native",
+                               blocks=True, blk_bits=10)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+        sqz_tpu_torch.decompress(sq_blob, **TORCH_CPU)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+        sqz_tpu_torch.compress_resident(data)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+        sqz_tpu_torch.decompress_resident(sq_blob)
+
+
+def test_invalid_requests_raise_value_error():
+    with pytest.raises(ValueError):
+        sqz_tpu_torch.compress(b"x" * 10, fmt="sqz4", engine="torch",
+                               blocks=True, blk_bits=17, device="cpu")
+    with pytest.raises(ValueError):
+        sqz_tpu_torch.compress(b"x" * 10, fmt="sqz4", engine="torch",
+                               device="cpu")
+    with pytest.raises(ValueError):
+        sqz_tpu_torch.compress(b"x" * 10, engine="tpu")
+    with pytest.raises(ValueError):
+        sqz_tpu_torch.decompress(b"squeeze4" + bytes(16), **TORCH_CPU)
+
+
+@pytest.mark.parametrize("engine", ["native", "oracle"])
+def test_host_engines_delegate_to_the_reference(engine):
+    data = corpus.texty(1500, seed=5)
+    kw = dict(fmt="sqz4", engine=engine, win_bits=10, blocks=True,
+              blk_bits=10)
+    blob = sqz_tpu_torch.compress(data, **kw)
+    assert blob == sqz_tpu.compress(data, **kw)
+    assert sqz_tpu_torch.decompress(blob, engine=engine) == data

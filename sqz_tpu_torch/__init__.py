@@ -3,9 +3,10 @@
 A port of ``sqz_tpu`` (the JAX/TPU package, kept as the reference): the
 same ``sqzt`` containers and payload bytes, with the sqz4 device engine
 (``engine="torch"``) running hand-written CUDA kernels on an NVIDIA card,
-or their plain PyTorch versions on the CPU. It imports no JAX; the host
-planners, packers and container format come from the JAX-free parts of
-``sqz_tpu`` (``formats``, ``native``, ``oracle``).
+or their plain PyTorch versions on the CPU. It imports neither JAX nor
+any module of ``sqz_tpu``: the native host runtime (planners, packers,
+host codec, assembler), the container framing and the input generators
+are the port's own copies (``native``, ``formats``, ``utils``).
 """
 
 from sqz_tpu_torch.api import (  # noqa: F401

@@ -1,16 +1,14 @@
 """Public API of the port: compress / decompress with the reference's
 signatures (``sqz_tpu.api``) plus an explicit ``device``.
 
-Engines:
-  * ``torch``  — the device engine: sqz4 ``sqzt`` containers coded by the
-    CUDA kernels (``device="cuda"``) or by their plain PyTorch versions
-    (``device="cpu"``, for tests);
-  * ``native`` and ``oracle`` — the reference's host engines, called as
-    they are.
+The one engine served is ``torch``, the default: sqz4 ``sqzt`` containers
+coded by the CUDA kernels on ``device="cuda"`` (the default; without a
+card it raises) or by their plain PyTorch versions on ``device="cpu"``
+(for tests).
 
-Not served yet by the torch engine (each raises NotImplementedError
-naming its ROADMAP item): warm start, the squeeze format, and the
-resident paths.
+Not served yet (each raises NotImplementedError naming its ROADMAP item):
+the host engines ``native`` and ``oracle``, warm start, the squeeze
+format, and the resident paths.
 """
 
 from __future__ import annotations
@@ -20,10 +18,14 @@ from typing import Optional
 
 import torch
 
-from sqz_tpu import api as ref_api
-from sqz_tpu.api import Format
-from sqz_tpu.formats import container as sqzt
-from sqz_tpu.formats.constants import SQZT_FORMAT_SQUEEZE, SQZT_FORMAT_SQZ4
+from sqz_tpu_torch.formats import container as sqzt
+from sqz_tpu_torch.formats.constants import (SQZT_FORMAT_SQUEEZE,
+                                             SQZT_FORMAT_SQZ4)
+
+
+class Format(str, enum.Enum):
+    SQUEEZE = "squeeze"
+    SQZ4 = "sqz4"
 
 
 class Engine(str, enum.Enum):
@@ -38,6 +40,16 @@ def _todo(what: str, item: int):
         f"(ROADMAP.md, Queue 1 item {item})")
 
 
+def _check_engine(engine):
+    """Only the device engine is served; the host engines raise."""
+    engine = Engine(engine)
+    if engine is not Engine.TORCH:
+        raise NotImplementedError(
+            f"engine {engine.value!r} is not served by the port yet "
+            f"(ROADMAP.md, Queue 1 item 14: host engines behind the port's "
+            f"API)")
+
+
 def _device(device) -> torch.device:
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
@@ -48,21 +60,18 @@ def _device(device) -> torch.device:
     return dev
 
 
-def compress(data: bytes, fmt: Format | str = Format.SQUEEZE,
-             engine: Engine | str = Engine.NATIVE,
+def compress(data: bytes, fmt: Format | str = Format.SQZ4,
+             engine: Engine | str = Engine.TORCH,
              win_bits: int = 15, lz: bool = True,
-             blocks: bool = False, blk_bits: int = 16,
+             blocks: bool = True, blk_bits: int = 16,
              checksum: bool = True, warm: "bool | str" = False,
              parse: str = "auto", anchor_beam: int = 4,
              device="cuda") -> bytes:
-    """See ``sqz_tpu.api.compress``. ``engine="torch"`` takes sqz4 sqzt
-    containers (``blocks=True``, ``blk_bits`` <= 16) and codes them on
-    ``device``; ``parse`` 'exact' gives the native engine's bytes."""
-    fmt, engine = Format(fmt), Engine(engine)
-    if engine is not Engine.TORCH:
-        return ref_api.compress(data, fmt, engine.value, win_bits, lz,
-                                blocks, blk_bits, checksum, warm, parse,
-                                anchor_beam)
+    """See ``sqz_tpu.api.compress``. Codes an sqz4 sqzt container
+    (``blocks=True``, ``blk_bits`` <= 16) on ``device``; ``parse`` 'exact'
+    gives the reference native engine's bytes."""
+    fmt = Format(fmt)
+    _check_engine(engine)
     if not 10 <= win_bits <= 15:
         raise ValueError(f"win_bits {win_bits} outside 10..15")
     if warm not in (False, True, "anchors"):
@@ -86,14 +95,11 @@ def compress(data: bytes, fmt: Format | str = Format.SQUEEZE,
 
 
 def decompress(blob: bytes, fmt: Optional[Format | str] = None,
-               engine: Engine | str = Engine.NATIVE,
+               engine: Engine | str = Engine.TORCH,
                device="cuda") -> bytes:
-    """See ``sqz_tpu.api.decompress``. ``engine="torch"`` takes cold sqz4
-    sqzt containers and decodes them on ``device``; a corrupt block raises
-    ValueError naming it."""
-    engine = Engine(engine)
-    if engine is not Engine.TORCH:
-        return ref_api.decompress(blob, fmt, engine.value)
+    """See ``sqz_tpu.api.decompress``. Decodes a cold sqz4 sqzt container
+    on ``device``; a corrupt block raises ValueError naming it."""
+    _check_engine(engine)
     if blob[:8] != sqzt.SQZT_MAGIC:
         raise ValueError("torch engine requires an sqzt container")
     code, _win_bits, blk_bits, osize, payloads, csum, fresh, _anch = \

@@ -1,8 +1,9 @@
-"""Carry the reference's kernel inputs across to the port's tensors.
+"""Carry the kernel inputs from numpy arrays to the port's tensors.
 
-The codec has no parameters: what the JAX package and the port share are
-the numpy arrays its host planners and packers produce, in the kernels'
-``[groups, rows, lanes]`` layout. These helpers turn them into torch
+The codec has no parameters: the kernels' inputs are the numpy arrays the
+native host planners and packers produce (the same arrays the JAX
+package's kernels take), in the kernels' ``[groups, rows, lanes]``
+layout. These helpers turn them into torch
 tensors on a given device, keeping dtype and layout (u32 arrays become
 ``torch.uint32``, i32 stay ``torch.int32``), so one source can feed the
 reference kernel and the port's kernel alike.

@@ -15,6 +15,10 @@
 // Table entry e of a thread sits at tab[e * stride], where stride is the
 // CTA's thread count, so a warp's threads never conflict on a bank.
 //
+// The encoder's coder step (Encoder::code) is shared by both encoder
+// kernels: the op-stream encoder reads the ops, the token encoder expands
+// them from tokens, and both code them through the same arithmetic.
+//
 // The lane bodies are plain C++ apart from __clzll and the SQZ_DEVICE
 // qualifier; the kernels and launchers sit under __CUDACC__.
 #pragma once
@@ -141,6 +145,106 @@ SQZ_DEVICE int csum_search(const int* c, int stride, int n, int cum) {
     for (int step = n >> 1; step > 0; step >>= 1)
         if (c[(sym + step - 1) * stride] <= cum) sym += step;
     return sym;
+}
+
+// Big-endian byte sink into one lane's column of the output words.
+struct WordSink {
+    uint32_t* out;
+    int stride;
+    long long cap_words;
+    uint32_t acc;
+    long long n;
+
+    SQZ_DEVICE void put(uint32_t byte) {
+        acc = (acc << 8) | byte;
+        if ((n & 3) == 3 && (n >> 2) < cap_words)
+            out[(n >> 2) * stride] = acc;
+        ++n;
+    }
+
+    SQZ_DEVICE void finish() {
+        const int r = static_cast<int>(n & 3);
+        if (r && (n >> 2) < cap_words)
+            out[(n >> 2) * stride] = acc << (8 * (4 - r));
+    }
+};
+
+// One block's range encoder: its coder registers, its models (in `tab`)
+// and its output sink. code() takes one micro-op (sqz4_pallas.py
+// _fused_pair_body, one slot): 0 flag, 1 size, 2 byte, 3 bits, 4..35
+// distance bit, 254 flush; anything else is a pad and codes nothing.
+struct Encoder {
+    int* tab;
+    int stride;
+    u64 low;
+    u64 rng;
+    WordSink sink;
+
+    SQZ_DEVICE void code(int m, int s) {
+        if (m == kOpFlush) {   // exactly one emission of the top byte
+            sink.put(static_cast<uint32_t>(low >> 56));
+            low <<= 8;
+            return;
+        }
+        if (m >= kOpDist + 32) return;   // pad
+
+        // model statistics, read strictly before the adaptive update
+        int start, size, total;
+        if (m == kOpByte || m == kOpSize) {
+            Model256 md = model256(tab, stride, m == kOpByte);
+            start = md.start(s);
+            size = md.size(s);
+            total = md.total();
+            md.bump(s);
+        } else if (m == kOpBits) {
+            s = s < 31 ? s : 31;
+            int* c = tab + kBits * stride;
+            csum_stats(c, stride, 32, s, &start, &size, &total);
+            csum_bump(c, stride, s, 32);
+        } else {
+            s = s != 0;
+            int* f0 = tab + (m == kOpFlag ? kLit : kDist0 + m - kOpDist) * stride;
+            int* f1 = m == kOpFlag ? f0 + stride
+                                   : tab + (kDist1 + m - kOpDist) * stride;
+            total = *f0 + *f1;
+            start = s ? *f0 : 0;
+            size = s ? *f1 : *f0;
+            *(s ? f1 : f0) += 1;
+        }
+
+        const u64 q = rng / static_cast<u64>(total);
+        low += static_cast<u64>(start) * q;
+        rng = static_cast<u64>(size) * q;
+        const u64 pre = low;
+        int cnt = lead_zero_bytes(low ^ (low + rng));
+        low = shl(low, 8 * cnt);
+        rng = shl(rng, 8 * cnt);
+        if (rng < static_cast<u64>(total) + 1) {
+            // underflow escape: two more emissions, re-inflate the range
+            low = shl(pre, 8 * cnt + 16);
+            rng = ~low;
+            cnt += 2;
+        }
+        for (int k = 0; k < cnt; ++k)
+            sink.put(k < 8 ? static_cast<uint32_t>(pre >> (56 - 8 * k)) & 0xFF
+                           : 0u);
+    }
+
+    // Write the last partial word; returns the payload byte length (which
+    // may exceed the column's capacity: bytes past it are dropped).
+    SQZ_DEVICE int32_t finish() {
+        sink.finish();
+        return static_cast<int32_t>(sink.n);
+    }
+};
+
+// A fresh (cold) encoder writing into one lane's output column, whose rows
+// are `lanes` elements apart and must be zero-filled by the caller.
+SQZ_DEVICE Encoder make_encoder(uint32_t* words, int lanes, int cap_words,
+                                int* tab, int stride) {
+    init_tables(tab, stride);
+    return Encoder{tab, stride, 0ull, ~0ull,
+                   WordSink{words, lanes, cap_words, 0u, 0}};
 }
 
 }  // namespace sqz4

@@ -22,35 +22,14 @@
 // hardware divide per op where the TPU kernel ran a five-digit f32 long
 // division on u32 pairs); the 256-symbol models are Fenwick trees in
 // shared memory (statistics and update in log2(256) steps); output bytes
-// are staged in a register word and stored once per four bytes. Keeping
-// more chains in flight per SM (a warp per block, more blocks per call)
-// is later work.
+// are staged in a register word and stored once per four bytes. The coder
+// step itself (sqz4_coder.cuh Encoder::code) is shared with the token
+// encoder (sqz4_encode_tok.cu). Keeping more chains in flight per SM (a
+// warp per block, more blocks per call) is later work.
 
 #include "sqz4_coder.cuh"
 
 namespace sqz4 {
-
-// Big-endian byte sink into one lane's column of the output words.
-struct WordSink {
-    uint32_t* out;
-    int stride;
-    long long cap_words;
-    uint32_t acc;
-    long long n;
-
-    SQZ_DEVICE void put(uint32_t byte) {
-        acc = (acc << 8) | byte;
-        if ((n & 3) == 3 && (n >> 2) < cap_words)
-            out[(n >> 2) * stride] = acc;
-        ++n;
-    }
-
-    SQZ_DEVICE void finish() {
-        const int r = static_cast<int>(n & 3);
-        if (r && (n >> 2) < cap_words)
-            out[(n >> 2) * stride] = acc << (8 * (4 - r));
-    }
-};
 
 // Encode one block's op stream. Pointers are offset to the lane; rows of
 // m_ops / s_ops / words are `lanes` elements apart. The output column must
@@ -59,9 +38,7 @@ SQZ_DEVICE void encode_lane(const uint32_t* m_ops, const uint32_t* s_ops,
                             int op_words, int lanes, uint32_t* words,
                             int cap_words, int32_t* len_out, int* tab,
                             int stride) {
-    init_tables(tab, stride);
-    u64 low = 0, rng = ~0ull;
-    WordSink sink{words, lanes, cap_words, 0u, 0};
+    Encoder enc = make_encoder(words, lanes, cap_words, tab, stride);
     uint32_t mw = 0, sw = 0;
     const int n_ops = op_words * 4;
     for (int t = 0; t < n_ops; ++t) {
@@ -70,58 +47,9 @@ SQZ_DEVICE void encode_lane(const uint32_t* m_ops, const uint32_t* s_ops,
             sw = s_ops[static_cast<long long>(t >> 2) * lanes];
         }
         const int sh = 24 - 8 * (t & 3);
-        const int m = (mw >> sh) & 0xFF;
-        int s = (sw >> sh) & 0xFF;
-        if (m == kOpFlush) {   // exactly one emission of the top byte
-            sink.put(static_cast<uint32_t>(low >> 56));
-            low <<= 8;
-            continue;
-        }
-        if (m >= kOpDist + 32) continue;   // pad
-
-        // model statistics, read strictly before the adaptive update
-        int start, size, total;
-        if (m == kOpByte || m == kOpSize) {
-            Model256 md = model256(tab, stride, m == kOpByte);
-            start = md.start(s);
-            size = md.size(s);
-            total = md.total();
-            md.bump(s);
-        } else if (m == kOpBits) {
-            s = s < 31 ? s : 31;
-            int* c = tab + kBits * stride;
-            csum_stats(c, stride, 32, s, &start, &size, &total);
-            csum_bump(c, stride, s, 32);
-        } else {
-            s = s != 0;
-            int* f0 = tab + (m == kOpFlag ? kLit : kDist0 + m - kOpDist) * stride;
-            int* f1 = m == kOpFlag ? f0 + stride
-                                   : tab + (kDist1 + m - kOpDist) * stride;
-            total = *f0 + *f1;
-            start = s ? *f0 : 0;
-            size = s ? *f1 : *f0;
-            *(s ? f1 : f0) += 1;
-        }
-
-        const u64 q = rng / static_cast<u64>(total);
-        low += static_cast<u64>(start) * q;
-        rng = static_cast<u64>(size) * q;
-        const u64 pre = low;
-        int cnt = lead_zero_bytes(low ^ (low + rng));
-        low = shl(low, 8 * cnt);
-        rng = shl(rng, 8 * cnt);
-        if (rng < static_cast<u64>(total) + 1) {
-            // underflow escape: two more emissions, re-inflate the range
-            low = shl(pre, 8 * cnt + 16);
-            rng = ~low;
-            cnt += 2;
-        }
-        for (int k = 0; k < cnt; ++k)
-            sink.put(k < 8 ? static_cast<uint32_t>(pre >> (56 - 8 * k)) & 0xFF
-                           : 0u);
+        enc.code((mw >> sh) & 0xFF, (sw >> sh) & 0xFF);
     }
-    sink.finish();
-    *len_out = static_cast<int32_t>(sink.n);
+    *len_out = enc.finish();
 }
 
 }  // namespace sqz4

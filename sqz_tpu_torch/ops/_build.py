@@ -2,14 +2,19 @@
 
 The kernels have a plain C interface (``extern "C"`` launchers taking
 device pointers, sizes and a stream), so they compile in seconds without
-PyTorch's headers:
+PyTorch's headers. Each source compiles in its own nvcc process, all
+started together, and one more nvcc links the objects:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -o build/sqz_tpu_torch/libsqz4cuda.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -c
+         -Xcompiler -fPIC -o <source>.o csrc/<source>.cu      (each source)
+    nvcc -shared -o build/sqz_tpu_torch/libsqz4cuda.so *.o
 
 The library is built on first use into ``build/sqz_tpu_torch/`` at the
 root of the checkout (rebuilt when a source is newer), and nothing is
-built or loaded when the package is imported.
+built or loaded when the package is imported. Builds write to files named
+after the process and move the result into place with ``os.replace``, so
+concurrent builders (parallel test workers) never load a half-written
+library.
 """
 
 from __future__ import annotations
@@ -22,7 +27,8 @@ import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("sqz4_encode.cu", "sqz4_decode.cu")
+SOURCES = ("sqz4_encode.cu", "sqz4_decode.cu", "sqz4_encode_tok.cu",
+           "sqz4_compact.cu")
 HEADERS = ("sqz4_coder.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "sqz_tpu_torch"
 LIB = BUILD_DIR / "libsqz4cuda.so"
@@ -30,6 +36,21 @@ ARCH = "arch=compute_90a,code=sm_90a"
 
 _lock = threading.Lock()
 _lib = None
+
+
+def is_fresh(lib: Path, deps) -> bool:
+    """True when ``lib`` exists and is newer than every dependency."""
+    return lib.exists() and lib.stat().st_mtime >= max(
+        d.stat().st_mtime for d in deps)
+
+
+def run_parallel(cmds):
+    """Start every command at once and wait for all: [(rc, output)]."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    return [(p.returncode, out) for p, out in zip(procs, outs)]
 
 
 def nvcc_path() -> str:
@@ -48,21 +69,29 @@ def build(force: bool = False) -> Path:
     """Compile the kernels unless the library is newer than every source.
     The compiler's report (``-Xptxas -v``: registers, spills, shared
     memory) is kept beside the library as ``nvcc.log``."""
-    srcs = [CSRC / s for s in SOURCES + HEADERS]
-    if (not force and LIB.exists()
-            and LIB.stat().st_mtime >= max(s.stat().st_mtime for s in srcs)):
+    srcs = [CSRC / s for s in SOURCES]
+    if not force and is_fresh(LIB, srcs + [CSRC / h for h in HEADERS]):
         return LIB
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = LIB.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), "-gencode", ARCH, "-std=c++17", "-O3", "-shared",
-           "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(tmp)]
-    cmd += [str(CSRC / s) for s in SOURCES]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    (BUILD_DIR / "nvcc.log").write_text(res.stdout + res.stderr)
-    if res.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    os.replace(tmp, LIB)
+    nvcc, pid = nvcc_path(), os.getpid()
+    objs = [BUILD_DIR / f"{s.stem}.{pid}.o" for s in srcs]
+    tmp = LIB.with_suffix(f".{pid}.tmp")
+    try:
+        res = run_parallel([
+            [nvcc, "-gencode", ARCH, "-std=c++17", "-O3", "-c",
+             "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(o), str(s)]
+            for s, o in zip(srcs, objs)])
+        if all(rc == 0 for rc, _ in res):
+            res += run_parallel([[nvcc, "-shared", "-o", str(tmp),
+                                  *map(str, objs)]])
+        log = "".join(out for _, out in res)
+        (BUILD_DIR / "nvcc.log").write_text(log)
+        if any(rc != 0 for rc, _ in res):
+            raise RuntimeError(f"nvcc failed:\n{log}")
+        os.replace(tmp, LIB)
+    finally:
+        for f in objs + [tmp]:
+            f.unlink(missing_ok=True)
     return LIB
 
 
@@ -78,5 +107,10 @@ def library() -> ctypes.CDLL:
             lib.sqz4_decode_launch.restype = i
             lib.sqz4_decode_launch.argtypes = [p, p, i, i, i, i, p, i, p, i,
                                                p, i, p, i, p]
+            lib.sqz4_encode_tok_launch.restype = i
+            lib.sqz4_encode_tok_launch.argtypes = [p, i, p, i, i, i, i, p, i,
+                                                   p, i, i, p]
+            lib.sqz4_compact_launch.restype = i
+            lib.sqz4_compact_launch.argtypes = [p, i, p, i, p, i, p]
             _lib = lib
         return _lib

@@ -1,0 +1,185 @@
+"""Pipelined sqz4 encode: overlap the host planner with the card
+(counterpart of ``sqz_tpu/ops/pipeline.py``).
+
+The input is cut into groups of ``lanes`` blocks. A planner thread plans
+group k+1 (and k+2: the queue holds two) while the main thread uploads
+group k from pinned host memory, runs its kernel on a CUDA stream of its
+own and downloads its payloads, group after group in order. The native
+planner releases the GIL, so the two threads run at once.
+
+Payloads equal the serial path's (``sqz4_cuda.encode_data_full``) for the
+same parse: grouping only batches the launches, and every block is coded
+from its own op sequence and fresh models.
+"""
+
+from __future__ import annotations
+
+import os
+import queue
+import threading
+import time
+from typing import List
+
+import numpy as np
+import torch
+
+from sqz_tpu_torch import convert, native
+from sqz_tpu_torch.ops import sqz4_cuda, sqz4_host as host
+
+
+def _transport(parse: str, transport: str) -> str:
+    """'tok' (one u32 token per parse decision plus packed literals, ~1.1 B
+    of upload per input byte; the fast parse's default) or 'ops' (micro-op
+    streams, ~4.5 B/B; the exact parse's). SQZ_TRANSPORT overrides."""
+    env = os.environ.get("SQZ_TRANSPORT")
+    if env in ("tok", "ops"):
+        transport = env
+    elif transport == "auto":
+        transport = "tok" if parse == "fast" else "ops"
+    if transport == "tok" and parse != "fast":
+        raise ValueError("the token transport carries the fast parse only")
+    return transport
+
+
+def _plan_ops(chunk: bytes, blk_bits: int, window: int, lz: bool,
+              parse: str, lanes: int, pin: bool):
+    """One group's op streams as uint32 [1, rows, lanes] host tensors (the
+    fast parse relaid on the host: its rows are contiguous per block)."""
+    tp_cap = host.op_stream_cap(blk_bits)
+    if parse == "fast":
+        m8, s8, mx = native.sqz4_fast_plan(chunk, window, blk_bits, lz,
+                                           tp_cap,
+                                           depth=sqz4_cuda.fast_depth())
+        rows = -(-int(mx) // 4)
+        m_u8, s_u8 = convert.fast_plan_inputs(m8, s8, lanes, rows, "cpu")
+        mw, sw = (convert.to_numpy(sqz4_cuda.pack_ops_words(x))
+                  for x in (m_u8, s_u8))
+    else:
+        mw, sw, mx = native.sqz4_plan_pack(chunk, window, blk_bits, lz,
+                                           lanes, tp_cap)
+        rows = -(-int(mx) // 4)
+        mw, sw = mw[:, :rows], sw[:, :rows]
+    out = []
+    for a in (mw, sw):
+        t = torch.empty(a.shape, dtype=torch.int32, pin_memory=pin)
+        t.numpy()[...] = a.view(np.int32)
+        out.append(t)
+    return out
+
+
+def encode_data_pipelined(data: bytes, blk_bits: int, window: int, lz: bool,
+                          cap: int, parse: str = "auto", lanes: int = None,
+                          device="cuda", transport: str = "auto",
+                          tok_cap: int = None,
+                          stats: dict = None) -> List[bytes]:
+    """Whole-buffer sqz4 encode with host/device overlap; returns the
+    per-block payloads (the contract of ``sqz4_cuda.encode_data_full``).
+
+    ``parse`` as in ``encode_data_full`` (SQZ_PARSE overrides);
+    ``transport`` 'tok', 'ops' or 'auto' (``_transport``); ``lanes``
+    blocks a group (default 512); ``tok_cap`` overrides the token cap
+    (blocks over it take the op-stream kernel); SQZ_FAST_DEPTH and
+    SQZ_FETCH as in ``sqz4_cuda``.
+
+    ``stats`` (optional dict) gets the active wall seconds of each stage:
+    plan_s (planner thread), wait_plan_s (main thread waiting for a plan),
+    dispatch_s (uploads and kernel launches), fence_s (waiting for the
+    kernel), fetch_s (payload download and unpacking) and wall_s. The
+    stages overlap: a sum above wall_s measures the overlap."""
+    st = stats if stats is not None else {}
+    for k in ("plan_s", "wait_plan_s", "dispatch_s", "fence_s", "fetch_s"):
+        st[k] = 0.0
+    t_wall = time.perf_counter()
+    sqz4_cuda.check_blk_bits(blk_bits)
+    dev = torch.device(device)
+    parse = host.parse_mode(parse)
+    transport = _transport(parse, transport)
+    fetch = sqz4_cuda.fetch_mode()
+    lanes = lanes or host.LANES
+    pin = dev.type == "cuda"
+    bs = 1 << blk_bits
+    gbytes = bs * lanes
+    groups = max(1, -(-len(data) // gbytes))
+
+    # ---- planner thread: one group at a time into a queue of two
+    q: queue.Queue = queue.Queue(maxsize=2)
+    stop = threading.Event()                 # set on a main-loop failure
+
+    def planner():
+        try:
+            for g in range(groups):
+                if stop.is_set():
+                    break
+                t0 = time.perf_counter()
+                chunk = data[g * gbytes:(g + 1) * gbytes]
+                if transport == "tok":
+                    plan = sqz4_cuda.plan_tok_group(chunk, blk_bits, window,
+                                                    lz, tok_cap, pin)
+                else:
+                    plan = _plan_ops(chunk, blk_bits, window, lz, parse,
+                                     lanes, pin)
+                st["plan_s"] += time.perf_counter() - t0
+                q.put((chunk, plan))
+        except BaseException as e:           # surface planner errors
+            q.put(e)
+            return
+        q.put(None)
+
+    thread = threading.Thread(target=planner, name="sqz4-planner",
+                              daemon=True)
+    thread.start()
+
+    # ---- main thread: upload, launch and download each group in order
+    stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
+    payloads: List[bytes] = []
+    try:
+        with torch.cuda.stream(stream):
+            while True:
+                t0 = time.perf_counter()
+                item = q.get()
+                st["wait_plan_s"] += time.perf_counter() - t0
+                if item is None:
+                    break
+                if isinstance(item, BaseException):
+                    raise item
+                chunk, plan = item
+                if transport == "tok":
+                    payloads += sqz4_cuda.encode_tok_group(
+                        plan, chunk, blk_bits, window, lz, cap, dev, fetch,
+                        st)
+                else:
+                    payloads += _encode_ops_group(plan, chunk, blk_bits, cap,
+                                                  dev, fetch, st)
+    except BaseException:
+        # cancel and unblock the planner (bounded queue) so the thread
+        # exits after at most its current group
+        stop.set()
+        while thread.is_alive():
+            try:
+                q.get(timeout=0.05)
+            except queue.Empty:
+                pass
+        raise
+    thread.join()
+    st["wall_s"] = time.perf_counter() - t_wall
+    return payloads
+
+
+def _encode_ops_group(plan, chunk: bytes, blk_bits: int, cap: int, dev,
+                      fetch: str, st: dict) -> List[bytes]:
+    """One planned group of op streams through the op-stream kernel."""
+    nb = max(1, -(-len(chunk) // (1 << blk_bits)))
+    t = time.perf_counter()
+    m, s = (x.to(dev, non_blocking=True).view(torch.uint32) for x in plan)
+    words, lens = sqz4_cuda.encode_full(m, s, host.cap_words_for(cap))
+    t = sqz4_cuda.add_stage(st, "dispatch_s", t)
+    return sqz4_cuda.collect_group(words, lens, nb, fetch, st, t)
+
+
+def decode_data_pipelined(payloads, sizes, blk_bits: int, device="cuda",
+                          stats: dict = None) -> List[bytes]:
+    """Whole-container decode: ``sqz4_cuda.decode_groups``, which takes
+    every block in one launch (the reference's default; its threaded
+    packer, SQZ_DEC_PIPE=thread, is not ported)."""
+    return sqz4_cuda.decode_groups(payloads, sizes, blk_bits, device=device,
+                                   stats=stats)

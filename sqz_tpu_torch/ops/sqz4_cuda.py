@@ -1,30 +1,36 @@
 """sqz4 kernel wrappers and the whole-buffer device encode and decode.
 
-``encode_full`` and ``decode`` launch the CUDA kernels (``csrc/``) for
-tensors on a CUDA device and run the plain versions (``sqz4_ref``) for
-tensors on the CPU; any other device raises. Each counts its kernel
-launches in its ``launches`` attribute.
+``encode_full``, ``encode_tok``, ``decode`` and ``compact_words`` launch
+the CUDA kernels (``csrc/``) for tensors on a CUDA device and run the
+plain versions (``sqz4_ref``) for tensors on the CPU; any other device
+raises. Each counts its kernel launches in its ``launches`` attribute.
 
-``encode_data_full`` and ``decode_groups`` are the main path around them:
-the native host planner -> op streams -> encoder kernel -> payloads, and
-payloads -> decoder kernel -> token records -> native host assembly.
-Every block of a call goes in one launch (blocks ride lanes of
-``[groups, rows, lanes]`` arrays, as in the reference).
+``encode_data_full``, ``encode_data_tok`` and ``decode_groups`` are the
+main path around them: the native host planner -> op streams or tokens
+-> encoder kernel -> payloads (downloaded trimmed, or compacted on the
+card), and payloads -> decoder kernel -> token records -> native host
+assembly. Blocks ride lanes of ``[groups, rows, lanes]`` arrays, as in
+the reference.
 """
 
 from __future__ import annotations
 
+import os
 import time
+from typing import NamedTuple
 
+import numpy as np
 import torch
 
-from sqz_tpu_torch import convert
+from sqz_tpu_torch import convert, native
 from sqz_tpu_torch.ops import sqz4_host as host
 from sqz_tpu_torch.ops import sqz4_ref
 
 # Blocks (one per thread) per CTA. One spreads a call's serial chains over
 # every SM with no divergence inside a warp; it measured fastest (PERF.md).
 THREADS = 1
+# Threads per CTA of the compaction kernel (one CTA per payload column).
+COMPACT_THREADS = 256
 
 
 def _kernel_device(*tensors) -> torch.device:
@@ -51,7 +57,7 @@ def _zeros(shape, dtype, dev):
     return z.view(torch.uint32) if dtype == torch.uint32 else z
 
 
-def _check_blk_bits(blk_bits: int):
+def check_blk_bits(blk_bits: int):
     if blk_bits > 16:
         # the device model totals stay below 2^17 only up to 64 KiB blocks
         raise ValueError("sqz4 device kernels support blk_bits <= 16")
@@ -126,6 +132,68 @@ def decode(payload: torch.Tensor, meta: torch.Tensor, t_max: int, lw: int,
 decode.launches = 0
 
 
+def encode_tok(toks: torch.Tensor, lits: torch.Tensor, t_max: int,
+               cap_words: int):
+    """sqz4 token encoder: toks uint32 [G, B, Tt] (one token row per
+    block, as ``native.sqz4_tok_plan`` emits them), lits uint8 [G, B, L]
+    (each block's literal bytes), at most ``t_max`` op pairs a block ->
+    (payload words uint32 [G, cap_words, B], lens int32 [G, 8, B]), the
+    op-stream encoder's outputs for the same parse."""
+    _check(toks, "toks", torch.uint32)
+    _check(lits, "lits", torch.uint8)
+    if toks.shape[:2] != lits.shape[:2]:
+        raise ValueError("toks and lits differ in groups or lanes")
+    dev = _kernel_device(toks, lits)
+    if dev.type == "cpu":
+        return sqz4_ref.encode_tok_ref(toks, lits, t_max, cap_words)
+    from sqz_tpu_torch.ops import _build
+    G, B, TT = toks.shape
+    words = _zeros((G, cap_words, B), torch.uint32, dev)
+    lens = _zeros((G, 8, B), torch.int32, dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = _build.library().sqz4_encode_tok_launch(
+            toks.data_ptr(), TT, lits.data_ptr(), lits.shape[2], G, B, t_max,
+            words.data_ptr(), cap_words, lens.data_ptr(), THREADS, 0, stream)
+    _launched(rc, "sqz4_encode_tok")
+    encode_tok.launches += 1
+    return words, lens
+
+
+encode_tok.launches = 0
+
+
+def compact_words(words: torch.Tensor, lens: torch.Tensor, nb: int):
+    """Payload compaction: words uint32 [1, R, B] (lane b's payload in the
+    first rows of column b), lens int32 [1, 8, B] (row 0 byte lengths) ->
+    uint32 [total]: the first ``nb`` lanes' payload words, lane after
+    lane. The output size is read from the lengths (one small download)."""
+    _check(words, "words", torch.uint32)
+    _check(lens, "lens", torch.int32)
+    _, R, B = words.shape
+    if words.shape[0] != 1 or lens.shape != (1, 8, B) or not 0 <= nb <= B:
+        raise ValueError("compaction takes words [1, R, B], lens [1, 8, B] "
+                         "and 0 <= nb <= B")
+    dev = _kernel_device(words, lens)
+    if dev.type == "cpu":
+        return sqz4_ref.compact_ref(words, lens, nb)
+    from sqz_tpu_torch.ops import _build
+    offsets = sqz4_ref.compact_offsets(lens, nb, R)
+    out = torch.empty(int(offsets[-1]), dtype=torch.int32,
+                      device=dev).view(torch.uint32)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = _build.library().sqz4_compact_launch(
+            words.data_ptr(), B, offsets.data_ptr(), nb, out.data_ptr(),
+            COMPACT_THREADS, stream)
+    _launched(rc, "sqz4_compact")
+    compact_words.launches += 1
+    return out
+
+
+compact_words.launches = 0
+
+
 def pack_ops_words(x8: torch.Tensor) -> torch.Tensor:
     """Op-stream relayout: [G, B, R] uint8 (one contiguous row per block,
     as ``native.sqz4_fast_plan`` emits them) -> the kernel's [G, R/4, B]
@@ -159,14 +227,10 @@ def encode_data_full(data: bytes, blk_bits: int, window: int, lz: bool,
 
     ``parse`` 'exact' plans with ``native.sqz4_plan_pack`` (payloads equal
     the native engine's); 'fast' (the 'auto' default, SQZ_PARSE overrides)
-    with ``native.sqz4_fast_plan`` plus the device relayout. ``stats``
-    (optional dict) accumulates the stage times plan_s, upload_s,
-    kernel_s and fetch_s."""
-    from sqz_tpu import native
-    _check_blk_bits(blk_bits)
-    if not native.available():
-        raise RuntimeError(f"native planner unavailable: "
-                           f"{native.build_error()}")
+    with ``native.sqz4_fast_plan`` (SQZ_FAST_DEPTH hash-chain links) plus
+    the device relayout. ``stats`` (optional dict) accumulates the stage
+    times plan_s, upload_s, kernel_s and fetch_s."""
+    check_blk_bits(blk_bits)
     dev = torch.device(device)
     parse = host.parse_mode(parse)
     bs = 1 << blk_bits
@@ -175,7 +239,7 @@ def encode_data_full(data: bytes, blk_bits: int, window: int, lz: bool,
     st = _Stages(stats, dev)
     if parse == "fast":
         m8, s8, mx = native.sqz4_fast_plan(data, window, blk_bits, lz,
-                                           tp_cap)
+                                           tp_cap, depth=fast_depth())
         rows = -(-int(mx) // 4)
         st.mark("plan_s")
         m_u8, s_u8 = convert.fast_plan_inputs(m8, s8, lanes, rows, dev)
@@ -197,6 +261,133 @@ def encode_data_full(data: bytes, blk_bits: int, window: int, lz: bool,
     payloads = host.unpack_group_payloads(words, lens, nb)
     st.mark("fetch_s")
     return payloads
+
+
+def fast_depth() -> int:
+    """Hash-chain links of the fast parse: SQZ_FAST_DEPTH, default 32."""
+    return int(os.environ.get("SQZ_FAST_DEPTH", "32"))
+
+
+def fetch_mode() -> str:
+    """How encoder payloads come to the host: SQZ_FETCH 'compact' (packed
+    on the card first, the default) or 'trim' (the rectangle cut at the
+    longest lane). Both give the same bytes."""
+    mode = os.environ.get("SQZ_FETCH", "compact")
+    if mode not in ("compact", "trim"):
+        raise ValueError(f"SQZ_FETCH must be 'compact' or 'trim', not "
+                         f"{mode!r}")
+    return mode
+
+
+def fetch_payloads(words, lens, nb: int, mode: str = "compact"):
+    """The first ``nb`` payload byte strings of one group (words uint32
+    [1, R, B], lens int32 [1, 8, B] on one device). ``mode`` 'compact'
+    packs them on the device first so only payload bytes are downloaded
+    (sqz4_pallas.py fetch_payloads_compact); 'trim' downloads the rows the
+    longest payload fills. Raises if a payload outgrew the R rows."""
+    lens_np = convert.to_numpy(lens)
+    if int(lens_np[0, 0, :nb].max(initial=0)) > 4 * words.shape[1]:
+        raise ValueError("compressed block exceeded the output capacity")
+    if mode == "compact":
+        buf = convert.to_numpy(compact_words(words, lens, nb)).astype(
+            ">u4").tobytes()
+        return [buf[s:s + n]
+                for s, n in host.compact_byte_ranges(lens_np, nb)]
+    return host.unpack_group_payloads(
+        convert.to_numpy(words[:, :host.trimmed_rows(lens_np)]), lens_np, nb)
+
+
+def collect_group(words, lens, nb: int, fetch: str, stats, t0: float):
+    """Wait for a group's kernel (fence_s since ``t0``), then download its
+    payloads (fetch_s)."""
+    if words.is_cuda:
+        torch.cuda.current_stream(words.device).synchronize()
+    t = add_stage(stats, "fence_s", t0)
+    out = fetch_payloads(words, lens, nb, fetch)
+    add_stage(stats, "fetch_s", t)
+    return out
+
+
+class TokGroup(NamedTuple):
+    """One group's token-transport plan (``plan_tok_group``): its block
+    count, the blocks that fit the caps in lane order and those over them,
+    the pair budget, and the slabs toks [1, len(fit), rows] and lits
+    [1, len(fit), bytes] as int32 / uint8 host tensors."""
+    nb: int
+    fit: list
+    over: list
+    t_max: int
+    toks: torch.Tensor
+    lits: torch.Tensor
+
+
+def plan_tok_group(chunk: bytes, blk_bits: int, window: int, lz: bool,
+                   tok_cap: int = None, pin: bool = False) -> TokGroup:
+    """Plan one group on the host: ``native.sqz4_tok_plan`` (fast parse),
+    the straggler sort and the slabs, in pinned memory if ``pin`` (for
+    asynchronous uploads). ``tok_cap`` overrides the token cap."""
+    dflt_tok, lit_cap = host.tok_caps(blk_bits)
+    toks, lits, counts, _mx = native.sqz4_tok_plan(
+        chunk, window, blk_bits, lz, tok_cap or dflt_tok, lit_cap,
+        depth=fast_depth())
+    fit, over, rows, lbytes, t_max = host.tok_group_slab(counts)
+    tt = torch.empty((1, len(fit), rows), dtype=torch.int32, pin_memory=pin)
+    lt = torch.empty((1, len(fit), lbytes), dtype=torch.uint8,
+                     pin_memory=pin)
+    tt.numpy()[0] = toks[fit, :rows].view(np.int32)
+    lt.numpy()[0] = lits[fit, :lbytes]
+    return TokGroup(counts.shape[0], fit, over, t_max, tt, lt)
+
+
+def add_stage(stats, key, t0):
+    """Add the seconds since ``t0`` to ``stats[key]``; returns now."""
+    now = time.perf_counter()
+    if stats is not None:
+        stats[key] = stats.get(key, 0.0) + now - t0
+    return now
+
+
+def encode_tok_group(grp: TokGroup, chunk: bytes, blk_bits: int,
+                     window: int, lz: bool, cap: int, device="cuda",
+                     fetch: str = "compact", stats: dict = None):
+    """One planned group on ``device``: upload (asynchronous from pinned
+    memory), the token kernel, the lengths (the fence), the payloads by
+    ``fetch``; blocks over the token caps re-route through the op-stream
+    kernel (sqz4_pallas.py:1476-1483). ``stats`` accumulates dispatch_s,
+    fence_s and fetch_s. Returns the group's payloads in block order."""
+    dev = torch.device(device)
+    payloads = [None] * grp.nb
+    if grp.fit:
+        t = time.perf_counter()
+        toks = grp.toks.to(dev, non_blocking=True).view(torch.uint32)
+        lits = grp.lits.to(dev, non_blocking=True)
+        words, lens = encode_tok(toks, lits, grp.t_max,
+                                 host.cap_words_for(cap))
+        t = add_stage(stats, "dispatch_s", t)
+        for b, p in zip(grp.fit, collect_group(words, lens, len(grp.fit),
+                                               fetch, stats, t)):
+            payloads[b] = p
+    if grp.over:
+        bs = 1 << blk_bits
+        sub = encode_data_full(
+            b"".join(chunk[b * bs:(b + 1) * bs] for b in grp.over),
+            blk_bits, window, lz, cap, parse="fast", device=dev)
+        for b, p in zip(grp.over, sub):
+            payloads[b] = p
+    return payloads
+
+
+def encode_data_tok(data: bytes, blk_bits: int, window: int, lz: bool,
+                    cap: int, device="cuda", tok_cap: int = None):
+    """Whole-buffer encode through the token kernel (fast parse), every
+    fitting block in one launch; payloads equal ``encode_data_full``'s
+    with ``parse="fast"`` (sqz4_pallas.py encode_data_tok)."""
+    check_blk_bits(blk_bits)
+    dev = torch.device(device)
+    grp = plan_tok_group(data, blk_bits, window, lz, tok_cap,
+                         pin=dev.type == "cuda")
+    return encode_tok_group(grp, data, blk_bits, window, lz, cap, dev,
+                            fetch_mode())
 
 
 def fetch_decode_host(lit, tok, mrec, counts):
@@ -226,7 +417,7 @@ def decode_groups(payloads, sizes, blk_bits: int, device="cuda",
     default positions) for a corrupt block. Payloads too long for the
     decoder buffer decode on the host codec. ``stats`` (optional dict)
     accumulates pack_s, upload_s, kernel_s, fetch_s and assemble_s."""
-    _check_blk_bits(blk_bits)
+    check_blk_bits(blk_bits)
     nb = len(payloads)
     if nb == 0:
         return []

@@ -1,7 +1,8 @@
 """Host-side glue of the sqz4 device path (numpy, no torch, no JAX).
 
 Ports of the numpy helpers that live inside ``sqz_tpu/ops/sqz4_pallas.py``
-(which cannot be imported without JAX): the parse policy, the decode
+and ``sqz_tpu/ops/pipeline.py`` (which cannot be imported without JAX):
+the parse policy, the token transport's caps and group slabs, the decode
 dispatch plan, payload packing for the decoder, payload unpacking for the
 encoder, and the host stage after the decoder. Array layouts are the
 reference's: ``[groups, rows, lanes]``, one block per lane.
@@ -12,6 +13,8 @@ from __future__ import annotations
 import os
 
 import numpy as np
+
+from sqz_tpu_torch import native
 
 LANES = 512   # blocks per group: the lane axis of the kernels' arrays
 
@@ -36,6 +39,42 @@ def cap_words_for(cap: int) -> int:
     """Encoder output rows for a payload byte capacity (32-row multiple,
     as the reference sizes them)."""
     return (-(-(cap + 3) // 4) + 31) // 32 * 32
+
+
+def tok_caps(blk_bits: int):
+    """(tok_cap, lit_cap): tokens and literal bytes a block may plan into
+    for the token transport (sqz4_pallas.py:1434-1435); a block whose
+    parse needs more takes the op-stream path."""
+    bs = 1 << blk_bits
+    return min(-(-(2 * bs // 3 + 96) // 32) * 32, 1 << 14), max(bs, 128)
+
+
+def tok_group_slab(counts: np.ndarray):
+    """Sizing of one group's token slab from ``native.sqz4_tok_plan``'s
+    counts (n_tok, n_lit, n_pairs per block; n_pairs < 0: over the caps).
+
+    Returns (fit, over, rows, lit_bytes, t_max): the blocks that fit,
+    sorted by pair count (the reference's straggler sort, pipeline.py:
+    106-109), so lane i codes block fit[i]; the blocks over the caps; the
+    slab's token rows and literal bytes per lane (the longest fitting
+    block's, at least 1); and the pair budget (the longest block's)."""
+    fit = sorted(np.nonzero(counts[:, 2] >= 0)[0].tolist(),
+                 key=lambda b: int(counts[b, 2]))
+    over = np.nonzero(counts[:, 2] < 0)[0].tolist()
+    if not fit:
+        return fit, over, 1, 1, 0
+    cf = counts[fit]
+    return (fit, over, max(1, int(cf[:, 0].max())),
+            max(1, int(cf[:, 1].max())), int(cf[:, 2].max()))
+
+
+def compact_byte_ranges(lens: np.ndarray, nb: int):
+    """[(start, length)] of each of the first ``nb`` lanes' payload bytes
+    in the compacted buffer: lane b's words follow lane b-1's."""
+    blen = lens[0, 0, :nb].astype(np.int64)
+    starts = np.zeros(nb, np.int64)
+    starts[1:] = np.cumsum((blen[:-1] + 3) // 4) * 4
+    return list(zip(starts.tolist(), blen.tolist()))
 
 
 def unpack_group_payloads(words: np.ndarray, lens: np.ndarray, nb: int):
@@ -83,7 +122,6 @@ def pack_decode_chunk(payloads, sizes, lanes: int, groups: int, pw: int):
     """Payload bytes -> ([groups, pw, lanes] big-endian u32 words, zero
     padded; [groups, 8, lanes] i32 meta: rows payload length, original
     size, dictionary length (0: cold blocks))."""
-    from sqz_tpu import native
     meta = np.zeros((groups, 8, lanes), dtype=np.int32)
     for i, p in enumerate(payloads):
         if len(p) > 4 * pw:
@@ -92,40 +130,12 @@ def pack_decode_chunk(payloads, sizes, lanes: int, groups: int, pw: int):
         g, lane = divmod(i, lanes)
         meta[g, 0, lane] = len(p)
         meta[g, 1, lane] = sizes[i]
-    if native.available():
-        buf = native.sqz4_pack_payloads(payloads, lanes, pw)
-        if buf.shape[0] < groups:
-            buf = np.concatenate(
-                [buf, np.zeros((groups - buf.shape[0],) + buf.shape[1:],
-                               np.uint32)])
-        return buf, meta
-    buf = np.zeros((groups, pw, lanes), dtype=np.uint32)
-    for i, p in enumerate(payloads):
-        g, lane = divmod(i, lanes)
-        w = np.frombuffer(p.ljust(-(-len(p) // 4) * 4, b"\0"), dtype=">u4")
-        buf[g, :len(w), lane] = w
+    buf = native.sqz4_pack_payloads(payloads, lanes, pw)
+    if buf.shape[0] < groups:
+        buf = np.concatenate(
+            [buf, np.zeros((groups - buf.shape[0],) + buf.shape[1:],
+                           np.uint32)])
     return buf, meta
-
-
-def assemble_tokens_numpy(tok_bits: np.ndarray, lits: bytes,
-                          mrecs: np.ndarray, ntok: int, size: int) -> bytes:
-    """Reference reconstruction of one block from the decoder's records."""
-    out = bytearray()
-    li = 0
-    mi = 0
-    for tix in range(ntok):
-        if (int(tok_bits[tix >> 5]) >> (tix & 31)) & 1:
-            rec = int(mrecs[mi])
-            mi += 1
-            length, dist = rec >> 16, rec & 0xFFFF
-            for _ in range(length):
-                out.append(out[-dist])
-        else:
-            out.append(lits[li])
-            li += 1
-    if len(out) != size:
-        raise ValueError(f"records produce {len(out)} of {size} bytes")
-    return bytes(out)
 
 
 def postprocess_decode(lit, tok, mrec, counts, payloads, sizes, bs,
@@ -137,7 +147,6 @@ def postprocess_decode(lit, tok, mrec, counts, payloads, sizes, bs,
     record buffer (counts row 6) decode on the host codec instead, as the
     reference does. ``transposed``: lit/tok/mrec are [g, lanes, W];
     default is the kernel layout [g, W, lanes]."""
-    from sqz_tpu import native
     nb = len(payloads)
     if transposed:
         g, lanes = lit.shape[0], lit.shape[1]
@@ -167,24 +176,15 @@ def postprocess_decode(lit, tok, mrec, counts, payloads, sizes, bs,
     for b in np.nonzero(ovf)[0]:
         outs[b] = host_decode(payloads[b], sizes[b])
     live = np.nonzero(ovf == 0)[0]
-    if live.size and native.available():
+    if live.size:
         asm = native.assemble_blocks(
             tokb[live], litu8[live], mrecb[live],
             ntoks[live].astype(np.int64), szs[live], bs)
         for i, b in enumerate(live):
             outs[b] = asm[i, :sizes[b]].tobytes()
-    else:
-        for b in live:
-            outs[b] = assemble_tokens_numpy(
-                tokb[b], litu8[b].tobytes(), mrecb[b], int(ntoks[b]),
-                sizes[b])
     return outs
 
 
 def host_decode(payload: bytes, size: int) -> bytes:
-    """One payload through the host codec (native, else the oracle)."""
-    from sqz_tpu import native
-    if native.available():
-        return native.sqz4_decompress_payload(payload, size)
-    from sqz_tpu.oracle.sqz4 import sqz4_decode_payload
-    return sqz4_decode_payload(payload, size)
+    """One payload through the native host codec."""
+    return native.sqz4_decompress_payload(payload, size)

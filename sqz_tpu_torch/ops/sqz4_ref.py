@@ -1,11 +1,13 @@
-"""Plain PyTorch versions of the two sqz4 kernels.
+"""Plain PyTorch versions of the sqz4 kernels.
 
-Each runs every block of the call in lock-step, one coder op (encoder) or
-one token step (decoder) per Python iteration, with the same inputs and
-outputs as its CUDA kernel (``csrc/sqz4_encode.cu``, ``csrc/sqz4_decode.cu``)
-and as the reference's Pallas launchers. They run on any device; the
-wrappers in ``sqz4_cuda`` use them for CPU tensors, and ``chip_smoke.py``
-holds each kernel against them on the card.
+The coders run every block of the call in lock-step, one coder op
+(op-stream encoder), one op pair (token encoder) or one token step
+(decoder) per Python iteration, with the same inputs and outputs as
+their CUDA kernels (``csrc/sqz4_encode.cu``, ``csrc/sqz4_encode_tok.cu``,
+``csrc/sqz4_decode.cu``) and as the reference's Pallas launchers; the
+compaction is a concatenation (``csrc/sqz4_compact.cu``). They run on
+any device; the wrappers in ``sqz4_cuda`` use them for CPU tensors, and
+``chip_smoke.py`` holds each kernel against them on the card.
 
 A u64 coder register is an int64 tensor holding the same 64 bits: add,
 subtract, multiply and left shift wrap identically, and the helpers below
@@ -78,36 +80,37 @@ def to_u32(x):
         torch.int32).view(torch.uint32)
 
 
-def encode_full_ref(m_ops, s_ops, cap_words: int):
-    """m_ops / s_ops: uint32 [G, T/4, B] (four big-endian u8 ops a word).
-    Returns (words uint32 [G, cap_words, B], lens int32 [G, 8, B])."""
-    G, TW, B = m_ops.shape
-    dev = m_ops.device
-    N = G * B
-    shifts = torch.tensor([24, 16, 8, 0], dtype=I64, device=dev)
-    mops = ((_lanes(m_ops, TW)[:, None, :] >> shifts[None, :, None]) & 0xFF
-            ).reshape(TW * 4, N)
-    sops = ((_lanes(s_ops, TW)[:, None, :] >> shifts[None, :, None]) & 0xFF
-            ).reshape(TW * 4, N)
-    iota256 = torch.arange(256, dtype=I64, device=dev)[None, :]
-    iota32 = torch.arange(32, dtype=I64, device=dev)[None, :]
-    cb = (iota256 + 1).repeat(N, 1)
-    cs = cb.clone()
-    bits = (iota32 + 1).repeat(N, 1)
-    d0 = torch.ones(N, 32, dtype=I64, device=dev)
-    d1 = torch.ones_like(d0)
-    lit0 = torch.ones(N, dtype=I64, device=dev)
-    lit1 = torch.ones_like(lit0)
-    low = torch.zeros(N, dtype=I64, device=dev)
-    rng = torch.full((N,), -1, dtype=I64, device=dev)
-    cap = cap_words * 4
-    out = torch.zeros(N, cap + 1, dtype=I64, device=dev)   # + trash column
-    pos = torch.zeros(N, dtype=I64, device=dev)
-    rows = torch.arange(N, device=dev)
-    k8 = torch.arange(8, dtype=I64, device=dev)[None, :]
-    zero = torch.zeros_like(low)
-    for t in range(TW * 4):
-        m, s = mops[t], sops[t]
+class _Coder:
+    """Per-lane range encoders (coder registers, models, output bytes) for
+    N lanes in lock-step; ``code`` takes one micro-op per lane, as the
+    kernels' shared coder step does (csrc/sqz4_coder.cuh Encoder::code)."""
+
+    def __init__(self, n: int, cap_words: int, dev):
+        self.iota256 = torch.arange(256, dtype=I64, device=dev)[None, :]
+        self.iota32 = torch.arange(32, dtype=I64, device=dev)[None, :]
+        self.cb = (self.iota256 + 1).repeat(n, 1)
+        self.cs = self.cb.clone()
+        self.bits = (self.iota32 + 1).repeat(n, 1)
+        self.d0 = torch.ones(n, 32, dtype=I64, device=dev)
+        self.d1 = torch.ones_like(self.d0)
+        self.lit0 = torch.ones(n, dtype=I64, device=dev)
+        self.lit1 = torch.ones_like(self.lit0)
+        self.low = torch.zeros(n, dtype=I64, device=dev)
+        self.rng = torch.full((n,), -1, dtype=I64, device=dev)
+        self.cap = cap_words * 4
+        self.out = torch.zeros(n, self.cap + 1, dtype=I64,
+                               device=dev)   # + trash column
+        self.pos = torch.zeros(n, dtype=I64, device=dev)
+        self.rows = torch.arange(n, device=dev)
+        self.k8 = torch.arange(8, dtype=I64, device=dev)[None, :]
+        self.cap_words = cap_words
+
+    def code(self, m, s):
+        """One micro-op a lane: m 0 flag, 1 size, 2 byte, 3 bits, 4..35
+        distance bit, 254 flush, others pad; s its symbol (int64 [N])."""
+        rows, iota256, iota32 = self.rows, self.iota256, self.iota32
+        low, rng = self.low, self.rng
+        zero = torch.zeros_like(low)
         is_flag, is_size, is_byte, is_bits = m == 0, m == 1, m == 2, m == 3
         is_dist = (m >= 4) & (m < 36)
         is256 = is_byte | is_size
@@ -117,33 +120,33 @@ def encode_full_ref(m_ops, s_ops, cap_words: int):
         s256 = torch.where(is256, s, zero)
         bitp = torch.where(is_dist, m - 4, zero)
 
-        tab = torch.where(is_byte[:, None], cb, cs)
+        tab = torch.where(is_byte[:, None], self.cb, self.cs)
         at256 = tab[rows, s256]
         st256 = torch.where(s256 > 0, tab[rows, (s256 - 1).clamp(min=0)],
                             zero)
         sbit = torch.where(is_bits, sb, zero)
-        at32 = bits[rows, sbit]
-        st32 = torch.where(sbit > 0, bits[rows, (sbit - 1).clamp(min=0)],
+        at32 = self.bits[rows, sbit]
+        st32 = torch.where(sbit > 0, self.bits[rows, (sbit - 1).clamp(min=0)],
                            zero)
-        f0 = torch.where(is_flag, lit0, d0[rows, bitp])
-        f1 = torch.where(is_flag, lit1, d1[rows, bitp])
+        f0 = torch.where(is_flag, self.lit0, self.d0[rows, bitp])
+        f1 = torch.where(is_flag, self.lit1, self.d1[rows, bitp])
         one = sb == 1
         start = torch.where(is256, st256, torch.where(
             is_bits, st32, torch.where(one, f0, zero)))
         size = torch.where(is256, at256 - st256, torch.where(
             is_bits, at32 - st32, torch.where(one, f1, f0)))
         total = torch.where(is256, tab[:, 255], torch.where(
-            is_bits, bits[:, 31], f0 + f1))
+            is_bits, self.bits[:, 31], f0 + f1))
 
         # adaptive update, strictly after reading the statistics
-        cb += (is_byte[:, None] & (iota256 >= s256[:, None])).to(I64)
-        cs += (is_size[:, None] & (iota256 >= s256[:, None])).to(I64)
-        bits += (is_bits[:, None] & (iota32 >= sbit[:, None])).to(I64)
-        lit0 += (is_flag & ~one).to(I64)
-        lit1 += (is_flag & one).to(I64)
+        self.cb += (is_byte[:, None] & (iota256 >= s256[:, None])).to(I64)
+        self.cs += (is_size[:, None] & (iota256 >= s256[:, None])).to(I64)
+        self.bits += (is_bits[:, None] & (iota32 >= sbit[:, None])).to(I64)
+        self.lit0 += (is_flag & ~one).to(I64)
+        self.lit1 += (is_flag & one).to(I64)
         hit = is_dist[:, None] & (iota32 == bitp[:, None])
-        d0 += (hit & ~one[:, None]).to(I64)
-        d1 += (hit & one[:, None]).to(I64)
+        self.d0 += (hit & ~one[:, None]).to(I64)
+        self.d1 += (hit & one[:, None]).to(I64)
 
         # coder: narrow, renormalize, underflow escape, flush
         q = _udiv_small(rng, torch.where(active, total, zero + 1))
@@ -158,20 +161,144 @@ def encode_full_ref(m_ops, s_ops, cap_words: int):
         rng = torch.where(uf, ~low, rng)
         cnt = cnt + 2 * uf.to(I64)
         cnt = torch.where(flush, zero + 1, cnt)
-        low = torch.where(flush, pre << 8, low)
+        self.low = torch.where(flush, pre << 8, low)
+        self.rng = rng
 
         # emission: the top min(cnt, 8) bytes of pre; bytes past 8 are 0
+        k8, pos, cap = self.k8, self.pos, self.cap
         byte = (pre[:, None] >> (56 - 8 * k8)) & 0xFF
         col = torch.where((k8 < cnt[:, None]) & (pos[:, None] + k8 < cap),
                           pos[:, None] + k8, cap)
-        out.scatter_(1, col, byte)
-        pos = pos + cnt
-    w = out[:, :cap].reshape(N, cap_words, 4)
-    words = (w[..., 0] << 24) | (w[..., 1] << 16) | (w[..., 2] << 8) | w[..., 3]
-    lens = torch.zeros(N, 8, dtype=I64, device=dev)
-    lens[:, 0] = pos
-    return (to_u32(_from_lanes(words, G, B)),
-            _from_lanes(lens, G, B).to(torch.int32))
+        self.out.scatter_(1, col, byte)
+        self.pos = pos + cnt
+
+    def result(self, g: int, b: int):
+        """(words uint32 [G, cap_words, B], lens int32 [G, 8, B])."""
+        n = self.out.shape[0]
+        w = self.out[:, :self.cap].reshape(n, self.cap_words, 4)
+        words = ((w[..., 0] << 24) | (w[..., 1] << 16) | (w[..., 2] << 8)
+                 | w[..., 3])
+        lens = torch.zeros(n, 8, dtype=I64, device=words.device)
+        lens[:, 0] = self.pos
+        return (to_u32(_from_lanes(words, g, b)),
+                _from_lanes(lens, g, b).to(torch.int32))
+
+
+def encode_full_ref(m_ops, s_ops, cap_words: int):
+    """m_ops / s_ops: uint32 [G, T/4, B] (four big-endian u8 ops a word).
+    Returns (words uint32 [G, cap_words, B], lens int32 [G, 8, B])."""
+    G, TW, B = m_ops.shape
+    dev = m_ops.device
+    N = G * B
+    shifts = torch.tensor([24, 16, 8, 0], dtype=I64, device=dev)
+    mops = ((_lanes(m_ops, TW)[:, None, :] >> shifts[None, :, None]) & 0xFF
+            ).reshape(TW * 4, N)
+    sops = ((_lanes(s_ops, TW)[:, None, :] >> shifts[None, :, None]) & 0xFF
+            ).reshape(TW * 4, N)
+    coder = _Coder(N, cap_words, dev)
+    for t in range(TW * 4):
+        coder.code(mops[t], sops[t])
+    return coder.result(G, B)
+
+
+TOK_DONE = M32   # a lane's token after its last pair
+MOP_PAD = 255
+
+
+def encode_tok_ref(toks, lits, t_max: int, cap_words: int):
+    """toks: uint32 [G, B, Tt] (one token row per block, as
+    ``native.sqz4_tok_plan`` emits them); lits: uint8 [G, B, L] (each
+    block's literal bytes). Expands the tokens into coder op pairs with
+    the kernels' (token, phase) machine, one pair a step for ``t_max``
+    steps (csrc/sqz4_encode_tok.cu). Returns (words uint32
+    [G, cap_words, B], lens int32 [G, 8, B])."""
+    G, B, TT = toks.shape
+    L = lits.shape[2]
+    dev = toks.device
+    N = G * B
+    tk = toks.reshape(N, TT).view(torch.int32).to(I64) & M32
+    tk = torch.cat([tk, torch.zeros(N, 1, dtype=I64, device=dev)], 1)
+    lt = torch.cat([lits.reshape(N, L).to(I64),
+                    torch.zeros(N, 1, dtype=I64, device=dev)], 1)
+    rows = torch.arange(N, device=dev)
+    zero = torch.zeros(N, dtype=I64, device=dev)
+    tok, phase, run, tidx, lidx = zero, zero, zero, zero, zero
+    coder = _Coder(N, cap_words, dev)
+    pad = zero + MOP_PAD
+    for _ in range(t_max):
+        # fetch the next token on lanes that consumed theirs
+        need = tok == 0
+        fetched = torch.where(need, tk[rows, tidx.clamp(max=TT)], tok)
+        tok = torch.where(need & (fetched == 0), zero + TOK_DONE, fetched)
+        tidx = tidx + need.to(I64)
+        phase = torch.where(need, zero, phase)
+        done = tok == TOK_DONE
+        if bool(done.all()):
+            break
+        isflush = (phase >= 16) & ~done
+        ismatch = (((tok >> 8) & 1) == 1) & ~done & ~isflush
+        cnt_len = tok & 0xFF
+        nb = (tok >> 9) & 0x1F
+        dist = (tok >> 16) & 0x7FFF
+        eos = ismatch & (cnt_len == 255)
+        islit = ~done & ~isflush & ~ismatch
+        run = torch.where(need & islit, cnt_len, run)
+        lbyte = lt[rows, lidx.clamp(max=L)]
+
+        # expand (token, phase) -> the pair (m1, s1), (m2, s2)
+        p0 = ismatch & (phase == 0)
+        p1 = ismatch & (phase == 1)
+        pk = ismatch & (phase >= 2)
+        k1 = (2 * phase - 3).clamp(min=0)
+        k2 = (2 * phase - 2).clamp(min=0)
+        flush = zero + MOP_FLUSH
+        m1 = torch.where(islit | p0, zero, torch.where(
+            p1, zero + 3, torch.where(pk, 4 + k1, torch.where(
+                isflush, flush, pad))))
+        s1 = torch.where(islit, zero + 1, torch.where(
+            p1, nb, torch.where(pk, (dist >> k1) & 1, zero)))
+        m2 = torch.where(islit, zero + 2, torch.where(
+            p0, zero + 1, torch.where(p1 & (nb >= 2), zero + 4, torch.where(
+                pk & (k2 <= nb - 2), 4 + k2, torch.where(
+                    isflush, flush, pad)))))
+        s2 = torch.where(islit, lbyte, torch.where(
+            p0, cnt_len, torch.where(p1, dist & 1, torch.where(
+                pk, (dist >> k2) & 1, zero))))
+
+        # advance the expansion state
+        litlast = islit & (run == 1)
+        run = torch.where(islit, run - 1, run)
+        lidx = lidx + islit.to(I64)
+        adv = (p1 & (nb <= 2)) | (pk & (k2 >= nb - 2))
+        nxt = torch.where(p0, torch.where(eos, zero + 16, zero + 1), phase)
+        nxt = torch.where(((p1 | pk) & ~adv) | isflush, phase + 1, nxt)
+        tok = torch.where(litlast | (adv & ~eos), zero, tok)
+        tok = torch.where(isflush & (nxt >= 20), zero + TOK_DONE, tok)
+        phase = nxt
+
+        coder.code(m1, s1)
+        coder.code(m2, s2)
+    return coder.result(G, B)
+
+
+def compact_offsets(lens, nb: int, rows: int):
+    """Word offsets int64 [nb + 1] of the first ``nb`` lanes' payloads in
+    the compacted buffer (lens int32 [1, 8, B], row 0 the byte lengths;
+    each lane's word count capped at ``rows``); the last is the total."""
+    wc = ((lens[0, 0, :nb].to(I64) + 3) // 4).clamp(0, rows)
+    return torch.cat([torch.zeros(1, dtype=I64, device=lens.device),
+                      torch.cumsum(wc, 0)])
+
+
+def compact_ref(words, lens, nb: int):
+    """words uint32 [1, R, B], lens int32 [1, 8, B] -> uint32 [total]: the
+    first ``nb`` lanes' payload words, lane after lane (the kernel's
+    output, csrc/sqz4_compact.cu)."""
+    _, R, B = words.shape
+    off = compact_offsets(lens, nb, R).tolist()
+    cols = words[0].view(torch.int32).t()
+    return torch.cat([cols[b, :off[b + 1] - off[b]] for b in range(nb)]
+                     or [cols.new_zeros(0)]).view(torch.uint32)
 
 
 class _Stream:

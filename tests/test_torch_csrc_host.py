@@ -1,9 +1,10 @@
 """The CUDA kernels' lane bodies, compiled for the host, against the plain
 PyTorch versions.
 
-``csrc/sqz4_encode.cu`` and ``csrc/sqz4_decode.cu`` keep each block's
-coder in a device function of plain C++ (the kernels and launchers sit
-under ``__CUDACC__``), and a thread shares nothing with its neighbours.
+The sources under ``csrc/`` keep each block's coder (and each column's
+copy, for the compaction) in a device function of plain C++ (the kernels
+and launchers sit under ``__CUDACC__``), and a thread shares nothing with
+its neighbours.
 So a host C++ compiler can build the lane bodies as they are, and running
 them one lane after another computes what the kernel computes. This
 checks the kernel source's arithmetic on a machine with no card; the
@@ -21,7 +22,7 @@ import torch
 
 from sqz_tpu import native
 from sqz_tpu.utils import corpus
-from sqz_tpu_torch import convert
+from sqz_tpu_torch import convert, native as port_native
 from sqz_tpu_torch.ops import sqz4_host as host, sqz4_ref
 
 # the plain versions step over small tensors: one intra-op thread each,
@@ -36,6 +37,8 @@ HARNESS = r"""
 #include <vector>
 #include "sqz4_encode.cu"
 #include "sqz4_decode.cu"
+#include "sqz4_encode_tok.cu"
+#include "sqz4_compact.cu"
 
 extern "C" void host_encode(const uint32_t* m, const uint32_t* s, int G,
                             int TW, int B, uint32_t* words, int cw,
@@ -61,6 +64,27 @@ extern "C" void host_decode(const uint32_t* p, const int32_t* meta, int G,
                               mrec + g * mw * B + b, mw,
                               counts + g * 8 * B + b, tab.data(), 1);
 }
+
+extern "C" void host_encode_tok(const uint32_t* toks, int TT,
+                                const uint8_t* lits, int L, int G, int B,
+                                int t_max, uint32_t* words, int cw,
+                                int32_t* lens) {
+    std::vector<int> tab(sqz4::kTableWords);
+    for (long long g = 0; g < G; ++g)
+        for (long long b = 0; b < B; ++b)
+            sqz4::encode_tok_lane(toks + (g * B + b) * TT, TT,
+                                  lits + (g * B + b) * L, L, t_max, B,
+                                  words + g * cw * B + b, cw,
+                                  lens + g * 8 * B + b, tab.data(), 1);
+}
+
+extern "C" void host_compact(const uint32_t* words, int B,
+                             const long long* offsets, int nb,
+                             uint32_t* out) {
+    for (int b = 0; b < nb; ++b)
+        sqz4::compact_lane(words + b, B, offsets[b + 1] - offsets[b],
+                           out + offsets[b], 0, 1);
+}
 """
 
 
@@ -79,6 +103,8 @@ def lanes_lib(tmp_path_factory):
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.host_encode.argtypes = [p, p, i, i, i, p, i, p]
     lib.host_decode.argtypes = [p, p, i, i, i, i, p, i, p, i, p, i, p]
+    lib.host_encode_tok.argtypes = [p, i, p, i, i, i, i, p, i, p]
+    lib.host_compact.argtypes = [p, i, p, i, p]
     return lib
 
 
@@ -162,3 +188,53 @@ def test_decoder_lanes_flag_corrupt_streams_like_plain_version(lanes_lib):
     for a, b in zip(got, want):
         np.testing.assert_array_equal(a, b)
     assert got[3][0, 4].any()
+
+
+@pytest.mark.parametrize("lz", [True, False])
+def test_token_encoder_lanes_equal_plain_version(lanes_lib, lz):
+    blk, lanes = 10, 4
+    bs = 1 << blk
+    data = _data(bs)
+    nb = -(-len(data) // bs)
+    tok_cap, lit_cap = host.tok_caps(blk)
+    toks, lits, counts, mx = port_native.sqz4_tok_plan(
+        data, 1 << 10, blk, lz, tok_cap, lit_cap)
+    assert (counts[:, 2] >= 0).all()
+    G = -(-nb // lanes)
+    tt = np.zeros((G * lanes, int(counts[:, 0].max())), np.uint32)
+    lt = np.zeros((G * lanes, int(counts[:, 1].max())), np.uint8)
+    tt[:nb] = toks[:, :tt.shape[1]]
+    lt[:nb] = lits[:, :lt.shape[1]]
+    tt, lt = tt.reshape(G, lanes, -1), lt.reshape(G, lanes, -1)
+    cw = host.cap_words_for(bs + 2048)
+    words = np.zeros((G, cw, lanes), np.uint32)
+    lens = np.zeros((G, 8, lanes), np.int32)
+    lanes_lib.host_encode_tok(_ptr(tt), tt.shape[2], _ptr(lt), lt.shape[2],
+                              G, lanes, int(mx), _ptr(words), cw, _ptr(lens))
+    want = sqz4_ref.encode_tok_ref(
+        torch.from_numpy(tt.view(np.int32)).view(torch.uint32),
+        torch.from_numpy(lt), int(mx), cw)
+    np.testing.assert_array_equal(words, convert.to_numpy(want[0]))
+    np.testing.assert_array_equal(lens, convert.to_numpy(want[1]))
+    assert (host.unpack_group_payloads(words, lens, nb)
+            == native.blocks_compress(data, 1, 10, blk, lz=lz,
+                                      parse="fast"))
+
+
+@pytest.mark.parametrize("nb", [16, 10])
+def test_compaction_lanes_equal_plain_version(lanes_lib, nb):
+    rng = np.random.default_rng(nb)
+    B, R = 16, 256
+    lens = np.zeros((1, 8, B), np.int32)
+    lens[0, 0] = rng.integers(0, R * 4 + 1, B)
+    lens[0, 0, 3], lens[0, 0, 5] = 0, R * 4
+    lens[0, 0, nb:] = 999999                 # inactive lanes: garbage
+    words = rng.integers(0, 1 << 32, (1, R, B), dtype=np.uint64).astype(
+        np.uint32)
+    wt, lt = convert.to_device(words, "cpu"), convert.to_device(lens, "cpu")
+    offsets = np.ascontiguousarray(
+        sqz4_ref.compact_offsets(lt, nb, R).numpy())
+    out = np.zeros(int(offsets[-1]), np.uint32)
+    lanes_lib.host_compact(_ptr(words), B, _ptr(offsets), nb, _ptr(out))
+    np.testing.assert_array_equal(
+        out, convert.to_numpy(sqz4_ref.compact_ref(wt, lt, nb)))

@@ -12,7 +12,7 @@ import torch
 from sqz_tpu import native
 from sqz_tpu.ops import sqz4_pallas as sp
 from sqz_tpu.utils import corpus
-from sqz_tpu_torch import convert
+from sqz_tpu_torch import convert, native as port_native
 from sqz_tpu_torch.ops import sqz4_cuda, sqz4_host as host
 
 # the plain versions step over small tensors: one intra-op thread each,
@@ -161,9 +161,12 @@ def test_unpack_and_assemble_match_reference():
             == sp.unpack_group_payloads(words, lens, 7))
     tok = np.array([0b0110], np.uint32)      # lit, match, match, lit
     mrec = np.array([(3 << 16) | 1, (2 << 16) | 2], np.uint32)
-    args = (tok, b"ab", mrec, 4, 7)
-    assert host.assemble_tokens_numpy(*args) == sp.assemble_tokens_numpy(
-        *args) == b"aaaaaab"
+    # the port assembles with its native runtime (postprocess_decode)
+    got = port_native.assemble_blocks(
+        tok[None], np.frombuffer(b"ab", np.uint8)[None], mrec[None],
+        np.array([4]), np.array([7]), 8)
+    assert got[0, :7].tobytes() == sp.assemble_tokens_numpy(
+        tok, b"ab", mrec, 4, 7) == b"aaaaaab"
 
 
 @pytest.mark.parametrize("parse,env", [("auto", None), ("exact", None),

@@ -1,14 +1,14 @@
 """Public API of the port: compress / decompress with the reference's
 signatures (``sqz_tpu.api``) plus an explicit ``device``.
 
-The one engine served is ``torch``, the default: sqz4 ``sqzt`` containers
-coded by the CUDA kernels on ``device="cuda"`` (the default; without a
-card it raises) or by their plain PyTorch versions on ``device="cpu"``
-(for tests).
+The one engine served is ``torch``, the default, on ``sqzt`` containers:
+sqz4 (cold) and squeeze (cold, and warm: sqzt v2), coded by the CUDA
+kernels on ``device="cuda"`` (the default; without a card it raises) or
+by their plain PyTorch versions on ``device="cpu"`` (for tests).
 
 Not served yet (each raises NotImplementedError naming its ROADMAP item):
-the host engines ``native`` and ``oracle``, warm start, the squeeze
-format, and the resident paths.
+the host engines ``native`` and ``oracle``, sqz4 warm start, anchored
+warm start (``warm="anchors"``, sqzt v3), and the resident paths.
 """
 
 from __future__ import annotations
@@ -67,9 +67,10 @@ def compress(data: bytes, fmt: Format | str = Format.SQZ4,
              checksum: bool = True, warm: "bool | str" = False,
              parse: str = "auto", anchor_beam: int = 4,
              device="cuda") -> bytes:
-    """See ``sqz_tpu.api.compress``. Codes an sqz4 sqzt container
-    (``blocks=True``, ``blk_bits`` <= 16) on ``device``; ``parse`` 'exact'
-    gives the reference native engine's bytes."""
+    """See ``sqz_tpu.api.compress``. Codes an sqzt container
+    (``blocks=True``) on ``device``: sqz4 (``blk_bits`` <= 16) cold, or
+    squeeze cold or ``warm=True`` (sqzt v2). ``parse`` 'exact' gives the
+    reference native engine's bytes."""
     fmt = Format(fmt)
     _check_engine(engine)
     if not 10 <= win_bits <= 15:
@@ -81,39 +82,45 @@ def compress(data: bytes, fmt: Format | str = Format.SQZ4,
     if not 1 <= blk_bits <= 40:
         raise ValueError(f"blk_bits {blk_bits} outside 1..40")
     parts = sqzt.split_blocks(data, blk_bits)
-    if warm and len(parts) > 1:
-        raise _todo("warm start", 5)
-    if fmt is Format.SQUEEZE:
-        raise _todo("the squeeze format", 7)
+    warm = warm if len(parts) > 1 else False
+    if warm == "anchors":
+        raise _todo("anchored warm start (warm='anchors', sqzt v3)", 5)
+    if warm and fmt is Format.SQZ4:
+        raise _todo("sqz4 warm start", 5)
     dev = _device(device)
     from sqz_tpu_torch.ops import engine as torch_engine
-    payloads = torch_engine.compress_blocks(parts, win_bits, lz, blk_bits,
-                                            parse=parse, device=dev)
+    code = SQZT_FORMAT_SQUEEZE if fmt is Format.SQUEEZE else SQZT_FORMAT_SQZ4
+    res = torch_engine.compress_blocks(parts, code, win_bits, lz, blk_bits,
+                                       warm=warm, parse=parse, device=dev)
+    payloads, fresh_mask = res if warm else (res, None)
     csum = sqzt.fnv1a64(data) if checksum else None
-    return sqzt.pack(SQZT_FORMAT_SQZ4, win_bits, blk_bits, len(data),
-                     payloads, csum)
+    return sqzt.pack(code, win_bits, blk_bits, len(data), payloads, csum,
+                     warm=warm, fresh_mask=fresh_mask)
 
 
 def decompress(blob: bytes, fmt: Optional[Format | str] = None,
                engine: Engine | str = Engine.TORCH,
                device="cuda") -> bytes:
-    """See ``sqz_tpu.api.decompress``. Decodes a cold sqz4 sqzt container
-    on ``device``; a corrupt block raises ValueError naming it."""
+    """See ``sqz_tpu.api.decompress``. Decodes an sqzt container on
+    ``device``: cold sqz4 (a corrupt block raises ValueError naming it),
+    or squeeze, cold or warm (sqzt v2)."""
     _check_engine(engine)
     if blob[:8] != sqzt.SQZT_MAGIC:
         raise ValueError("torch engine requires an sqzt container")
-    code, _win_bits, blk_bits, osize, payloads, csum, fresh, _anch = \
+    code, win_bits, blk_bits, osize, payloads, csum, fresh, anch = \
         sqzt.unpack(blob)
-    if code == SQZT_FORMAT_SQUEEZE:
-        raise _todo("the squeeze format", 7)
-    if fresh is not None and len(payloads) > 1 and not all(fresh):
-        raise _todo("warm start", 5)
+    if anch is not None:
+        raise _todo("anchored warm containers (sqzt v3)", 5)
+    if (code == SQZT_FORMAT_SQZ4 and fresh is not None and len(payloads) > 1
+            and not all(fresh)):
+        raise _todo("sqz4 warm start", 5)
     dev = _device(device)
     from sqz_tpu_torch.ops import engine as torch_engine
     bs = 1 << blk_bits
     sizes = [max(0, min(bs, osize - i * bs)) for i in range(len(payloads))]
-    data = torch_engine.decompress_blocks(payloads, sizes, blk_bits,
-                                          device=dev)
+    data = torch_engine.decompress_blocks(payloads, sizes, code, blk_bits,
+                                          fresh_mask=fresh,
+                                          win_bits=win_bits, device=dev)
     if csum is not None and sqzt.fnv1a64(data) != csum:
         raise ValueError("sqzt checksum mismatch (EILSEQ)")
     return data

@@ -15,9 +15,11 @@
 // Table entry e of a thread sits at tab[e * stride], where stride is the
 // CTA's thread count, so a warp's threads never conflict on a bank.
 //
-// The encoder's coder step (Encoder::code) is shared by both encoder
-// kernels: the op-stream encoder reads the ops, the token encoder expands
-// them from tokens, and both code them through the same arithmetic.
+// The encoder's coder step (Encoder::code) is shared by the model-driven
+// encoder kernels: the op-stream encoder reads the ops, the token encoder
+// expands them from tokens, and both code them through the same
+// arithmetic (Encoder::code_stats), which the stats-fed encoder calls on
+// statistics computed on the host.
 //
 // The lane bodies are plain C++ apart from __clzll and the SQZ_DEVICE
 // qualifier; the kernels and launchers sit under __CUDACC__.
@@ -172,7 +174,11 @@ struct WordSink {
 // One block's range encoder: its coder registers, its models (in `tab`)
 // and its output sink. code() takes one micro-op (sqz4_pallas.py
 // _fused_pair_body, one slot): 0 flag, 1 size, 2 byte, 3 bits, 4..35
-// distance bit, 254 flush; anything else is a pad and codes nothing.
+// distance bit, 254 flush; anything else is a pad and codes nothing. It
+// looks the symbol up in its model, updates the model, and codes the
+// statistics with code_stats(), which the stats-fed encoder
+// (sqz4_encode_stats.cu) calls directly on host-computed statistics; that
+// encoder needs no tables (tab may be null).
 struct Encoder {
     int* tab;
     int stride;
@@ -180,10 +186,36 @@ struct Encoder {
     u64 rng;
     WordSink sink;
 
+    // exactly one emission of the top byte
+    SQZ_DEVICE void flush() {
+        sink.put(static_cast<uint32_t>(low >> 56));
+        low <<= 8;
+    }
+
+    // Narrow the interval to [start, start + size) of total, renormalize
+    // (with the underflow escape) and emit the settled bytes.
+    SQZ_DEVICE void code_stats(u64 start, u64 size, u64 total) {
+        const u64 q = rng / total;
+        low += start * q;
+        rng = size * q;
+        const u64 pre = low;
+        int cnt = lead_zero_bytes(low ^ (low + rng));
+        low = shl(low, 8 * cnt);
+        rng = shl(rng, 8 * cnt);
+        if (rng < total + 1) {
+            // underflow escape: two more emissions, re-inflate the range
+            low = shl(pre, 8 * cnt + 16);
+            rng = ~low;
+            cnt += 2;
+        }
+        for (int k = 0; k < cnt; ++k)
+            sink.put(k < 8 ? static_cast<uint32_t>(pre >> (56 - 8 * k)) & 0xFF
+                           : 0u);
+    }
+
     SQZ_DEVICE void code(int m, int s) {
-        if (m == kOpFlush) {   // exactly one emission of the top byte
-            sink.put(static_cast<uint32_t>(low >> 56));
-            low <<= 8;
+        if (m == kOpFlush) {
+            flush();
             return;
         }
         if (m >= kOpDist + 32) return;   // pad
@@ -211,23 +243,8 @@ struct Encoder {
             size = s ? *f1 : *f0;
             *(s ? f1 : f0) += 1;
         }
-
-        const u64 q = rng / static_cast<u64>(total);
-        low += static_cast<u64>(start) * q;
-        rng = static_cast<u64>(size) * q;
-        const u64 pre = low;
-        int cnt = lead_zero_bytes(low ^ (low + rng));
-        low = shl(low, 8 * cnt);
-        rng = shl(rng, 8 * cnt);
-        if (rng < static_cast<u64>(total) + 1) {
-            // underflow escape: two more emissions, re-inflate the range
-            low = shl(pre, 8 * cnt + 16);
-            rng = ~low;
-            cnt += 2;
-        }
-        for (int k = 0; k < cnt; ++k)
-            sink.put(k < 8 ? static_cast<uint32_t>(pre >> (56 - 8 * k)) & 0xFF
-                           : 0u);
+        code_stats(static_cast<u64>(start), static_cast<u64>(size),
+                   static_cast<u64>(total));
     }
 
     // Write the last partial word; returns the payload byte length (which
@@ -242,7 +259,7 @@ struct Encoder {
 // are `lanes` elements apart and must be zero-filled by the caller.
 SQZ_DEVICE Encoder make_encoder(uint32_t* words, int lanes, int cap_words,
                                 int* tab, int stride) {
-    init_tables(tab, stride);
+    if (tab) init_tables(tab, stride);
     return Encoder{tab, stride, 0ull, ~0ull,
                    WordSink{words, lanes, cap_words, 0u, 0}};
 }

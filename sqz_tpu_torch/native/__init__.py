@@ -3,8 +3,9 @@
 ``sqz_native.cpp`` is a verbatim copy of the reference package's native
 runtime (``sqz_tpu/native/sqz_native.cpp``), so the planners, packers and
 host codec here give the reference's bytes. The bindings below are the
-reference's (``sqz_tpu/native/__init__.py``) trimmed to the cold-block
-functions the port calls.
+reference's (``sqz_tpu/native/__init__.py``) trimmed to the functions
+the port calls. A squeeze tree seed (the warm state of sqzt v2) stays the
+flat int64 array of ``TREE_SEED_WORDS`` the native code reads and writes.
 
 The library is built with g++ on first use into
 ``build/sqz_tpu_torch/libsqznative.so`` at the root of the checkout
@@ -97,6 +98,22 @@ def library() -> ctypes.CDLL:
             lib.sqz4_pack_payloads.restype = i64
             lib.sqz4_pack_payloads.argtypes = [u8p, i64p, i64p, u64, u64, u64,
                                                i32, u32p]
+            i32p = ctypes.POINTER(ctypes.c_int32)
+            lib.sqz_sqz4_model_stats.restype = i64
+            lib.sqz_sqz4_model_stats.argtypes = [i32p, i32p, u64, u32p, u32p,
+                                                 u32p, u32p]
+            lib.sqz_squeeze_compress_s.restype = i64
+            lib.sqz_squeeze_compress_s.argtypes = [u8p, u64, i32, i64p, i64p,
+                                                   u8p, u64, u8p, u64]
+            lib.sqz_squeeze_compress_f.restype = i64
+            lib.sqz_squeeze_compress_f.argtypes = [u8p, u64, i32, i32, i64p,
+                                                   i64p, u8p, u64, u8p, u64]
+            lib.sqz_squeeze_decompress_s.restype = i64
+            lib.sqz_squeeze_decompress_s.argtypes = [u8p, u64, u64, i64p,
+                                                     i64p, u8p, u64, u8p, u64]
+            lib.squeeze_plan_pack.restype = i64
+            lib.squeeze_plan_pack.argtypes = [u8p, u64, i32, i32, u64, u64,
+                                              i32, i32, i32, u32p]
             _lib = lib
         return _lib
 
@@ -128,6 +145,100 @@ def _cap_for(n: int) -> int:
     return 2 * n + 4096
 
 
+SEED4_WORDS = 610        # sqz4 ModelSeed flat u32 words (FORMAT.md §3.1)
+TREE_SEED_WORDS = (3 + 6 * 1023) + (3 + 6 * 63)   # squeeze TreeSeed i64 words
+
+
+def _seed4_in(seed):
+    """A flat sequence or array of sqz4 model-seed words -> u32[610], or
+    None."""
+    if seed is None:
+        return None
+    a = np.ascontiguousarray(getattr(seed, "flat", seed), dtype=np.uint32)
+    if a.size != SEED4_WORDS:   # native reads exactly this many words
+        raise ValueError(f"sqz4 seed must be {SEED4_WORDS} u32 words")
+    return a
+
+
+def _treeseed_in(seed):
+    """A squeeze tree seed (flat i64 words) -> i64[6522], or None."""
+    if seed is None:
+        return None
+    a = np.ascontiguousarray(seed, dtype=np.int64)
+    if a.size != TREE_SEED_WORDS:
+        raise ValueError(f"tree seed must be {TREE_SEED_WORDS} i64 words")
+    return a
+
+
+def _dict_in(dictionary):
+    if not dictionary:
+        return None, 0
+    d = np.frombuffer(dictionary, dtype=np.uint8)
+    return d, d.size
+
+
+def _opt(ptr, a):
+    return ptr(a) if a is not None else None
+
+
+def squeeze_compress_payload(data: bytes, win_bits: int, seed=None,
+                             return_state: bool = False,
+                             dictionary: bytes = b"", parse: str = "exact",
+                             depth: int = 32):
+    """One squeeze block payload; ``seed`` (flat tree-seed words) and
+    ``dictionary`` warm-start it (sqzt v2). ``return_state``: also the
+    final tree seed, a flat int64 array. ``parse="fast"``: the bounded
+    approximate matcher (sqzt-contract paths only)."""
+    out = np.empty(_cap_for(len(data)), dtype=np.uint8)
+    sin = _treeseed_in(seed)
+    sout = np.zeros(TREE_SEED_WORDS, dtype=np.int64) if return_state else None
+    d, dn = _dict_in(dictionary)
+    lib = library()
+    if parse == "fast":
+        rc = _check(lib.sqz_squeeze_compress_f(
+            _u8(_src(data)), len(data), win_bits, depth, _opt(_i64p, sin),
+            _opt(_i64p, sout), _opt(_u8, d), dn, _u8(out), out.size))
+    else:
+        rc = _check(lib.sqz_squeeze_compress_s(
+            _u8(_src(data)), len(data), win_bits, _opt(_i64p, sin),
+            _opt(_i64p, sout), _opt(_u8, d), dn, _u8(out), out.size))
+    payload = out[:rc].tobytes()
+    return (payload, sout) if return_state else payload
+
+
+def squeeze_decompress_payload(payload: bytes, size: int, seed=None,
+                               return_state: bool = False,
+                               dictionary: bytes = b""):
+    """One squeeze block payload -> its ``size`` original bytes (and, with
+    ``return_state``, the final tree seed as flat int64 words)."""
+    out = np.empty(max(size, 1), dtype=np.uint8)
+    sin = _treeseed_in(seed)
+    sout = np.zeros(TREE_SEED_WORDS, dtype=np.int64) if return_state else None
+    d, dn = _dict_in(dictionary)
+    rc = _check(library().sqz_squeeze_decompress_s(
+        _u8(_src(payload)), len(payload), size, _opt(_i64p, sin),
+        _opt(_i64p, sout), _opt(_u8, d), dn, _u8(out), out.size))
+    data = out[:rc].tobytes()
+    return (data, sout) if return_state else data
+
+
+def sqz4_model_stats(m_ops: np.ndarray, s_ops: np.ndarray, seed=None):
+    """Per-op (start, size, total) of the 36 adaptive sqz4 models, values
+    taken before each op's update (one block's op stream); ops outside
+    0..35 (flushes, pads) give (0, 0, 0). ``seed`` warm-starts the models
+    (FORMAT.md §3.1)."""
+    t = len(m_ops)
+    m = np.ascontiguousarray(m_ops, dtype=np.int32)
+    s = np.ascontiguousarray(s_ops, dtype=np.int32)
+    start, size, total = (np.empty(t, dtype=np.uint32) for _ in range(3))
+    i32p = ctypes.POINTER(ctypes.c_int32)
+    _check(library().sqz_sqz4_model_stats(
+        m.ctypes.data_as(i32p), s.ctypes.data_as(i32p), t,
+        _opt(_u32p, _seed4_in(seed)), _u32p(start), _u32p(size),
+        _u32p(total)))
+    return start, size, total
+
+
 def sqz4_decompress_payload(payload: bytes, size: int) -> bytes:
     """One cold sqz4 block payload -> its ``size`` original bytes."""
     out = np.empty(max(size, 1), dtype=np.uint8)
@@ -137,10 +248,13 @@ def sqz4_decompress_payload(payload: bytes, size: int) -> bytes:
 
 
 def blocks_compress(data: bytes, fmt: int, win_bits: int, blk_bits: int,
-                    lz: bool = True, nthreads: int = 0, parse: str = "exact",
-                    depth: int = 32) -> List[bytes]:
-    """Compress independent 2^blk_bits blocks in parallel (cold); returns
-    the payloads. ``parse="fast"``: the bounded approximate matcher."""
+                    lz: bool = True, nthreads: int = 0, warm: bool = False,
+                    parse: str = "exact", depth: int = 32):
+    """Compress independent 2^blk_bits blocks in parallel; returns the
+    payloads (cold) or (payloads, fresh_mask) (warm, sqzt v2: each
+    candidate block 1+ is coded both fresh and seeded from block 0's final
+    state, and the smaller wins). ``parse="fast"``: the bounded
+    approximate matcher."""
     n = len(data)
     bs = 1 << blk_bits
     nblocks = max(1, (n + bs - 1) // bs)
@@ -150,17 +264,29 @@ def blocks_compress(data: bytes, fmt: int, win_bits: int, blk_bits: int,
     flags = np.ones(nblocks, dtype=np.uint8)
     fast_depth = depth if (parse == "fast" and (fmt == 0 or lz)) else 0
     rc = _check(library().sqz_blocks_compress(
-        _u8(_src(data)), n, fmt, win_bits, blk_bits, int(lz), nthreads, 0,
-        fast_depth, _u8(out), stride, _i64p(sizes), _u8(flags)))
+        _u8(_src(data)), n, fmt, win_bits, blk_bits, int(lz), nthreads,
+        int(warm), fast_depth, _u8(out), stride, _i64p(sizes), _u8(flags)))
     assert rc == nblocks
-    return [out[b * stride:b * stride + int(sizes[b])].tobytes()
-            for b in range(nblocks)]
+    payloads = [out[b * stride:b * stride + int(sizes[b])].tobytes()
+                for b in range(nblocks)]
+    if warm:
+        return payloads, [bool(f) for f in flags]
+    return payloads
 
 
 def blocks_decompress(payloads: List[bytes], total_size: int, fmt: int,
-                      blk_bits: int, nthreads: int = 0,
+                      blk_bits: int, nthreads: int = 0, fresh_mask=None,
                       win_bits: int = 15) -> bytes:
-    """The concatenated decoded blocks of a cold container's payloads."""
+    """The concatenated decoded blocks of a container's payloads.
+    ``fresh_mask`` (list of bool, sqzt v2): per-block fresh/warm choice;
+    None = cold container. ``win_bits`` sizes the warm shared
+    dictionary."""
+    warm = fresh_mask is not None
+    if warm and len(fresh_mask) != len(payloads):
+        raise ValueError("fresh mask must cover every block "
+                         "(native reads one flag per block)")
+    fl = (np.asarray([1 if f else 0 for f in fresh_mask], dtype=np.uint8)
+          if warm else None)
     flat = b"".join(payloads)
     offsets = np.zeros(len(payloads), dtype=np.int64)
     sizes = np.array([len(p) for p in payloads], dtype=np.int64)
@@ -169,7 +295,8 @@ def blocks_decompress(payloads: List[bytes], total_size: int, fmt: int,
     out = np.empty(max(total_size, 1), dtype=np.uint8)
     rc = _check(library().sqz_blocks_decompress(
         _u8(_src(flat)), _i64p(offsets), _i64p(sizes), len(payloads), fmt,
-        blk_bits, win_bits, nthreads, 0, None, _u8(out), total_size))
+        blk_bits, win_bits, nthreads, int(warm), _opt(_u8, fl), _u8(out),
+        total_size))
     assert rc == total_size
     return out[:total_size].tobytes()
 
@@ -270,6 +397,28 @@ def sqz4_pack_payloads(payloads, lanes: int, pw: int,
         _u8(_src(b"".join(payloads))), _i64p(offsets), _i64p(sizes),
         nblocks, lanes, pw, nthreads, _u32p(words)))
     return words
+
+
+def squeeze_plan_pack(data: bytes, win_bits: int, blk_bits: int,
+                      lanes: int, tw_cap: int, nthreads: int = 0,
+                      warm: bool = False, parse: str = "exact",
+                      depth: int = 32):
+    """Adaptive-Huffman encode per block, recording the bitstream writes
+    in the bit-packer's [G, tw_cap, lanes] u32 layout (one record a write:
+    bit count in bits 25 and up, the value bit-reversed below; 0 = pad).
+    Returns (words, max_writes). ``warm``: sqzt v2 tree seeding and shared
+    dictionary for blocks 1+; ``parse="fast"``: the bounded approximate
+    matcher. The array is zero-allocated (its untouched pages stay
+    unmapped), so a large ``tw_cap`` costs only the rows written."""
+    n = len(data)
+    bs = 1 << blk_bits
+    nblocks = max(1, (n + bs - 1) // bs)
+    G = -(-nblocks // lanes)
+    words = np.zeros((G, tw_cap, lanes), dtype=np.uint32)
+    mx = _check(library().squeeze_plan_pack(
+        _u8(_src(data)), n, win_bits, blk_bits, lanes, tw_cap, nthreads,
+        int(warm), depth if parse == "fast" else 0, _u32p(words)))
+    return words, mx
 
 
 def fnv1a64(data: bytes) -> int:

@@ -1,6 +1,7 @@
 """Build the CUDA sources under ``csrc/`` with nvcc and load them (ctypes).
 
-The kernels have a plain C interface (``extern "C"`` launchers taking
+The kernels (the sqz4 coders and compaction, the squeeze bit-packer, the
+primitive probes) have a plain C interface (``extern "C"`` launchers taking
 device pointers, sizes and a stream), so they compile in seconds without
 PyTorch's headers. Each source compiles in its own nvcc process, all
 started together, and one more nvcc links the objects:
@@ -28,7 +29,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("sqz4_encode.cu", "sqz4_decode.cu", "sqz4_encode_tok.cu",
-           "sqz4_compact.cu")
+           "sqz4_compact.cu", "squeeze_bitpack.cu", "sqz4_encode_stats.cu",
+           "probe.cu")
 HEADERS = ("sqz4_coder.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "sqz_tpu_torch"
 LIB = BUILD_DIR / "libsqz4cuda.so"
@@ -112,5 +114,12 @@ def library() -> ctypes.CDLL:
                                                    p, i, i, p]
             lib.sqz4_compact_launch.restype = i
             lib.sqz4_compact_launch.argtypes = [p, i, p, i, p, i, p]
+            lib.squeeze_bitpack_launch.restype = i
+            lib.squeeze_bitpack_launch.argtypes = [p, i, i, i, p, i, p, i, p]
+            lib.sqz4_encode_stats_launch.restype = i
+            lib.sqz4_encode_stats_launch.argtypes = [p, p, p, i, i, i, p, i,
+                                                     p, i, p]
+            lib.probe_launch.restype = i
+            lib.probe_launch.argtypes = [i, p, p, p, i, i, p]
             _lib = lib
         return _lib

@@ -1,16 +1,18 @@
 """sqz4 kernel wrappers and the whole-buffer device encode and decode.
 
-``encode_full``, ``encode_tok``, ``decode`` and ``compact_words`` launch
-the CUDA kernels (``csrc/``) for tensors on a CUDA device and run the
-plain versions (``sqz4_ref``) for tensors on the CPU; any other device
-raises. Each counts its kernel launches in its ``launches`` attribute.
+``encode_full``, ``encode_tok``, ``encode_stats``, ``decode`` and
+``compact_words`` launch the CUDA kernels (``csrc/``) for tensors on a
+CUDA device and run the plain versions (``sqz4_ref``) for tensors on the
+CPU; any other device raises. Each counts its kernel launches in its
+``launches`` attribute.
 
 ``encode_data_full``, ``encode_data_tok`` and ``decode_groups`` are the
 main path around them: the native host planner -> op streams or tokens
 -> encoder kernel -> payloads (downloaded trimmed, or compacted on the
 card), and payloads -> decoder kernel -> token records -> native host
-assembly. Blocks ride lanes of ``[groups, rows, lanes]`` arrays, as in
-the reference.
+assembly. ``encode_groups`` codes per-op statistics computed on the host
+(``native.sqz4_model_stats``) through the stats-fed encoder. Blocks ride
+lanes of ``[groups, rows, lanes]`` arrays, as in the reference.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ import torch
 
 from sqz_tpu_torch import convert, native
 from sqz_tpu_torch.ops import sqz4_host as host
-from sqz_tpu_torch.ops import sqz4_ref
+from sqz_tpu_torch.ops import launch, sqz4_ref
 
 # Blocks (one per thread) per CTA. One spreads a call's serial chains over
 # every SM with no divergence inside a warp; it measured fastest (PERF.md).
@@ -33,39 +35,10 @@ THREADS = 1
 COMPACT_THREADS = 256
 
 
-def _kernel_device(*tensors) -> torch.device:
-    """The tensors' common device, if the plain version or the kernel
-    serves it; the kernel's inputs must be contiguous."""
-    dev = tensors[0].device
-    if any(t.device != dev for t in tensors):
-        raise ValueError("kernel inputs lie on different devices")
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"no sqz4 kernel for device {dev}")
-    if dev.type == "cuda" and not all(t.is_contiguous() for t in tensors):
-        raise ValueError("kernel inputs must be contiguous")
-    return dev
-
-
-def _check(t, name, dtype, ndim=3):
-    if t.dtype != dtype or t.dim() != ndim:
-        raise ValueError(f"{name}: expected {ndim}-d {dtype}, got "
-                         f"{t.dim()}-d {t.dtype}")
-
-
-def _zeros(shape, dtype, dev):
-    z = torch.zeros(shape, dtype=torch.int32, device=dev)
-    return z.view(torch.uint32) if dtype == torch.uint32 else z
-
-
 def check_blk_bits(blk_bits: int):
     if blk_bits > 16:
         # the device model totals stay below 2^17 only up to 64 KiB blocks
         raise ValueError("sqz4 device kernels support blk_bits <= 16")
-
-
-def _launched(rc: int, name: str):
-    if rc != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
 
 
 def encode_full(m_ops: torch.Tensor, s_ops: torch.Tensor, cap_words: int):
@@ -73,23 +46,23 @@ def encode_full(m_ops: torch.Tensor, s_ops: torch.Tensor, cap_words: int):
     micro-ops a word: 0 flag, 1 size, 2 byte, 3 bits, 4..35 distance bit,
     254 flush, others pad) -> (payload words uint32 [G, cap_words, B],
     big-endian bytes; lens int32 [G, 8, B], row 0 the byte length)."""
-    _check(m_ops, "m_ops", torch.uint32)
-    _check(s_ops, "s_ops", torch.uint32)
+    launch.check_tensor(m_ops, "m_ops", torch.uint32)
+    launch.check_tensor(s_ops, "s_ops", torch.uint32)
     if m_ops.shape != s_ops.shape:
         raise ValueError("m_ops and s_ops differ in shape")
-    dev = _kernel_device(m_ops, s_ops)
+    dev = launch.kernel_device(m_ops, s_ops)
     if dev.type == "cpu":
         return sqz4_ref.encode_full_ref(m_ops, s_ops, cap_words)
     from sqz_tpu_torch.ops import _build
     G, TW, B = m_ops.shape
-    words = _zeros((G, cap_words, B), torch.uint32, dev)
-    lens = _zeros((G, 8, B), torch.int32, dev)
+    words = launch.zeros((G, cap_words, B), torch.uint32, dev)
+    lens = launch.zeros((G, 8, B), torch.int32, dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = _build.library().sqz4_encode_launch(
             m_ops.data_ptr(), s_ops.data_ptr(), G, TW, B, words.data_ptr(),
             cap_words, lens.data_ptr(), THREADS, stream)
-    _launched(rc, "sqz4_encode")
+    launch.launched(rc, "sqz4_encode")
     encode_full.launches += 1
     return words, lens
 
@@ -104,27 +77,27 @@ def decode(payload: torch.Tensor, meta: torch.Tensor, t_max: int, lw: int,
     (lit uint32 [G, lw, B], tok uint32 [G, tw, B], mrec uint32 [G, mw, B],
     counts int32 [G, 8, B]: optr, nlit, ntok, nmatch, err, steps, ovf,
     state)."""
-    _check(payload, "payload", torch.uint32)
-    _check(meta, "meta", torch.int32)
+    launch.check_tensor(payload, "payload", torch.uint32)
+    launch.check_tensor(meta, "meta", torch.int32)
     if meta.shape[0] != payload.shape[0] or meta.shape[2] != payload.shape[2]\
             or meta.shape[1] < 3:
         raise ValueError("meta must be [G, 8, B] beside payload [G, Pw, B]")
-    dev = _kernel_device(payload, meta)
+    dev = launch.kernel_device(payload, meta)
     if dev.type == "cpu":
         return sqz4_ref.decode_ref(payload, meta, t_max, lw, tw, mw)
     from sqz_tpu_torch.ops import _build
     G, PW, B = payload.shape
-    lit = _zeros((G, lw, B), torch.uint32, dev)
-    tok = _zeros((G, tw, B), torch.uint32, dev)
-    mrec = _zeros((G, mw, B), torch.uint32, dev)
-    counts = _zeros((G, 8, B), torch.int32, dev)
+    lit = launch.zeros((G, lw, B), torch.uint32, dev)
+    tok = launch.zeros((G, tw, B), torch.uint32, dev)
+    mrec = launch.zeros((G, mw, B), torch.uint32, dev)
+    counts = launch.zeros((G, 8, B), torch.int32, dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = _build.library().sqz4_decode_launch(
             payload.data_ptr(), meta.data_ptr(), G, PW, B, t_max,
             lit.data_ptr(), lw, tok.data_ptr(), tw, mrec.data_ptr(), mw,
             counts.data_ptr(), THREADS, stream)
-    _launched(rc, "sqz4_decode")
+    launch.launched(rc, "sqz4_decode")
     decode.launches += 1
     return lit, tok, mrec, counts
 
@@ -139,23 +112,23 @@ def encode_tok(toks: torch.Tensor, lits: torch.Tensor, t_max: int,
     (each block's literal bytes), at most ``t_max`` op pairs a block ->
     (payload words uint32 [G, cap_words, B], lens int32 [G, 8, B]), the
     op-stream encoder's outputs for the same parse."""
-    _check(toks, "toks", torch.uint32)
-    _check(lits, "lits", torch.uint8)
+    launch.check_tensor(toks, "toks", torch.uint32)
+    launch.check_tensor(lits, "lits", torch.uint8)
     if toks.shape[:2] != lits.shape[:2]:
         raise ValueError("toks and lits differ in groups or lanes")
-    dev = _kernel_device(toks, lits)
+    dev = launch.kernel_device(toks, lits)
     if dev.type == "cpu":
         return sqz4_ref.encode_tok_ref(toks, lits, t_max, cap_words)
     from sqz_tpu_torch.ops import _build
     G, B, TT = toks.shape
-    words = _zeros((G, cap_words, B), torch.uint32, dev)
-    lens = _zeros((G, 8, B), torch.int32, dev)
+    words = launch.zeros((G, cap_words, B), torch.uint32, dev)
+    lens = launch.zeros((G, 8, B), torch.int32, dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = _build.library().sqz4_encode_tok_launch(
             toks.data_ptr(), TT, lits.data_ptr(), lits.shape[2], G, B, t_max,
             words.data_ptr(), cap_words, lens.data_ptr(), THREADS, 0, stream)
-    _launched(rc, "sqz4_encode_tok")
+    launch.launched(rc, "sqz4_encode_tok")
     encode_tok.launches += 1
     return words, lens
 
@@ -163,18 +136,88 @@ def encode_tok(toks: torch.Tensor, lits: torch.Tensor, t_max: int,
 encode_tok.launches = 0
 
 
+def encode_stats(start: torch.Tensor, size: torch.Tensor,
+                 total: torch.Tensor, cap_words: int):
+    """sqz4 stats-fed encoder: start / size / total uint32 [G, T, B], each
+    op's coder statistics (total 0: a pad; size 0 with total != 0: a
+    flush; anything else coded) -> (payload words uint32 [G, cap_words, B],
+    lens int32 [G, 8, B]), as ``encode_full``'s."""
+    for t, name in ((start, "start"), (size, "size"), (total, "total")):
+        launch.check_tensor(t, name, torch.uint32)
+    if not start.shape == size.shape == total.shape:
+        raise ValueError("start, size and total differ in shape")
+    dev = launch.kernel_device(start, size, total)
+    if dev.type == "cpu":
+        return sqz4_ref.encode_stats_ref(start, size, total, cap_words)
+    from sqz_tpu_torch.ops import _build
+    G, T, B = start.shape
+    words = launch.zeros((G, cap_words, B), torch.uint32, dev)
+    lens = launch.zeros((G, 8, B), torch.int32, dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = _build.library().sqz4_encode_stats_launch(
+            start.data_ptr(), size.data_ptr(), total.data_ptr(), G, T, B,
+            words.data_ptr(), cap_words, lens.data_ptr(), THREADS, stream)
+    launch.launched(rc, "sqz4_encode_stats")
+    encode_stats.launches += 1
+    return words, lens
+
+
+encode_stats.launches = 0
+
+# model totals must stay below this: the reference's stats-fed TPU
+# encoder divides exactly only there (sqz4_pallas.py encode_groups)
+STATS_TOTAL_LIMIT = 1 << 15
+
+
+def pack_group_stats(arrs, lanes: int = host.LANES):
+    """[NB, T] u32 stats -> [G, T, lanes] kernel layout (lanes past NB
+    zero: zero totals are pads)."""
+    nb, t = arrs[0].shape
+    G = -(-nb // lanes)
+    out = []
+    for a in arrs:
+        buf = np.zeros((G * lanes, t), dtype=np.uint32)
+        buf[:nb] = a
+        out.append(np.ascontiguousarray(
+            buf.reshape(G, lanes, t).transpose(0, 2, 1)))
+    return out
+
+
+def encode_groups(start: np.ndarray, size: np.ndarray, total: np.ndarray,
+                  cap: int, device="cuda", lanes: int = host.LANES):
+    """Per-op statistics [NB, T] u32 each -> NB payload byte strings, the
+    bytes the model-driven encoders give for the same op streams. Totals
+    must stay below 2^15 (the reference's contract); ValueError
+    otherwise."""
+    if int(total.max(initial=0)) >= STATS_TOTAL_LIMIT:
+        raise ValueError("totals exceed divider range (must stay below "
+                         "2^15)")
+    dev = torch.device(device)
+    cap_words = host.cap_words_for(cap)
+    st, sz, tt = (convert.to_device(a, dev) for a in pack_group_stats(
+        (start, size, total), lanes))
+    words, lens = encode_stats(st, sz, tt, cap_words)
+    lens = convert.to_numpy(lens)
+    if int(lens[:, 0].max(initial=0)) > cap_words * 4:
+        raise ValueError("compressed block exceeded the output capacity")
+    return host.unpack_group_payloads(
+        convert.to_numpy(words[:, :host.trimmed_rows(lens)]), lens,
+        start.shape[0])
+
+
 def compact_words(words: torch.Tensor, lens: torch.Tensor, nb: int):
     """Payload compaction: words uint32 [1, R, B] (lane b's payload in the
     first rows of column b), lens int32 [1, 8, B] (row 0 byte lengths) ->
     uint32 [total]: the first ``nb`` lanes' payload words, lane after
     lane. The output size is read from the lengths (one small download)."""
-    _check(words, "words", torch.uint32)
-    _check(lens, "lens", torch.int32)
+    launch.check_tensor(words, "words", torch.uint32)
+    launch.check_tensor(lens, "lens", torch.int32)
     _, R, B = words.shape
     if words.shape[0] != 1 or lens.shape != (1, 8, B) or not 0 <= nb <= B:
         raise ValueError("compaction takes words [1, R, B], lens [1, 8, B] "
                          "and 0 <= nb <= B")
-    dev = _kernel_device(words, lens)
+    dev = launch.kernel_device(words, lens)
     if dev.type == "cpu":
         return sqz4_ref.compact_ref(words, lens, nb)
     from sqz_tpu_torch.ops import _build
@@ -186,7 +229,7 @@ def compact_words(words: torch.Tensor, lens: torch.Tensor, nb: int):
         rc = _build.library().sqz4_compact_launch(
             words.data_ptr(), B, offsets.data_ptr(), nb, out.data_ptr(),
             COMPACT_THREADS, stream)
-    _launched(rc, "sqz4_compact")
+    launch.launched(rc, "sqz4_compact")
     compact_words.launches += 1
     return out
 
@@ -202,22 +245,6 @@ def pack_ops_words(x8: torch.Tensor) -> torch.Tensor:
     x = x8.to(torch.int64).reshape(G, B, R // 4, 4)
     w = (x[..., 0] << 24) | (x[..., 1] << 16) | (x[..., 2] << 8) | x[..., 3]
     return sqz4_ref.to_u32(w.transpose(1, 2).contiguous())
-
-
-class _Stages:
-    """Host wall time per stage into ``stats`` (seconds, accumulated)."""
-
-    def __init__(self, stats, dev):
-        self.stats = stats if stats is not None else {}
-        self.dev = dev
-        self.t = time.perf_counter()
-
-    def mark(self, name: str):
-        if self.dev.type == "cuda":
-            torch.cuda.synchronize(self.dev)
-        now = time.perf_counter()
-        self.stats[name] = self.stats.get(name, 0.0) + now - self.t
-        self.t = now
 
 
 def encode_data_full(data: bytes, blk_bits: int, window: int, lz: bool,
@@ -236,7 +263,7 @@ def encode_data_full(data: bytes, blk_bits: int, window: int, lz: bool,
     bs = 1 << blk_bits
     nb = max(1, -(-len(data) // bs))
     tp_cap = host.op_stream_cap(blk_bits)
-    st = _Stages(stats, dev)
+    st = launch.Stages(stats, dev)
     if parse == "fast":
         m8, s8, mx = native.sqz4_fast_plan(data, window, blk_bits, lz,
                                            tp_cap, depth=fast_depth())
@@ -436,7 +463,7 @@ def decode_groups(payloads, sizes, blk_bits: int, device="cuda",
     # only the rows the longest payload fills are packed and uploaded: the
     # decoder reads bytes past its buffer as zeros, as it does the padding
     pw = min(plan["Pw"], host.payload_rows(max(map(len, pls))))
-    st = _Stages(stats, dev)
+    st = launch.Stages(stats, dev)
     buf, meta = host.pack_decode_chunk(pls, szs, lanes, plan["G"], pw)
     st.mark("pack_s")
     payload_t, meta_t = convert.decoder_inputs(buf, meta, dev)

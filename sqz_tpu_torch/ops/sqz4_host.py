@@ -35,6 +35,30 @@ def op_stream_cap(blk_bits: int) -> int:
     return -(-(5 * (1 << blk_bits) // 2 + 64) // 4) * 4
 
 
+OP_FLUSH = 254   # the flush micro-op
+
+
+def op_stream_stats(data: bytes, window: int, blk_bits: int,
+                    lanes: int = LANES):
+    """The stats-fed encoder's input for ``data``: every block's exact-parse
+    LZ op stream (``native.sqz4_plan_pack``) turned into per-op coder
+    statistics (``native.sqz4_model_stats``). Returns (start, size, total),
+    each u32 [nblocks, T]: a flush as (0, 0, 1), since the model stats
+    give it (0, 0, 0), which the encoder reads as a pad; pads (0, 0, 0)."""
+    nb = max(1, -(-len(data) // (1 << blk_bits)))
+    mw, sw, mx = native.sqz4_plan_pack(data, window, blk_bits, True, lanes,
+                                       op_stream_cap(blk_bits))
+    rows = -(-int(mx) // 4)
+    out = np.zeros((3, nb, rows * 4), np.uint32)
+    for b in range(nb):
+        g, lane = divmod(b, lanes)
+        m = mw[g, :rows, lane].astype(">u4").view(np.uint8)
+        s = sw[g, :rows, lane].astype(">u4").view(np.uint8)
+        out[:, b] = native.sqz4_model_stats(m, s)
+        out[2, b, m == OP_FLUSH] = 1
+    return out[0], out[1], out[2]
+
+
 def cap_words_for(cap: int) -> int:
     """Encoder output rows for a payload byte capacity (32-row multiple,
     as the reference sizes them)."""

@@ -1,9 +1,10 @@
 """Plain PyTorch versions of the sqz4 kernels.
 
 The coders run every block of the call in lock-step, one coder op
-(op-stream encoder), one op pair (token encoder) or one token step
-(decoder) per Python iteration, with the same inputs and outputs as
-their CUDA kernels (``csrc/sqz4_encode.cu``, ``csrc/sqz4_encode_tok.cu``,
+(op-stream and stats-fed encoders), one op pair (token encoder) or one
+token step (decoder) per Python iteration, with the same inputs and
+outputs as their CUDA kernels (``csrc/sqz4_encode.cu``,
+``csrc/sqz4_encode_stats.cu``, ``csrc/sqz4_encode_tok.cu``,
 ``csrc/sqz4_decode.cu``) and as the reference's Pallas launchers; the
 compaction is a concatenation (``csrc/sqz4_compact.cu``). They run on
 any device; the wrappers in ``sqz4_cuda`` use them for CPU tensors, and
@@ -109,8 +110,7 @@ class _Coder:
         """One micro-op a lane: m 0 flag, 1 size, 2 byte, 3 bits, 4..35
         distance bit, 254 flush, others pad; s its symbol (int64 [N])."""
         rows, iota256, iota32 = self.rows, self.iota256, self.iota32
-        low, rng = self.low, self.rng
-        zero = torch.zeros_like(low)
+        zero = torch.zeros_like(self.low)
         is_flag, is_size, is_byte, is_bits = m == 0, m == 1, m == 2, m == 3
         is_dist = (m >= 4) & (m < 36)
         is256 = is_byte | is_size
@@ -148,7 +148,16 @@ class _Coder:
         self.d0 += (hit & ~one[:, None]).to(I64)
         self.d1 += (hit & one[:, None]).to(I64)
 
-        # coder: narrow, renormalize, underflow escape, flush
+        self.code_stats(start, size, total, active, flush)
+
+    def code_stats(self, start, size, total, active, flush):
+        """The coder half of a step (csrc/sqz4_coder.cuh
+        Encoder::code_stats and flush): on lanes ``active``, narrow to
+        [start, start + size) of total, renormalize with the underflow
+        escape and emit the settled bytes; on lanes ``flush``, emit the
+        top byte. Other lanes code nothing. int64 [N] each."""
+        low, rng = self.low, self.rng
+        zero = torch.zeros_like(low)
         q = _udiv_small(rng, torch.where(active, total, zero + 1))
         low = torch.where(active, low + start * q, low)
         rng = torch.where(active, size * q, rng)
@@ -182,6 +191,21 @@ class _Coder:
         lens[:, 0] = self.pos
         return (to_u32(_from_lanes(words, g, b)),
                 _from_lanes(lens, g, b).to(torch.int32))
+
+
+def encode_stats_ref(start, size, total, cap_words: int):
+    """start / size / total: uint32 [G, T, B], each op's coder statistics
+    (total 0 a pad, size 0 with total != 0 a flush). Returns (words uint32
+    [G, cap_words, B], lens int32 [G, 8, B]), as csrc/sqz4_encode_stats.cu
+    and the reference's stats-fed Pallas encoder do."""
+    G, T, B = start.shape
+    st, sz, tt = (_lanes(a, T) for a in (start, size, total))
+    coder = _Coder(G * B, cap_words, start.device)
+    for t in range(T):
+        coded = tt[t] != 0
+        coder.code_stats(st[t], sz[t], tt[t], coded & (sz[t] != 0),
+                         coded & (sz[t] == 0))
+    return coder.result(G, B)
 
 
 def encode_full_ref(m_ops, s_ops, cap_words: int):

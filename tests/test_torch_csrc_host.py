@@ -23,7 +23,8 @@ import torch
 from sqz_tpu import native
 from sqz_tpu.utils import corpus
 from sqz_tpu_torch import convert, native as port_native
-from sqz_tpu_torch.ops import sqz4_host as host, sqz4_ref
+from sqz_tpu_torch.ops import probe, sqz4_cuda, sqz4_host as host, sqz4_ref
+from sqz_tpu_torch.ops import squeeze_ref
 
 # the plain versions step over small tensors: one intra-op thread each,
 # so parallel test workers do not oversubscribe the cores
@@ -39,6 +40,9 @@ HARNESS = r"""
 #include "sqz4_decode.cu"
 #include "sqz4_encode_tok.cu"
 #include "sqz4_compact.cu"
+#include "squeeze_bitpack.cu"
+#include "sqz4_encode_stats.cu"
+#include "probe.cu"
 
 extern "C" void host_encode(const uint32_t* m, const uint32_t* s, int G,
                             int TW, int B, uint32_t* words, int cw,
@@ -78,6 +82,35 @@ extern "C" void host_encode_tok(const uint32_t* toks, int TT,
                                   lens + g * 8 * B + b, tab.data(), 1);
 }
 
+extern "C" void host_bitpack(const uint32_t* ops, int G, int T, int B,
+                             uint32_t* words, int cw, int32_t* lens) {
+    for (long long g = 0; g < G; ++g)
+        for (long long b = 0; b < B; ++b)
+            squeeze::bitpack_lane(ops + g * T * B + b, T, B,
+                                  words + g * cw * B + b, cw,
+                                  lens + g * 8 * B + b);
+}
+
+extern "C" void host_encode_stats(const uint32_t* st, const uint32_t* sz,
+                                  const uint32_t* tt, int G, int T, int B,
+                                  uint32_t* words, int cw, int32_t* lens) {
+    for (long long g = 0; g < G; ++g)
+        for (long long b = 0; b < B; ++b) {
+            const long long in = g * T * B + b;
+            sqz4::encode_stats_lane(st + in, sz + in, tt + in, T, B,
+                                    words + g * cw * B + b, cw,
+                                    lens + g * 8 * B + b);
+        }
+}
+
+extern "C" int host_probe(int which, const void* a, const void* b,
+                          uint32_t* out, int lanes, int rows) {
+    for (int lane = 0; lane < lanes; ++lane)
+        if (probe::probe_lane(which, a, b, out, lanes, rows, lane))
+            return -1;
+    return 0;
+}
+
 extern "C" void host_compact(const uint32_t* words, int B,
                              const long long* offsets, int nb,
                              uint32_t* out) {
@@ -105,6 +138,9 @@ def lanes_lib(tmp_path_factory):
     lib.host_decode.argtypes = [p, p, i, i, i, i, p, i, p, i, p, i, p]
     lib.host_encode_tok.argtypes = [p, i, p, i, i, i, i, p, i, p]
     lib.host_compact.argtypes = [p, i, p, i, p]
+    lib.host_bitpack.argtypes = [p, i, i, i, p, i, p]
+    lib.host_encode_stats.argtypes = [p, p, p, i, i, i, p, i, p]
+    lib.host_probe.argtypes = [i, p, p, p, i, i]
     return lib
 
 
@@ -238,3 +274,77 @@ def test_compaction_lanes_equal_plain_version(lanes_lib, nb):
     lanes_lib.host_compact(_ptr(words), B, _ptr(offsets), nb, _ptr(out))
     np.testing.assert_array_equal(
         out, convert.to_numpy(sqz4_ref.compact_ref(wt, lt, nb)))
+
+
+@pytest.mark.parametrize("parse", ["exact", "fast"])
+def test_bitpacker_lanes_equal_plain_version(lanes_lib, parse):
+    blk, lanes = 10, 4
+    bs = 1 << blk
+    data = _data(bs)
+    nb = -(-len(data) // bs)
+    words_in, mx = port_native.squeeze_plan_pack(
+        data, 10, blk, lanes, 4 * bs + 64, parse=parse)
+    ops = np.ascontiguousarray(words_in[:, :int(mx)])
+    G, T, _ = ops.shape
+    cw = host.cap_words_for(bs + 4096)
+    words = np.zeros((G, cw, lanes), np.uint32)
+    lens = np.zeros((G, 8, lanes), np.int32)
+    lanes_lib.host_bitpack(_ptr(ops), G, T, lanes, _ptr(words), cw,
+                           _ptr(lens))
+    want = squeeze_ref.bitpack_ref(convert.to_device(ops, "cpu"), cw)
+    np.testing.assert_array_equal(words, convert.to_numpy(want[0]))
+    np.testing.assert_array_equal(lens, convert.to_numpy(want[1]))
+    assert (host.unpack_group_payloads(words, lens, nb)
+            == native.blocks_compress(data, 0, 10, blk, parse=parse))
+
+
+def test_bitpacker_lanes_drop_words_past_the_capacity(lanes_lib):
+    rng = np.random.default_rng(3)
+    nbs = rng.integers(1, 26, (1, 300, 4)).astype(np.uint32)
+    ops = (nbs << 25) | rng.integers(0, 1 << 24, nbs.shape).astype(
+        np.uint32) % (np.uint32(1) << nbs)
+    cw = 32
+    words = np.zeros((1, cw, 4), np.uint32)
+    lens = np.zeros((1, 8, 4), np.int32)
+    lanes_lib.host_bitpack(_ptr(ops), 1, 300, 4, _ptr(words), cw,
+                           _ptr(lens))
+    want = squeeze_ref.bitpack_ref(convert.to_device(ops, "cpu"), cw)
+    np.testing.assert_array_equal(words, convert.to_numpy(want[0]))
+    np.testing.assert_array_equal(lens, convert.to_numpy(want[1]))
+    assert (lens[0, 0] > 4 * cw).all()
+
+
+def test_stats_encoder_lanes_equal_plain_version(lanes_lib):
+    blk, lanes = 10, 4
+    bs = 1 << blk
+    data = _data(bs)
+    nb = -(-len(data) // bs)
+    st = host.op_stream_stats(data, 1 << 10, blk, lanes=lanes)
+    packed = sqz4_cuda.pack_group_stats(st, lanes)
+    G, T, _ = packed[0].shape
+    cw = host.cap_words_for(bs + 2048)
+    words = np.zeros((G, cw, lanes), np.uint32)
+    lens = np.zeros((G, 8, lanes), np.int32)
+    lanes_lib.host_encode_stats(*map(_ptr, packed), G, T, lanes,
+                                _ptr(words), cw, _ptr(lens))
+    want = sqz4_ref.encode_stats_ref(
+        *(convert.to_device(a, "cpu") for a in packed), cw)
+    np.testing.assert_array_equal(words, convert.to_numpy(want[0]))
+    np.testing.assert_array_equal(lens, convert.to_numpy(want[1]))
+    assert (host.unpack_group_payloads(words, lens, nb)
+            == native.blocks_compress(data, 1, 10, blk))
+
+
+@pytest.mark.parametrize("name", probe.PROBES)
+def test_probe_lanes_equal_plain_version(lanes_lib, name):
+    d = probe.inputs()
+    a, b = (np.ascontiguousarray(d[k]) if k else None
+            for k in probe.ARGS[name])
+    out = np.zeros((probe.ROWS if name == "sublane_cumsum" else 1,
+                    probe.B), np.uint32)
+    assert lanes_lib.host_probe(probe.PROBES.index(name), _ptr(a),
+                                _ptr(b) if b is not None else None,
+                                _ptr(out), probe.B, a.shape[0]) == 0
+    np.testing.assert_array_equal(out, probe.expected(name))
+    want = probe.plain(name, *probe.probe_tensors(name, "cpu"))
+    np.testing.assert_array_equal(out, convert.to_numpy(want))

@@ -1,6 +1,7 @@
 """The CUDA kernels on a card: each equals its plain version, and the
-slice round-trips through them, the pipeline included. Marked ``gpu``; skips without a CUDA
-device. On a machine with one (and without JAX), run:
+slice round-trips through them, the pipeline and the squeeze format
+included. Marked ``gpu``; skips without a CUDA device. On a machine with
+one (and without JAX), run:
 
     python -m pytest --noconftest -o addopts="" -m gpu tests/test_torch_cuda.py
 """
@@ -13,6 +14,7 @@ import sqz_tpu_torch
 from sqz_tpu_torch import convert, native
 from sqz_tpu_torch.formats import container
 from sqz_tpu_torch.ops import engine, sqz4_cuda, sqz4_host as host, sqz4_ref
+from sqz_tpu_torch.ops import probe, squeeze_cuda, squeeze_ref
 from sqz_tpu_torch.utils import corpus
 
 pytestmark = pytest.mark.gpu
@@ -88,3 +90,62 @@ def test_slice_round_trips_on_the_card(cuda, monkeypatch):
     assert container.unpack(fast)[4] == sqz4_cuda.encode_data_full(
         data, 12, 1 << 15, True, 4096 + 2048, parse="fast")
     assert sqz_tpu_torch.decompress(fast) == data
+
+
+def test_bitpacker_equals_plain_version(cuda):
+    bs = 1 << BLK
+    data = (corpus.texty(NB * bs, seed=8) + corpus.zeros(bs)
+            + corpus.random_bytes(bs, seed=9))
+    words, mx = native.squeeze_plan_pack(data, 10, BLK, NB,
+                                         squeeze_cuda.record_cap(BLK))
+    ops = squeeze_cuda.upload_rows(words, int(mx), cuda)
+    cw = host.cap_words_for(bs + 4096)
+    before = squeeze_cuda.bitpack.launches
+    got = squeeze_cuda.bitpack(ops, cw)
+    assert squeeze_cuda.bitpack.launches == before + 1
+    want = squeeze_ref.bitpack_ref(ops, cw)
+    for a, b in zip(got, want):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    nb = len(data) // bs
+    assert (host.unpack_group_payloads(convert.to_numpy(got[0]),
+                                       convert.to_numpy(got[1]), nb)
+            == native.blocks_compress(data, 0, 10, BLK))
+
+
+def test_stats_encoder_equals_plain_version(cuda):
+    bs = 1 << BLK
+    data = corpus.texty(NB * bs, seed=10)
+    st = host.op_stream_stats(data, 1 << 10, BLK, lanes=NB)
+    packed = [convert.to_device(a, cuda)
+              for a in sqz4_cuda.pack_group_stats(st, NB)]
+    cw = host.cap_words_for(bs + 2048)
+    before = sqz4_cuda.encode_stats.launches
+    got = sqz4_cuda.encode_stats(*packed, cw)
+    assert sqz4_cuda.encode_stats.launches == before + 1
+    want = sqz4_ref.encode_stats_ref(*packed, cw)
+    for a, b in zip(got, want):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    assert (sqz4_cuda.encode_groups(*st, bs + 2048, device=cuda, lanes=NB)
+            == native.blocks_compress(data, 1, 10, BLK))
+
+
+def test_probes_equal_plain_versions(cuda):
+    before = probe.probe.launches
+    for name, (got, want) in probe.run_probes(cuda).items():
+        assert (got == want).all(), name
+        plain = probe.plain(name, *probe.probe_tensors(name, cuda))
+        assert (convert.to_numpy(plain) == got).all(), name
+    assert probe.probe.launches == before + len(probe.PROBES)
+
+
+def test_squeeze_round_trips_on_the_card(cuda):
+    data = corpus.texty(30000, seed=11) + corpus.random_bytes(3000, seed=12)
+    for warm in (False, True):
+        blob = sqz_tpu_torch.compress(data, fmt="squeeze", parse="exact",
+                                      blk_bits=12, warm=warm)
+        res = native.blocks_compress(data, 0, 15, 12, warm=warm)
+        payloads, fresh = res if warm else (res, None)
+        assert blob == container.pack(0, 15, 12, len(data), payloads,
+                                      container.fnv1a64(data), warm=warm,
+                                      fresh_mask=fresh)
+        assert sqz_tpu_torch.decompress(blob) == data

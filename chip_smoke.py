@@ -17,7 +17,13 @@ Phases (any failure exits non-zero):
      encoder at 512 blocks of 16 KiB, the largest blocks whose model
      totals stay below its 2^15 limit; the probes at their fixed inputs):
      outputs must be equal (tolerance 0, a lossless integer codec), and
-     the payloads equal the native engine's;
+     the payloads equal the native engine's; then the coders' chain
+     figures: the op-stream encoder, the decoder and the token encoder
+     timed on one group of the pseudo-text
+     and of 32 MiB of random bytes (the literal-heavy mix), in ns and SM
+     cycles per coded symbol, each checked against the native engine
+     (``chain_figures``; ``python3 chip_smoke.py --chain`` runs only the
+     build and this);
   4. the serial main path: 32 MiB of pseudo-text in 64 KiB blocks (one
      group), compressed and decompressed through ``sqz_tpu_torch.compress``
      / ``decompress``. The exact-parse container must equal the native
@@ -73,9 +79,9 @@ STATS_BITS = 14   # the stats-fed encoder's full-size blocks (16 KiB)
 # integer operations issue at no more than it).
 HBM_BPS = 3.35e12
 CORE_OPS = 67e12
-# Integer operations of one coded symbol: a 64-bit divide, two
-# multiplies, adds, xor, clz, shifts and a compare in the coder, and the
-# model lookup and update (Fenwick tree) around it.
+# Integer operations of one coded symbol: the divide by the model total,
+# two multiplies, adds, xor, the leading-zero count, shifts and a compare
+# in the coder, and the model lookup and update around it.
 OPS_PER_SYMBOL = 20
 # Integer operations of one statistic coded by the stats-fed encoder: the
 # divide, two multiplies, add, xor, clz, shifts and a compare, with no
@@ -494,6 +500,120 @@ def probes_vs_plain():
     return (0, kms, plain_ms) + bound(nbytes, 0) + (lib_ms,)
 
 
+def sm_clock_under_load(fn):
+    """(clocks.sm, clocks.max.sm) in MHz, read by nvidia-smi while fn runs
+    back to back on the card."""
+    import torch
+    out = {}
+
+    def query():
+        out["smi"] = subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+             "--format=csv,noheader,nounits"],
+            capture_output=True, text=True, check=True).stdout
+    th = threading.Thread(target=query)
+    th.start()
+    while th.is_alive():
+        fn()
+        torch.cuda.synchronize()
+    th.join()
+    sm, mx = (float(x) for x in out["smi"].splitlines()[0].split(","))
+    return sm, mx
+
+
+def chain_figures(inputs, blk_bits, win_bits, reps):
+    """The coders' chains: the op-stream encoder (exact parse), the decoder
+    (on its payloads) and the token encoder (fast parse) timed by CUDA
+    events on one group of each input of ``inputs`` ({name: bytes}), with
+    ns and SM cycles per coded symbol (mean symbols a block; every launch
+    holds one chain per block). The payloads must equal the native
+    engine's for the same parse and the decoder must restore the blocks;
+    no plain version runs here."""
+    import numpy as np
+    import torch
+    from sqz_tpu_torch import convert, native
+    from sqz_tpu_torch.ops import sqz4_cuda, sqz4_host as host
+    dev = torch.device("cuda")
+    bs = 1 << blk_bits
+    cw = host.cap_words_for(bs + 2048)
+    res = {}
+    for name, data in inputs.items():
+        nb = len(data) // bs
+        mw, sw, mx = native.sqz4_plan_pack(data, 1 << win_bits, blk_bits,
+                                           True, nb,
+                                           host.op_stream_cap(blk_bits))
+        rows = -(-int(mx) // 4)
+        m, s = convert.encoder_inputs(mw, sw, rows, dev)
+        words, lens = sqz4_cuda.encode_full(m, s, cw)
+        payloads = host.unpack_group_payloads(
+            convert.to_numpy(words), convert.to_numpy(lens), nb)
+        if payloads != native.blocks_compress(data, 1, win_bits, blk_bits):
+            raise AssertionError(f"{name}: encoder payloads differ from "
+                                 f"native")
+        ops = mw[:, :rows].astype(">u4").view(np.uint8)
+        enc_sym = coded_symbols(mw[:, :rows]) / nb
+        dec_sym = int((ops < 36).sum()) / nb
+        timed = {"sqz4_encode": (lambda: sqz4_cuda.encode_full(m, s, cw),
+                                 enc_sym)}
+
+        plan = host.plan_decode_dispatch(nb, blk_bits, lanes=nb)
+        pw = min(plan["Pw"], host.payload_rows(max(map(len, payloads))))
+        buf, meta = host.pack_decode_chunk(payloads, [bs] * nb, nb,
+                                           plan["G"], pw)
+        pt, mt = convert.decoder_inputs(buf, meta, dev)
+        args = (pt, mt, plan["t_max"], plan["lw"], plan["tw"], plan["mw"])
+        got = sqz4_cuda.decode(*args)
+        outs = host.postprocess_decode(*[convert.to_numpy(x) for x in got],
+                                       payloads, [bs] * nb, bs)
+        if b"".join(outs) != data:
+            raise AssertionError(f"{name}: the decoder did not restore the "
+                                 f"blocks")
+        timed["sqz4_decode"] = (lambda: sqz4_cuda.decode(*args), dec_sym)
+
+        grp = sqz4_cuda.plan_tok_group(data, blk_bits, 1 << win_bits, True)
+        if grp.over:
+            raise AssertionError(f"{name}: blocks over the token caps")
+        toks = grp.toks.to(dev).view(torch.uint32)
+        lits = grp.lits.to(dev)
+        fast = native.blocks_compress(data, 1, win_bits, blk_bits,
+                                      parse="fast")
+        tok_sym = tok_symbols(grp) / nb
+        tw, tl = sqz4_cuda.encode_tok(toks, lits, grp.t_max, cw)
+        tpay = host.unpack_group_payloads(convert.to_numpy(tw),
+                                          convert.to_numpy(tl), nb)
+        if any(tpay[i] != fast[b] for i, b in enumerate(grp.fit)):
+            raise AssertionError(f"{name}: token encoder payloads differ "
+                                 f"from the native fast parse")
+        timed["sqz4_encode_tok"] = (
+            lambda: sqz4_cuda.encode_tok(toks, lits, grp.t_max, cw), tok_sym)
+
+        for key, (fn, sym) in timed.items():
+            ms = events_ms(fn, reps)
+            res[f"{key}/{name}"] = dict(ms=ms, symbols_per_block=sym,
+                                        ns_per_symbol=ms * 1e6 / sym)
+        res[f"sm_clock_MHz/{name}"] = sm_clock_under_load(
+            timed["sqz4_encode"][0])
+    for key, v in res.items():
+        if key.startswith("sm_clock"):
+            continue
+        sm, mx = res["sm_clock_MHz/" + key.split("/")[1]]
+        v["cycles_per_symbol"] = v["ns_per_symbol"] * sm / 1e3
+        v["cycles_per_symbol_at_max_clock"] = v["ns_per_symbol"] * mx / 1e3
+    log("chain figures (ms; symbols a block; ns and SM cycles a symbol, at "
+        "the clock read under load and at the maximum clock): "
+        + json.dumps(res))
+    return res
+
+
+def chain_inputs(texty=None):
+    """The chain figures' inputs: one 512-block group of 64 KiB of the
+    pseudo-text (``texty``, made here if None) and of random bytes (the
+    literal-heavy mix)."""
+    from sqz_tpu_torch.utils import corpus
+    return {"texty": texty or corpus.texty(MAIN_BYTES, seed=1),
+            "random": corpus.random_bytes(MAIN_BYTES, seed=1)}
+
+
 def main_path():
     """Phase 4: the serial (one group) main path through the public API."""
     import sqz_tpu_torch
@@ -827,6 +947,9 @@ def main() -> int:
     t0 = time.perf_counter()
     card = environment()
     build()
+    if sys.argv[1:] == ["--chain"]:
+        chain_figures(chain_inputs(), MAIN_BITS, MAIN_WIN_BITS, REPS)
+        return 0
     from sqz_tpu_torch.ops import sqz4_host
     from sqz_tpu_torch.utils import corpus
     pool = ProcessPoolExecutor(
@@ -847,6 +970,7 @@ def main() -> int:
             f"{time.perf_counter() - t:.1f} s")
     finally:
         pool.shutdown(wait=True, cancel_futures=True)
+    chain_figures(chain_inputs(data), MAIN_BITS, MAIN_WIN_BITS, REPS)
     stage_times(data)
     corrupt_rejected(blob)
     if any(m.split(".")[0] in ("jax", "sqz_tpu") for m in sys.modules):

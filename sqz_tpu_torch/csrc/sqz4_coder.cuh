@@ -15,11 +15,10 @@
 // Table entry e of a thread sits at tab[e * stride], where stride is the
 // CTA's thread count, so a warp's threads never conflict on a bank.
 //
-// The encoder's coder step (Encoder::code) is shared by the model-driven
-// encoder kernels: the op-stream encoder reads the ops, the token encoder
-// expands them from tokens, and both code them through the same
-// arithmetic (Encoder::code_stats), which the stats-fed encoder calls on
-// statistics computed on the host.
+// The op-stream encoder codes its ops through Encoder::code, the model
+// step, and Encoder::code_stats, its arithmetic, which the stats-fed
+// encoder calls on statistics computed on the host. (The token encoder and
+// the decoder use sqz4_chain.cuh instead.)
 //
 // The lane bodies are plain C++ apart from __clzll and the SQZ_DEVICE
 // qualifier; the kernels and launchers sit under __CUDACC__.
@@ -83,20 +82,6 @@ struct Model256 {
 
     SQZ_DEVICE int size(int s) const { return f[s * stride]; }
 
-    // the symbol whose [start, start + size) holds cum (cum < total)
-    SQZ_DEVICE int search(int cum, int* start) const {
-        int pos = 0, rem = cum;
-        for (int k = 128; k > 0; k >>= 1) {
-            const int v = t[(pos + k) * stride];
-            if (v <= rem) {
-                pos += k;
-                rem -= v;
-            }
-        }
-        *start = cum - rem;
-        return pos;
-    }
-
     SQZ_DEVICE void bump(int s) {
         f[s * stride] += 1;
         for (int i = s + 1; i <= 256; i += i & -i) t[i * stride] += 1;
@@ -137,16 +122,6 @@ SQZ_DEVICE void csum_stats(const int* c, int stride, int n, int s,
     *start = s ? c[(s - 1) * stride] : 0;
     *size = c[s * stride] - *start;
     *total = c[(n - 1) * stride];
-}
-
-// Symbol whose [start, start + size) holds cum: the number of entries
-// <= cum (csum entries are strictly increasing; cum < total). n is a
-// power of two.
-SQZ_DEVICE int csum_search(const int* c, int stride, int n, int cum) {
-    int sym = 0;
-    for (int step = n >> 1; step > 0; step >>= 1)
-        if (c[(sym + step - 1) * stride] <= cum) sym += step;
-    return sym;
 }
 
 // Big-endian byte sink into one lane's column of the output words.

@@ -23,124 +23,214 @@
 // that follows it (or nothing when op 1 ended a token). Steps are what
 // t_max counts, as in the reference kernel.
 //
-// What bounds it: as for the encoder, one serial chain per block (divide,
-// symbol search, renormalize, state transition) and only as many chains
-// as blocks in the call: 512 for 32 MiB of 64 KiB blocks, one thread on
-// each of a few warps per SM.
+// What bounds it: each block is one serial chain (divide, symbol test,
+// interval update, renormalize, state transition, op after op; the next
+// op's model depends on this op's symbol), and a launch holds one chain
+// per block: 512 for 32 MiB of 64 KiB blocks, on 132 SMs. The time is the
+// symbols of the longest block times the latency of one step. The
+// one-thread design before this one spent ~1,600 cycles a symbol: two
+// software u64 divides (rng / total, then diff / rd for the cumulative
+// count), a Fenwick search of eight dependent loads, and payload loads
+// inside the renormalization.
 //
-// What the design does about it: one thread per block and one per CTA,
-// so the blocks spread over every SM and no warp serializes the diverging
-// paths of several blocks; native u64 registers and divides; the
-// 256-symbol models as Fenwick trees in shared memory (the symbol search
-// and the update take log2(256) steps); record streams written straight
-// to device memory, so no ring retirement or stream window is needed.
+// What the design does about it (ChainDecoder below, sqz4_chain.cuh):
+//   - the divide by a model total is a high multiply by the model's
+//     reciprocal and a remainder test (sqz4_div.cuh). A model's total
+//     grows by one an update, so each model keeps the reciprocals of a
+//     window of 32 totals in shared memory, which the warp's 32 lanes
+//     compute at once as the total enters it (rcp_fill): one
+//     reciprocal's latency in 32 updates, where computing one at each
+//     update put ~200 cycles of fp64 and conversion latency behind every
+//     symbol (PERF.md). The reciprocal of each model's current total
+//     waits in registers (DecRcp), read from the window right after the
+//     update, so no load sits between a model's counts and the divide.
+//     No `/` is left in this kernel.
+//   - no second divide: a symbol is found in the scaled domain. A binary
+//     op (flags and distance bits, 86% of the symbols of pseudo-text)
+//     decodes with one multiply and a compare, sym = diff >= f0 * rd; the
+//     bits table and the 256-symbol models compare diff against their
+//     starts times rd. The models live in the lanes' registers
+//     (LaneModels, sqz4_chain.cuh): a 256-symbol search is eight
+//     compares a lane and a warp sum where a Fenwick tree in shared
+//     memory needs eight dependent loads, and an update is a predicated
+//     add a lane.
+//   - the payload column comes into shared memory kStage words at a time,
+//     loaded by the warp's lanes a chunk ahead (Stager), and into a
+//     64-bit byte cache one word ahead of the renormalization that reads
+//     it (ByteReader).
+//   - launch geometry: one block per CTA, a warp per block whose 32 lanes
+//     compute the same chain (one lane stores): the blocks spread over
+//     every SM and no warp serializes the diverging paths of several
+//     blocks (one block per CTA measured 4.4x faster than 32). Half
+//     as many blocks a launch took as long (PERF.md): no two chains
+//     share a scheduler.
+//   - the divide's correction runs beside the products it selects
+//     between (a binary op's f0 * rd and total * rd for both quotients).
+// What bounds it now: the chain of each step, whose next model and op
+// depend on the symbol just decoded: the divide, the symbol test, the
+// renormalization, the state machine's branches and the record stores,
+// ~685 SM cycles a symbol on pseudo-text (PERF.md has the variants that
+// split it). A second warp cannot take the models' work as in the token
+// encoder: the decoder learns each op only from the symbol before it.
+// Corrupt lanes keep the reference's step grammar, t_max budget, error
+// priority and counts (the scaled tests saturate as the reference's
+// cumulative count does).
 
-#include "sqz4_coder.cuh"
+#include "sqz4_chain.cuh"
 
 namespace sqz4 {
 
-// One lane's payload bytes; past `nbytes` the stream reads zeros.
-struct ByteSource {
-    const uint32_t* in;
-    int stride;
-    long long nbytes;
-    long long pos;
-    uint32_t word;
+// reciprocal slots of the models' totals
+constexpr int kRcpLit = 0, kRcpDist = 1, kRcpBits = 33, kRcpByte = 34,
+              kRcpSize = 35, kRcpSlots = 36;
 
-    SQZ_DEVICE uint32_t next() {
-        uint32_t b = 0;
-        if (pos < nbytes) {
-            if ((pos & 3) == 0) word = in[(pos >> 2) * stride];
-            b = (word >> (24 - 8 * (pos & 3))) & 0xFF;
-        }
-        ++pos;
-        return b;
+struct DecSmem {
+    // each model's reciprocals of the 32 totals of the aligned window
+    // holding its total: total t's at rcp[slot][t % 32]
+    u64 rcp[kRcpSlots][32];
+    uint32_t stage[2 * kStage];   // the payload column, staged
+};
+
+// The reciprocals of a window's 32 totals, the warp's lanes side by side.
+SQZ_DEVICE void rcp_fill(DecSmem* sm, int slot, uint32_t tot) {
+    warp_sync();
+    for (int i = lane_id(); i < 32; i += kLanes)
+        sm->rcp[slot][i] = recip64((tot & ~31u) + i);
+    warp_sync();
+}
+
+// The reciprocal of model `slot`'s new total tot, read right after the
+// model's update: its next use is at least one op later, so the load is
+// off the chain. A total grows by one an update: the window is refilled
+// as the total enters it, once in 32 updates.
+SQZ_DEVICE u64 rcp_next(DecSmem* sm, int slot, uint32_t tot) {
+    if ((tot & 31) == 0) rcp_fill(sm, slot, tot);
+    return sm->rcp[slot][tot & 31];
+}
+
+// The reciprocals of every model's current total, in registers: one each
+// for the literal flag, bits, byte and size models (the same on every
+// lane), and the distance-bit models' spread over the lanes as their
+// counts are (LaneBinary).
+struct DecRcp {
+    static constexpr int kPer = LaneBinary<32>::kPer;
+    u64 lit, bits, byte, size;
+    u64 dist[kPer];
+
+    SQZ_DEVICE void init(DecSmem* sm) {
+        for (int k = 0; k < kRcpSlots; ++k)
+            rcp_fill(sm, k, k == kRcpBits ? 32u : k >= kRcpByte ? 256u : 2u);
+        lit = sm->rcp[kRcpLit][2];
+        bits = sm->rcp[kRcpBits][0];
+        byte = sm->rcp[kRcpByte][0];
+        size = sm->rcp[kRcpSize][0];
+        SQZ_UNROLL()
+        for (int q = 0; q < kPer; ++q) dist[q] = sm->rcp[kRcpDist][2];
     }
 
-    SQZ_DEVICE u64 take(int k) {
+    // distance-bit model i's
+    SQZ_DEVICE u64 get_dist(int i) const {
         u64 v = 0;
-        for (int i = 0; i < k; ++i) v = (v << 8) | next();
-        return v;
+        SQZ_UNROLL()
+        for (int q = 0; q < kPer; ++q) v |= dist[q] & (0ull - (q == i % kPer));
+        const int o = i / kPer;
+        return (static_cast<u64>(static_cast<uint32_t>(
+                    shfl(static_cast<int>(v >> 32), o))) << 32)
+               | static_cast<uint32_t>(shfl(static_cast<int>(v), o));
+    }
+
+    // after distance-bit model i's update to total tot
+    SQZ_DEVICE void next_dist(DecSmem* sm, int i, uint32_t tot) {
+        const u64 m = rcp_next(sm, kRcpDist + i, tot);
+        SQZ_UNROLL()
+        for (int q = 0; q < kPer; ++q)
+            dist[q] = lane_id() * kPer + q == i ? m : dist[q];
     }
 };
 
-struct RangeDecoder {
-    u64 low, rng, code, rd;
-    ByteSource src;
+struct ChainDecoder {
+    u64 low, rng, code;
+    ByteReader src;
 
-    // Underflow escape, divide, and the cumulative count of the next
-    // symbol (saturated at total - 1). *bad: the count lies past total.
-    SQZ_DEVICE int front(int total, bool* bad) {
-        const u64 tot = static_cast<u64>(total);
-        if (rng < tot) {
+    // Underflow escape, then the divide's estimate: returns mulhi64(rng,
+    // m) (m the reciprocal of tot), rng / tot or one less, and *diff =
+    // code - low.
+    SQZ_DEVICE u64 front(uint32_t tot, u64 m, u64* diff) {
+        if (rng < tot) {   // rare: re-inflate the range
             code = (code << 16) | src.take(2);
             low <<= 16;
             rng = ~low;
         }
-        rd = rng / tot;
-        const u64 diff = code - low;
-        *bad = diff >= tot * rd;
-        return *bad ? total - 1 : static_cast<int>(diff / rd);
+        *diff = code - low;
+        return mulhi64(rng, m);
     }
 
-    // Narrow the interval to [start, start + size) and renormalize.
-    SQZ_DEVICE void back(int start, int size) {
-        low += static_cast<u64>(start) * rd;
-        rng = static_cast<u64>(size) * rd;
+    // Narrow the interval to [low + add, low + add + rg) and renormalize
+    // (eight settled bytes: the reference's code reload, low = rng = 0).
+    SQZ_DEVICE void back(u64 add, u64 rg) {
+        low += add;
+        rng = rg;
         const int cnt = lead_zero_bytes(low ^ (low + rng));
-        if (cnt >= 8) {
-            code = src.take(8);
-            low = 0;
-            rng = 0;
-        } else if (cnt) {
-            code = (code << (8 * cnt)) | src.take(cnt);
-            low <<= 8 * cnt;
-            rng <<= 8 * cnt;
+        if (cnt) {   // most ops settle no byte
+            code = shl(code, 8 * cnt) | src.take(cnt);
+            low = shl(low, 8 * cnt);
+            rng = shl(rng, 8 * cnt);
         }
     }
 
-    // One binary-model op: frequencies *f0 / *f1, updated after coding.
-    SQZ_DEVICE int binary(int* f0, int* f1, bool* bad) {
-        const int cum = front(*f0 + *f1, bad);
-        const int sym = cum >= *f0;
-        back(sym ? *f0 : 0, sym ? *f1 : *f0);
-        *(sym ? f1 : f0) += 1;
+    // One binary-model op with counts a, b (m the reciprocal of a + b);
+    // the caller updates the model.
+    SQZ_DEVICE int binary(int a, int b, u64 m, bool* bad) {
+        const uint32_t tot = static_cast<uint32_t>(a + b);
+        u64 diff;
+        const u64 re = front(tot, m, &diff);
+        // rd = rng / tot is re or re + 1: the products for both go on
+        // while the remainder test decides
+        const bool up = div_up(rng, tot, re);
+        const u64 ae = static_cast<u64>(a) * re, te = tot * re;
+        const u64 f0rd = up ? ae + a : ae, totrd = up ? te + tot : te;
+        const int sym = diff >= f0rd;
+        *bad = diff >= totrd;
+        back(sym ? f0rd : 0ull, sym ? totrd - f0rd : f0rd);
         return sym;
     }
 
-    // One op of a 256-symbol model, updated after coding.
-    SQZ_DEVICE int model(Model256 md, bool* bad) {
-        const int cum = front(md.total(), bad);
-        int start;
-        const int sym = md.search(cum, &start);
-        back(start, md.size(sym));
+    // One op of a multi-symbol model (the 256-symbol byte and size
+    // models, the 32-entry bits model; *m the reciprocal of its total),
+    // updated after coding, *m with it.
+    template <int N>
+    SQZ_DEVICE int search(DecSmem* sm, LaneModel<N>& md, int slot, u64* m,
+                          bool* bad) {
+        const uint32_t tot = static_cast<uint32_t>(md.total);
+        u64 diff;
+        const u64 re = front(tot, *m, &diff);
+        const u64 rd = re + div_up(rng, tot, re);
+        *bad = diff >= tot * rd;
+        int start, size;
+        const int sym = md.search(diff, rd, &start, &size);
+        back(static_cast<u64>(start) * rd, static_cast<u64>(size) * rd);
         md.bump(sym);
-        return sym;
-    }
-
-    // One op of an n-entry csum model, updated after coding.
-    SQZ_DEVICE int table(int* c, int stride, int n, bool* bad) {
-        const int cum = front(c[(n - 1) * stride], bad);
-        const int sym = csum_search(c, stride, n, cum);
-        int start, size, total;
-        csum_stats(c, stride, n, sym, &start, &size, &total);
-        back(start, size);
-        csum_bump(c, stride, sym, n);
+        *m = rcp_next(sm, slot, tot + 1);
         return sym;
     }
 };
 
 // Decode one block. Pointers are offset to the lane; rows of every array
-// are `lanes` elements apart.
+// are `lanes` elements apart. Every lane of the warp decodes the same
+// block; lane 0 stores.
 SQZ_DEVICE void decode_lane(const uint32_t* payload, int pw,
                             const int32_t* meta, int lanes, int t_max,
                             uint32_t* lit, int lw, uint32_t* tok, int tw,
                             uint32_t* mrec, int mw, int32_t* counts,
-                            int* tab, int stride) {
-    init_tables(tab, stride);
+                            DecSmem* sm) {
+    LaneModels md;
+    md.init();
+    DecRcp rc;
+    rc.init(sm);
+    const bool st = lane_id() == 0;
     const int sizes = meta[1 * lanes], dlen = meta[2 * lanes];
-    RangeDecoder dec{0, ~0ull, 0, 0,
-                     ByteSource{payload, lanes, 4ll * pw, 0, 0u}};
+    ChainDecoder dec{0, ~0ull, 0, ByteReader{}};
+    dec.src.init(payload, lanes, pw, sm->stage);
     dec.code = dec.src.take(8);
 
     int state = kFlag, psize = 0, pbits = 0, pdist = 0, bitpos = 0;
@@ -151,17 +241,22 @@ SQZ_DEVICE void decode_lane(const uint32_t* payload, int pw,
         bool bad1 = false;
         const bool o1_flag = state == kFlag, o1_bits = state == kBitsState;
         int sym1;
-        if (o1_flag) {
-            sym1 = dec.binary(tab + kLit * stride, tab + (kLit + 1) * stride,
-                              &bad1);
-        } else if (o1_bits) {
-            sym1 = dec.table(tab + kBits * stride, stride, 32, &bad1);
+        if (o1_bits) {
+            sym1 = dec.search(sm, md.bits, kRcpBits, &rc.bits, &bad1);
             pbits = sym1;
             pdist = 0;
             bitpos = 0;
+        } else if (o1_flag) {
+            sym1 = dec.binary(md.lit0, md.lit1, rc.lit, &bad1);
+            md.lit0 += !sym1;
+            md.lit1 += sym1;
+            rc.lit = rcp_next(sm, kRcpLit, md.lit0 + md.lit1);
         } else {
-            sym1 = dec.binary(tab + (kDist0 + bitpos) * stride,
-                              tab + (kDist1 + bitpos) * stride, &bad1);
+            int a, b;
+            md.dist.get(bitpos, &a, &b);
+            sym1 = dec.binary(a, b, rc.get_dist(bitpos), &bad1);
+            md.dist.bump(bitpos, sym1);
+            rc.next_dist(sm, bitpos, a + b + 1);
             pdist |= sym1 << bitpos;
             ++bitpos;
         }
@@ -176,11 +271,16 @@ SQZ_DEVICE void decode_lane(const uint32_t* payload, int pw,
         // ---- op 2: byte | size | distance bit | nothing
         bool bad2 = false;
         int sym2 = 0;
-        if (o2_byte || o2_size) {
-            sym2 = dec.model(model256(tab, stride, o2_byte), &bad2);
+        if (o2_byte) {
+            sym2 = dec.search(sm, md.byte, kRcpByte, &rc.byte, &bad2);
+        } else if (o2_size) {
+            sym2 = dec.search(sm, md.size, kRcpSize, &rc.size, &bad2);
         } else if (o2_dist) {
-            sym2 = dec.binary(tab + (kDist0 + bitpos) * stride,
-                              tab + (kDist1 + bitpos) * stride, &bad2);
+            int a, b;
+            md.dist.get(bitpos, &a, &b);
+            sym2 = dec.binary(a, b, rc.get_dist(bitpos), &bad2);
+            md.dist.bump(bitpos, sym2);
+            rc.next_dist(sm, bitpos, a + b + 1);
         }
 
         // ---- token outputs
@@ -188,7 +288,7 @@ SQZ_DEVICE void decode_lane(const uint32_t* payload, int pw,
         if (o2_byte) {
             litw |= static_cast<uint32_t>(sym2) << (24 - 8 * (nlit & 3));
             if ((nlit & 3) == 3) {
-                if ((nlit >> 2) < lw)
+                if (st && (nlit >> 2) < lw)
                     lit[static_cast<long long>(nlit >> 2) * lanes] = litw;
                 litw = 0;
             }
@@ -210,7 +310,7 @@ SQZ_DEVICE void decode_lane(const uint32_t* payload, int pw,
         const bool over = emit && optr + psize > sizes;
         const bool emit_ok = emit && !bad_dist && !over;
         if (emit_ok) {
-            if (nmatch < mw)
+            if (st && nmatch < mw)
                 mrec[static_cast<long long>(nmatch) * lanes] =
                     (static_cast<uint32_t>(psize) << 16)
                     | static_cast<uint32_t>(dist);
@@ -221,7 +321,7 @@ SQZ_DEVICE void decode_lane(const uint32_t* payload, int pw,
         if (o2_byte || emit_ok) {
             ++ntok;
             if ((ntok & 31) == 0) {
-                if ((ntok >> 5) - 1 < tw)
+                if (st && (ntok >> 5) - 1 < tw)
                     tok[static_cast<long long>((ntok >> 5) - 1) * lanes] = tokw;
                 tokw = 0;
             }
@@ -245,6 +345,7 @@ SQZ_DEVICE void decode_lane(const uint32_t* payload, int pw,
         state = nstate;
     }
 
+    if (!st) return;
     if ((nlit & 3) && (nlit >> 2) < lw)
         lit[static_cast<long long>(nlit >> 2) * lanes] = litw;
     if ((ntok & 31) && (ntok >> 5) < tw)
@@ -263,45 +364,42 @@ SQZ_DEVICE void decode_lane(const uint32_t* payload, int pw,
 
 #ifdef __CUDACC__
 
-__global__ void sqz4_decode_kernel(const uint32_t* __restrict__ payload,
+// One block per CTA of 32 threads.
+__global__ void __launch_bounds__(32)
+sqz4_decode_kernel(const uint32_t* __restrict__ payload,
                                    const int32_t* __restrict__ meta,
-                                   int n_lanes, int pw, int lanes, int t_max,
+                                   int pw, int lanes, int t_max,
                                    uint32_t* __restrict__ lit, int lw,
                                    uint32_t* __restrict__ tok, int tw,
                                    uint32_t* __restrict__ mrec, int mw,
                                    int32_t* __restrict__ counts) {
-    extern __shared__ int smem[];
-    const int n = blockIdx.x * blockDim.x + threadIdx.x;
-    if (n >= n_lanes) return;
+    __shared__ sqz4::DecSmem sm;
+    const int n = blockIdx.x;
     const long long g = n / lanes, b = n % lanes;
     sqz4::decode_lane(payload + g * pw * lanes + b, pw,
                       meta + g * 8 * lanes + b, lanes, t_max,
                       lit + g * lw * lanes + b, lw,
                       tok + g * tw * lanes + b, tw,
                       mrec + g * mw * lanes + b, mw,
-                      counts + g * 8 * lanes + b, smem + threadIdx.x,
-                      blockDim.x);
+                      counts + g * 8 * lanes + b, &sm);
 }
 
 // payload: [groups, pw, lanes] u32; meta: [groups, 8, lanes] i32; lit,
 // tok, mrec: [groups, lw | tw | mw, lanes] u32; counts: [groups, 8, lanes]
-// i32. Launches on `stream`; returns the cudaError_t of the launch.
+// i32. threads: 32 (a warp per block). Launches on `stream`; returns the
+// cudaError_t of the launch.
 extern "C" int sqz4_decode_launch(const void* payload, const void* meta,
                                   int groups, int pw, int lanes, int t_max,
                                   void* lit, int lw, void* tok, int tw,
                                   void* mrec, int mw, void* counts,
                                   int threads, void* stream) {
+    if (threads != 32) return static_cast<int>(cudaErrorInvalidValue);
     const int n_lanes = groups * lanes;
-    const size_t smem = sizeof(int) * sqz4::kTableWords * threads;
-    cudaError_t err = cudaFuncSetAttribute(
-        sqz4_decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const int ctas = (n_lanes + threads - 1) / threads;
-    sqz4_decode_kernel<<<ctas, threads, smem,
+    if (n_lanes == 0) return static_cast<int>(cudaSuccess);
+    sqz4_decode_kernel<<<n_lanes, threads, 0,
                          static_cast<cudaStream_t>(stream)>>>(
         static_cast<const uint32_t*>(payload),
-        static_cast<const int32_t*>(meta), n_lanes, pw, lanes, t_max,
+        static_cast<const int32_t*>(meta), pw, lanes, t_max,
         static_cast<uint32_t*>(lit), lw, static_cast<uint32_t*>(tok), tw,
         static_cast<uint32_t*>(mrec), mw, static_cast<int32_t*>(counts));
     return static_cast<int>(cudaGetLastError());

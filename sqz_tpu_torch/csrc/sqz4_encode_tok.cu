@@ -16,137 +16,405 @@
 // uint32 [G, cap_words, B] (big-endian bytes) and lens int32 [G, 8, B]
 // (row 0 = payload byte length).
 //
-// Each thread expands its block's tokens into the coder's op pairs with
-// the Pallas kernel's (token, phase) machine, one pair per step for at
-// most t_max steps: a literal codes (flag 1, byte), a match (flag 0,
-// size), (bits, distance bit 0), then two distance bits a pair, the EOS
-// token (flag 0, size 255) and four pairs of flushes. That is the op
-// sequence native sqz4_fast_plan emits for the same parse, and the pads
-// of the pairing code nothing, so the bytes equal the op-stream
-// encoder's (the reference's own contract, tests/test_sqz4_pallas.py:278).
-// The coding goes through the shared coder step (sqz4_coder.cuh).
+// The op sequence is the Pallas kernel's: its (token, phase) machine
+// expands each token into op pairs, one pair per step for at most t_max
+// steps: a literal codes (flag 1, byte), a match (flag 0, size), (bits,
+// distance bit 0), then two distance bits a pair, the EOS token (flag 0,
+// size 255) and four pairs of flushes. That is the op sequence native
+// sqz4_fast_plan emits for the same parse, and the pads of the pairing
+// code nothing, so the bytes equal the op-stream encoder's (the
+// reference's own contract, tests/test_sqz4_pallas.py:278). Here a token
+// expands at once, with the pair budget cut exactly where the machine's
+// steps would stop (TokProducer::match, fill).
 //
-// What bounds it: as for the op-stream encoder, each block is one serial
-// dependence chain of coder steps, and a call carries one chain per block
-// (512 for a 32 MiB group of 64 KiB blocks, against 132 SMs): latency, not
-// bandwidth or arithmetic. What the design does about it: the same launch
-// shape (one thread per block, one block per CTA); the token and literal
-// rows are read in order by their own thread, so the TPU kernel's
-// transposes, sliding windows and one-hot selects (which serve its lane
-// layout) have no counterpart; the ~1.1 B of input per input byte against
-// ~4.5 B/B of op streams shrinks the upload, not the chain.
+// What bounds it: each block is one serial chain of coder steps (a launch
+// holds one chain per block, 512 for a 32 MiB group, on 132 SMs), so the
+// time is the symbols of the longest block times the latency of one
+// step: latency, not bandwidth or arithmetic. The one-thread design
+// before this one spent ~1,100 SM cycles a symbol: a software u64
+// divide, the model lookups and updates, global loads of tokens and
+// literals, and the byte emission all sat on that chain.
+//
+// What the design does about it: an encoder's statistics depend only on
+// its op sequence, not on the coder's registers, so they leave the chain,
+// and so do its output bytes.
+//   - A producer warp (TokProducer) expands a token, or 32 literals of a
+//     run, at a time into coder ops and their model statistics (start,
+//     size, total) in a buffer of kRingOps ops in shared memory. Its
+//     models live in its lanes' registers (sqz4_chain.cuh LaneModels): a
+//     match's distance bits, each with its own model, are coded by as
+//     many lanes at once; a literal chunk's byte statistics are the
+//     model's before the chunk plus the chunk's earlier bytes below and
+//     equal to each (32 shuffles), and its counts update the model at
+//     once. The lanes then compute the buffer's reciprocals recip64(total)
+//     side by side.
+//   - A coder warp (ChainCoder) runs only the code_stats arithmetic per
+//     op: a high multiply and a remainder test for the divide
+//     (sqz4_div.cuh; no `/` anywhere in this kernel), multiplies, adds,
+//     xor, a leading-zero count, shifts, and a record of the settled
+//     bytes (pre, cnt) in the buffer. It reads each op's entry while coding
+//     the one before, so no load waits on the chain.
+//   - The producer warp turns a buffer's records into payload words (a
+//     ByteEmitter: a warp scan of the counts places 32 records' bytes at
+//     once) when the coder hands the buffer back, before refilling it.
+//   - Tokens and literal bytes reach the producer through shared memory,
+//     a chunk loaded into the lanes' registers (coalesced) a chunk before
+//     it is needed (Stager).
+//   - Launch geometry (the launcher's `threads`): 256 threads a CTA hold
+//     four blocks, coder warps 0-3 and producer warps 4-7, so each of an
+//     SM's four schedulers issues one coder chain (warps go to schedulers
+//     by their index mod 4) and the 128 CTAs of a 512-block launch take
+//     one SM each; 64 threads, one block (two coder warps may then share
+//     a scheduler); 32, one warp that produces a buffer and then codes
+//     it. The pair of warps hands two buffers back and forth through
+//     named barriers. The wrapper launches 256, the fastest (PERF.md
+//     has the times of each).
+// What bounds it now: the coder warp's chain, ~200 SM cycles an op on
+// pseudo-text (64-bit values as 32-bit pairs), and the issue slots it
+// shares with the CTA's other warps: half the blocks at one pair a CTA ran
+// 10% faster, while leaving out the byte emission saved 1%
+// (scripts/chain_variants.py, PERF.md).
+// The seeded modes (initial counts from a seed table) would initialize the
+// producer's models; lit_skip would change only the expansion. Both are
+// refused by the launcher, as before.
 
-#include "sqz4_coder.cuh"
+#include "sqz4_chain.cuh"
 
 namespace sqz4 {
 
-constexpr uint32_t kTokDone = 0xFFFFFFFFu;   // lane finished
-constexpr int kOpPad = 255;
+constexpr int kRingOps = 256;   // ops per hand-over buffer
+constexpr int kTokOps = 64;     // the most ops one token pass adds
+constexpr int kLitPer = 32 / kLanes;   // literals of a chunk a lane holds
+constexpr int kRoleBoth = 0, kRoleProducer = 1, kRoleConsumer = 2;
+constexpr int kMaxBlocks = 4;   // blocks a CTA codes (four named
+                                // barriers each, of the 16)
+
+constexpr int kRecs = kRingOps + 8;   // its ops and the block's flushes
+
+// One buffer of coder ops (statistics and reciprocal) and the flushes that
+// follow them (the block's end), then the coder's records of their
+// settled bytes.
+struct TokRing {
+    u64 m[kRingOps];
+    uint32_t total[kRingOps];
+    uint32_t start[kRingOps];
+    uint32_t size[kRingOps];
+    u64 pre[kRecs];
+    uint8_t cnt[kRecs];
+    int n;
+    int flushes;
+    int last;
+};
+
+struct TokSmem {
+    uint32_t tok[2 * kStage];
+    uint8_t lit_bytes[2 * kStage];
+    int hist[256];
+    uint32_t out[kOutBytes / 4];
+    TokRing ring[2];
+};
+
+SQZ_DEVICE void entry(TokRing& r, int i, int total, int start, int size) {
+    r.total[i] = static_cast<uint32_t>(total);
+    r.start[i] = static_cast<uint32_t>(start);
+    r.size[i] = static_cast<uint32_t>(size);
+}
+
+// Expands a block's tokens into coder ops and their model statistics, a
+// token (or 32 literals) at a time, the warp's lanes side by side.
+struct TokProducer {
+    LaneModels md;
+    Stager<uint32_t> toks;
+    Stager<uint8_t> lits;
+    int* hist;
+    int t_max, t;   // the pair budget, and the pairs used
+    int run;        // literals left of the current literal-run token
+    int tidx, lidx;
+    bool done;
+
+    SQZ_DEVICE void init(TokSmem* s, const uint32_t* tk, int tok_rows,
+                         const uint8_t* lt, int lit_bytes, int steps) {
+        md.init();
+        toks.init(tk, tok_rows, 1, s->tok);
+        lits.init(lt, lit_bytes, 1, s->lit_bytes);
+        hist = s->hist;
+        for (int i = lane_id(); i < 256; i += kLanes) hist[i] = 0;
+        warp_sync();
+        t_max = steps, t = 0;
+        run = tidx = lidx = 0;
+        done = false;
+    }
+
+    // a literal flag (symbol s), in order
+    SQZ_DEVICE void flag(TokRing& r, int i, int s) {
+        const int a = md.lit0, b = md.lit1;
+        entry(r, i, a + b, s ? a : 0, s ? b : a);
+        md.lit0 += !s;
+        md.lit1 += s;
+    }
+
+    template <int N>
+    SQZ_DEVICE void model(LaneModel<N>& m, TokRing& r, int i, int s) {
+        int start, size;
+        m.stats(s, &start, &size);
+        entry(r, i, m.total, start, size);
+        m.bump(s);
+    }
+
+    // A match or EOS token with `budget` pairs left: its ops from entry n
+    // on; returns their count. Pairs: (flag 0, size), (bits, distance bit
+    // 0), then distance bits two a pair; EOS (flag 0, size 255) and four
+    // pairs of flushes, after which the lane is done.
+    SQZ_DEVICE int match(TokRing& r, int n, uint32_t tok, int budget) {
+        const int len = tok & 0xFF, nb = (tok >> 9) & 0x1F;
+        const int dist = (tok >> 16) & 0x7FFF;
+        flag(r, n, 0);
+        model(md.size, r, n + 1, len);
+        if (len == 255) {
+            const int fl = budget - 1 < 4 ? budget - 1 : 4;
+            r.flushes = 2 * fl;   // after every op of this last buffer
+            t += 1 + fl;
+            done = true;
+            return 2;
+        }
+        if (budget < 2) {
+            t += 1;
+            done = true;
+            return 2;
+        }
+        model(md.bits, r, n + 2, nb < 31 ? nb : 31);
+        // distance bits 0..nb-2 (the top one is implicit): bit k rides
+        // pair 1 + (k + 1) / 2, and each has its own model, so every lane
+        // codes the bits of its own models at once
+        const int nd = nb > 1 ? nb - 1 : 0, pairs = 2 + nd / 2;
+        const int nok = nd < 2 * budget - 3 ? nd : 2 * budget - 3;
+        constexpr int kPer = LaneBinary<32>::kPer;
+        SQZ_UNROLL()
+        for (int q = 0; q < kPer; ++q) {
+            const int k = lane_id() * kPer + q;
+            const int a = md.dist.f0[q], b = md.dist.f1[q];
+            const int s = (dist >> k) & 1;
+            if (k < nok) {
+                entry(r, n + 3 + k, a + b, s ? a : 0, s ? b : a);
+                md.dist.f0[q] += !s;
+                md.dist.f1[q] += s;
+            }
+        }
+        t += pairs < budget ? pairs : budget;
+        done = pairs > budget;
+        return 3 + nok;
+    }
+
+    // The next k (1..32) literals of the current run from entry n on, a
+    // flag and a byte each. A literal's byte statistics are the model's
+    // before the chunk plus the chunk's earlier literals below it (start)
+    // and equal to it (size); then the chunk's counts update the model.
+    SQZ_DEVICE void literals(TokRing& r, int n, int k) {
+        lits.ensure(lidx + k - 1);
+        int c[kLitPer], less[kLitPer], eq[kLitPer];
+        SQZ_UNROLL()
+        for (int q = 0; q < kLitPer; ++q) {
+            const int i = lane_id() * kLitPer + q;
+            c[q] = i < k ? lits.at(lidx + i) : 0;
+            less[q] = eq[q] = 0;
+        }
+        for (int m = 0; m < k; ++m) {
+            const int cm = shfl(c[m % kLitPer], m / kLitPer);
+            SQZ_UNROLL()
+            for (int q = 0; q < kLitPer; ++q) {
+                const int i = lane_id() * kLitPer + q;
+                less[q] += m < i && cm < c[q];
+                eq[q] += m < i && cm == c[q];
+            }
+        }
+        const int a = md.lit0, b = md.lit1, tot = md.byte.total;
+        SQZ_UNROLL()
+        for (int q = 0; q < kLitPer; ++q) {
+            const int i = lane_id() * kLitPer + q;
+            int start, size;
+            md.byte.stats_any(c[q], &start, &size);
+            if (i < k) {
+                entry(r, n + 2 * i, a + b + i, a, b + i);
+                entry(r, n + 2 * i + 1, tot + i, start + less[q],
+                      size + eq[q]);
+                smem_add(&hist[c[q]], 1);
+            }
+        }
+        warp_sync();
+        constexpr int kPer = LaneModel<256>::kPer;
+        int inc[kPer];
+        SQZ_UNROLL()
+        for (int j = 0; j < kPer; ++j) inc[j] = hist[lane_id() * kPer + j];
+        warp_sync();
+        SQZ_UNROLL()
+        for (int j = 0; j < kPer; ++j) hist[lane_id() * kPer + j] = 0;
+        warp_sync();
+        md.byte.add(inc, k);
+        md.lit1 += k;
+        lidx += k;
+        run -= k;
+        t += k;
+    }
+
+    // Fill buffer r (whole tokens or literal chunks, at most kRingOps
+    // ops) and its reciprocals; returns true when this is the block's last
+    // buffer.
+    SQZ_DEVICE bool fill(TokRing& r) {
+        int n = 0;
+        r.flushes = 0;
+        while (!done && n <= kRingOps - kTokOps) {
+            const int budget = t_max - t;
+            if (budget <= 0) {
+                done = true;
+            } else if (run > 0) {
+                const int k = run < 32 ? (run < budget ? run : budget)
+                                       : (32 < budget ? 32 : budget);
+                literals(r, n, k);
+                n += 2 * k;
+            } else {
+                const uint32_t tok = toks.get(tidx++);
+                if (tok == 0) done = true;   // a pad: nothing more
+                else if ((tok >> 8) & 1) n += match(r, n, tok, budget);
+                else run = tok & 0xFF;
+            }
+        }
+        warp_sync();
+        // the buffer's reciprocals, the lanes side by side
+        SQZ_UNROLL()
+        for (int j = 0; j < kRingOps / kLanes; ++j) {
+            const int i = lane_id() + j * kLanes;
+            if (i < n) r.m[i] = recip64(r.total[i]);
+        }
+        r.n = n;
+        r.last = done;
+        warp_sync();
+        return done;
+    }
+};
+
+// Code one buffer of ops, then its flushes, recording their settled
+// bytes. Each op's entry is read while the op before it is coded, so no
+// load waits on the chain.
+SQZ_DEVICE void drain(ChainCoder& c, TokRing& r) {
+    const int n = r.n;
+    u64 m = r.m[0];
+    uint32_t total = r.total[0], start = r.start[0], size = r.size[0];
+    SQZ_UNROLL(4)
+    for (int i = 0; i < n; ++i) {
+        const int j = i + 1 < kRingOps ? i + 1 : i;
+        const u64 m2 = r.m[j];
+        const uint32_t total2 = r.total[j], start2 = r.start[j],
+                       size2 = r.size[j];
+        c.code(total, start, size, m, r.pre + i, r.cnt + i);
+        m = m2, total = total2, start = start2, size = size2;
+    }
+    for (int i = n; i < n + r.flushes; ++i) c.flush(r.pre + i, r.cnt + i);
+}
+
+// The payload bytes of a coded buffer.
+SQZ_DEVICE void emit(ByteEmitter& e, const TokRing& r) {
+    e.put(r.pre, r.cnt, r.n + r.flushes);
+}
 
 // Encode one block from its token row (tok_rows tokens) and literal row
 // (lit_bytes bytes); reads past either row see zeros, as the Pallas
 // kernel's windows do. words / len_out are offset to the lane; rows of
 // words are `lanes` elements apart and must be zero-filled by the caller.
+// role: kRoleBoth (one warp, or the host: produce a buffer, then code
+// it), or the producer or the coder warp of a pair that hands buffers
+// over through named barriers bar .. bar + 3 (full 0 and 1, empty 0 and
+// 1).
 SQZ_DEVICE void encode_tok_lane(const uint32_t* toks, int tok_rows,
                                 const uint8_t* lits, int lit_bytes,
                                 int t_max, int lanes, uint32_t* words,
-                                int cap_words, int32_t* len_out, int* tab,
-                                int stride) {
-    Encoder enc = make_encoder(words, lanes, cap_words, tab, stride);
-    uint32_t tok = 0;
-    int phase = 0, run = 0, tidx = 0, lidx = 0;
-    for (int t = 0; t < t_max; ++t) {
-        // fetch the next token once the current one is consumed
-        const bool need = tok == 0;
-        if (need) {
-            const uint32_t f = tidx < tok_rows ? toks[tidx] : 0u;
-            tok = f ? f : kTokDone;
-            ++tidx;
-            phase = 0;
+                                int cap_words, int32_t* len_out,
+                                TokSmem* sm, int role, int bar) {
+    const int threads = 2 * kLanes, full = bar, empty = bar + 2;
+    if (role == kRoleConsumer) {
+        ChainCoder coder{0ull, ~0ull};
+        for (int c = 0;; ++c) {
+            bar_wait(full + (c & 1), threads);
+            drain(coder, sm->ring[c & 1]);
+            const bool last = sm->ring[c & 1].last;
+            bar_arrive(empty + (c & 1), threads);
+            if (last) break;
         }
-        if (tok == kTokDone) break;   // every later pair would be pads
-
-        const bool isflush = phase >= 16;
-        const bool ismatch = !isflush && ((tok >> 8) & 1);
-        const bool islit = !isflush && !ismatch;
-        const int cnt_len = tok & 0xFF;
-        const int nb = (tok >> 9) & 0x1F;
-        const int dist = (tok >> 16) & 0x7FFF;
-        const bool eos = ismatch && cnt_len == 255;
-        if (need && islit) run = cnt_len;
-        const int lbyte = lidx < lit_bytes ? lits[lidx] : 0;
-
-        // expand (token, phase) -> the pair (m1, s1), (m2, s2)
-        const bool p0 = ismatch && phase == 0;
-        const bool p1 = ismatch && phase == 1;
-        const bool pk = ismatch && phase >= 2;
-        const int k1 = 2 * phase - 3, k2 = 2 * phase - 2;
-        int m1 = kOpPad, s1 = 0, m2 = kOpPad, s2 = 0;
-        if (islit) {
-            m1 = kOpFlag, s1 = 1, m2 = kOpByte, s2 = lbyte;
-        } else if (p0) {
-            m1 = kOpFlag, m2 = kOpSize, s2 = cnt_len;
-        } else if (p1) {
-            m1 = kOpBits, s1 = nb;
-            if (nb >= 2) m2 = kOpDist, s2 = dist & 1;
-        } else if (pk) {
-            m1 = kOpDist + k1, s1 = (dist >> k1) & 1;
-            if (k2 <= nb - 2) m2 = kOpDist + k2, s2 = (dist >> k2) & 1;
-        } else if (isflush) {
-            m1 = m2 = kOpFlush;
-        }
-
-        // advance the expansion state
-        const bool litlast = islit && run == 1;
-        if (islit) {
-            --run;
-            ++lidx;
-        }
-        const bool adv = (p1 && nb <= 2) || (pk && k2 >= nb - 2);
-        int next = phase;
-        if (p0) next = eos ? 16 : 1;
-        else if ((p1 || pk) && !adv) next = phase + 1;
-        else if (isflush) next = phase + 1;
-        if (litlast || (adv && !eos)) tok = 0;
-        if (isflush && next >= 20) tok = kTokDone;
-        phase = next;
-
-        enc.code(m1, s1);
-        enc.code(m2, s2);
+        return;
     }
-    *len_out = enc.finish();
+    TokProducer prod;
+    prod.init(sm, toks, tok_rows, lits, lit_bytes, t_max);
+    ByteEmitter out{words, lanes, cap_words, sm->out, 0, 0};
+    if (role == kRoleProducer) {
+        // buffer c & 1 is refilled once the coder hands it back, and its
+        // records turned into bytes first
+        int c = 0;
+        for (;; ++c) {
+            if (c >= 2) {
+                bar_wait(empty + (c & 1), threads);
+                emit(out, sm->ring[c & 1]);
+            }
+            const bool last = prod.fill(sm->ring[c & 1]);
+            bar_arrive(full + (c & 1), threads);
+            if (last) break;
+        }
+        // the coder's hand-backs of the last two buffers
+        for (int k = c >= 1 ? c - 1 : c; k <= c; ++k) {
+            bar_wait(empty + (k & 1), threads);
+            emit(out, sm->ring[k & 1]);
+        }
+    } else {
+        ChainCoder coder{0ull, ~0ull};
+        for (;;) {
+            const bool last = prod.fill(sm->ring[0]);
+            drain(coder, sm->ring[0]);
+            warp_sync();
+            emit(out, sm->ring[0]);
+            if (last) break;
+        }
+    }
+    const int32_t n = out.finish();
+    if (lane_id() == 0) *len_out = n;
 }
 
 }  // namespace sqz4
 
 #ifdef __CUDACC__
 
-__global__ void sqz4_encode_tok_kernel(const uint32_t* __restrict__ toks,
-                                       int tok_rows,
-                                       const uint8_t* __restrict__ lits,
-                                       int lit_bytes, int n_lanes, int lanes,
-                                       int t_max, uint32_t* __restrict__ words,
-                                       int cap_words,
-                                       int32_t* __restrict__ lens) {
-    extern __shared__ int smem[];
-    const int n = blockIdx.x * blockDim.x + threadIdx.x;
+// 32 threads a CTA: one block, one warp (kRoleBoth). 64 * k threads (k
+// = 1..4): k blocks, warp j < k codes block j and warp k + j produces
+// it, so with one CTA on an SM each of its four schedulers holds one
+// coder warp (warps go to schedulers by their index mod 4).
+__global__ void __launch_bounds__(64 * sqz4::kMaxBlocks)
+sqz4_encode_tok_kernel(const uint32_t* __restrict__ toks, int tok_rows,
+                       const uint8_t* __restrict__ lits, int lit_bytes,
+                       int n_lanes, int lanes, int t_max,
+                       uint32_t* __restrict__ words, int cap_words,
+                       int32_t* __restrict__ lens) {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    const int per = blockDim.x == 32 ? 1 : blockDim.x / 64;
+    const int warp = threadIdx.x / 32, j = warp % per;
+    const int n = blockIdx.x * per + j;
     if (n >= n_lanes) return;
     const long long g = n / lanes, b = n % lanes;
+    const int role = blockDim.x == 32 ? sqz4::kRoleBoth
+                   : warp < per ? sqz4::kRoleConsumer
+                                : sqz4::kRoleProducer;
     sqz4::encode_tok_lane(toks + static_cast<long long>(n) * tok_rows,
                           tok_rows,
                           lits + static_cast<long long>(n) * lit_bytes,
                           lit_bytes, t_max, lanes,
                           words + g * cap_words * lanes + b, cap_words,
-                          lens + g * 8 * lanes + b, smem + threadIdx.x,
-                          blockDim.x);
+                          lens + g * 8 * lanes + b,
+                          reinterpret_cast<sqz4::TokSmem*>(smem_raw) + j,
+                          role, 4 * j);
 }
 
 // toks: [groups, lanes, tok_rows] u32; lits: [groups, lanes, lit_bytes]
 // u8; words: [groups, cap_words, lanes] u32, zero-filled; lens: [groups,
-// 8, lanes] i32, zero-filled. lit_skip (the resident paths' raw literal
-// stream) is not implemented: a nonzero flag returns
-// cudaErrorNotSupported. Launches on `stream`; returns the cudaError_t of
-// the launch.
+// 8, lanes] i32, zero-filled. threads: 32, 64, 128, 192 or 256 a CTA (see
+// the kernel). lit_skip (the resident paths' raw literal stream) is not
+// implemented: a nonzero flag returns cudaErrorNotSupported. Launches on
+// `stream`; returns the cudaError_t of the launch.
 extern "C" int sqz4_encode_tok_launch(const void* toks, int tok_rows,
                                       const void* lits, int lit_bytes,
                                       int groups, int lanes, int t_max,
@@ -154,14 +422,18 @@ extern "C" int sqz4_encode_tok_launch(const void* toks, int tok_rows,
                                       int threads, int lit_skip,
                                       void* stream) {
     if (lit_skip) return static_cast<int>(cudaErrorNotSupported);
+    if (threads != 32 && (threads % 64 || threads < 64
+                          || threads > 64 * sqz4::kMaxBlocks))
+        return static_cast<int>(cudaErrorInvalidValue);
     const int n_lanes = groups * lanes;
-    const size_t smem = sizeof(int) * sqz4::kTableWords * threads;
+    if (n_lanes == 0) return static_cast<int>(cudaSuccess);
+    const int per = threads == 32 ? 1 : threads / 64;
+    const size_t smem = sizeof(sqz4::TokSmem) * per;
     cudaError_t err = cudaFuncSetAttribute(
         sqz4_encode_tok_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
-    const int ctas = (n_lanes + threads - 1) / threads;
-    sqz4_encode_tok_kernel<<<ctas, threads, smem,
+    sqz4_encode_tok_kernel<<<(n_lanes + per - 1) / per, threads, smem,
                              static_cast<cudaStream_t>(stream)>>>(
         static_cast<const uint32_t*>(toks), tok_rows,
         static_cast<const uint8_t*>(lits), lit_bytes, n_lanes, lanes, t_max,

@@ -28,9 +28,19 @@ from sqz_tpu_torch import convert, native
 from sqz_tpu_torch.ops import sqz4_host as host
 from sqz_tpu_torch.ops import launch, sqz4_ref
 
-# Blocks (one per thread) per CTA. One spreads a call's serial chains over
-# every SM with no divergence inside a warp; it measured fastest (PERF.md).
+# Blocks (one per thread) per CTA of the op-stream and stats-fed encoders.
+# One spreads a call's serial chains over every SM with no divergence
+# inside a warp; it measured fastest (PERF.md).
 THREADS = 1
+# Threads per CTA (one block each) of the decoder: a warp whose lanes run
+# the block's chain together (csrc/sqz4_decode.cu).
+DECODE_THREADS = 32
+# Threads per CTA of the token encoder (csrc/sqz4_encode_tok.cu): four
+# blocks a CTA, each a coder warp beside a producer warp (token expansion,
+# models, reciprocals, byte placement), one coder on each of an SM's
+# schedulers. It measured fastest of 256, 64 and 32 (one warp doing both
+# in turn); scripts/chain_variants.py times them (PERF.md).
+TOK_THREADS = 256
 # Threads per CTA of the compaction kernel (one CTA per payload column).
 COMPACT_THREADS = 256
 
@@ -96,7 +106,7 @@ def decode(payload: torch.Tensor, meta: torch.Tensor, t_max: int, lw: int,
         rc = _build.library().sqz4_decode_launch(
             payload.data_ptr(), meta.data_ptr(), G, PW, B, t_max,
             lit.data_ptr(), lw, tok.data_ptr(), tw, mrec.data_ptr(), mw,
-            counts.data_ptr(), THREADS, stream)
+            counts.data_ptr(), DECODE_THREADS, stream)
     launch.launched(rc, "sqz4_decode")
     decode.launches += 1
     return lit, tok, mrec, counts
@@ -127,7 +137,8 @@ def encode_tok(toks: torch.Tensor, lits: torch.Tensor, t_max: int,
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = _build.library().sqz4_encode_tok_launch(
             toks.data_ptr(), TT, lits.data_ptr(), lits.shape[2], G, B, t_max,
-            words.data_ptr(), cap_words, lens.data_ptr(), THREADS, 0, stream)
+            words.data_ptr(), cap_words, lens.data_ptr(), TOK_THREADS, 0,
+            stream)
     launch.launched(rc, "sqz4_encode_tok")
     encode_tok.launches += 1
     return words, lens

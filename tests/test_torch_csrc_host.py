@@ -35,6 +35,7 @@ CSRC = Path(__file__).resolve().parents[1] / "sqz_tpu_torch" / "csrc"
 HARNESS = r"""
 #define SQZ_DEVICE inline
 #define __clzll(x) __builtin_clzll(x)
+#include <memory>
 #include <vector>
 #include "sqz4_encode.cu"
 #include "sqz4_decode.cu"
@@ -59,27 +60,39 @@ extern "C" void host_decode(const uint32_t* p, const int32_t* meta, int G,
                             int pw, int B, int t_max, uint32_t* lit, int lw,
                             uint32_t* tok, int tw, uint32_t* mrec, int mw,
                             int32_t* counts) {
-    std::vector<int> tab(sqz4::kTableWords);
+    std::unique_ptr<sqz4::DecSmem> sm(new sqz4::DecSmem);
     for (long long g = 0; g < G; ++g)
         for (long long b = 0; b < B; ++b)
             sqz4::decode_lane(p + g * pw * B + b, pw, meta + g * 8 * B + b,
                               B, t_max, lit + g * lw * B + b, lw,
                               tok + g * tw * B + b, tw,
                               mrec + g * mw * B + b, mw,
-                              counts + g * 8 * B + b, tab.data(), 1);
+                              counts + g * 8 * B + b, sm.get());
 }
 
 extern "C" void host_encode_tok(const uint32_t* toks, int TT,
                                 const uint8_t* lits, int L, int G, int B,
                                 int t_max, uint32_t* words, int cw,
                                 int32_t* lens) {
-    std::vector<int> tab(sqz4::kTableWords);
+    std::unique_ptr<sqz4::TokSmem> sm(new sqz4::TokSmem);
     for (long long g = 0; g < G; ++g)
         for (long long b = 0; b < B; ++b)
             sqz4::encode_tok_lane(toks + (g * B + b) * TT, TT,
                                   lits + (g * B + b) * L, L, t_max, B,
                                   words + g * cw * B + b, cw,
-                                  lens + g * 8 * B + b, tab.data(), 1);
+                                  lens + g * 8 * B + b, sm.get(),
+                                  sqz4::kRoleBoth, 0);
+}
+
+extern "C" void host_recip(const uint32_t* d, long long n,
+                           unsigned long long* m) {
+    for (long long i = 0; i < n; ++i) m[i] = sqz4::recip64(d[i]);
+}
+
+extern "C" void host_div(const unsigned long long* num, const uint32_t* d,
+                         long long n, unsigned long long* q) {
+    for (long long i = 0; i < n; ++i)
+        q[i] = sqz4::div_by(num[i], d[i], sqz4::recip64(d[i]));
 }
 
 extern "C" void host_bitpack(const uint32_t* ops, int G, int T, int B,
@@ -141,6 +154,8 @@ def lanes_lib(tmp_path_factory):
     lib.host_bitpack.argtypes = [p, i, i, i, p, i, p]
     lib.host_encode_stats.argtypes = [p, p, p, i, i, i, p, i, p]
     lib.host_probe.argtypes = [i, p, p, p, i, i]
+    lib.host_recip.argtypes = [p, ctypes.c_longlong, p]
+    lib.host_div.argtypes = [p, p, ctypes.c_longlong, p]
     return lib
 
 
@@ -255,6 +270,155 @@ def test_token_encoder_lanes_equal_plain_version(lanes_lib, lz):
     assert (host.unpack_group_payloads(words, lens, nb)
             == native.blocks_compress(data, 1, 10, blk, lz=lz,
                                       parse="fast"))
+
+
+def _tok_inputs(data, blk, lanes, lz=True):
+    """The token planner's rows for ``data``, padded to whole groups of
+    ``lanes`` blocks: (toks [G, lanes, Tt], lits [G, lanes, L], pair
+    budget, block count)."""
+    bs = 1 << blk
+    nb = -(-len(data) // bs)
+    tok_cap, lit_cap = host.tok_caps(blk)
+    toks, lits, counts, mx = port_native.sqz4_tok_plan(
+        data, 1 << 10, blk, lz, tok_cap, lit_cap)
+    G = -(-nb // lanes)
+    tt = np.zeros((G * lanes, int(counts[:, 0].max())), np.uint32)
+    lt = np.zeros((G * lanes, int(counts[:, 1].max())), np.uint8)
+    tt[:nb] = toks[:, :tt.shape[1]]
+    lt[:nb] = lits[:, :lt.shape[1]]
+    return tt.reshape(G, lanes, -1), lt.reshape(G, lanes, -1), int(mx), nb
+
+
+def _encode_tok_both(lib, tt, lt, t_max, cw):
+    G, lanes = tt.shape[:2]
+    words = np.zeros((G, cw, lanes), np.uint32)
+    lens = np.zeros((G, 8, lanes), np.int32)
+    lib.host_encode_tok(_ptr(tt), tt.shape[2], _ptr(lt), lt.shape[2], G,
+                        lanes, t_max, _ptr(words), cw, _ptr(lens))
+    want = sqz4_ref.encode_tok_ref(
+        torch.from_numpy(tt.view(np.int32)).view(torch.uint32),
+        torch.from_numpy(lt), t_max, cw)
+    return (words, lens), [convert.to_numpy(x) for x in want]
+
+
+def test_token_encoder_lanes_code_literal_heavy_blocks(lanes_lib):
+    # random bytes: every block a run of literal tokens (a flag and a
+    # byte an op pair), the literal chunks of the token-level producer
+    blk, lanes = 10, 4
+    data = corpus.random_bytes(6 << blk, seed=4) + corpus.texty(300, seed=5)
+    tt, lt, mx, nb = _tok_inputs(data, blk, lanes)
+    cw = host.cap_words_for((1 << blk) + 2048)
+    got, want = _encode_tok_both(lanes_lib, tt, lt, mx, cw)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+    assert (host.unpack_group_payloads(*got, nb)
+            == native.blocks_compress(data, 1, 10, blk, parse="fast"))
+
+
+@pytest.mark.parametrize("cut", [0, 1, 2, 3, 5, 17, 100, 333, -7, -3, -1,
+                                 9])
+def test_token_encoder_lanes_stop_at_the_pair_budget(lanes_lib, cut):
+    # a budget below the blocks' pairs cuts them mid-token, as the plain
+    # version's (token, phase) machine does (cut < 0: that many pairs
+    # below the longest block's; 9: above it)
+    blk, lanes = 10, 4
+    data = corpus.texty(3 << blk, seed=1) + corpus.random_bytes(1 << blk,
+                                                                seed=2)
+    tt, lt, mx, _ = _tok_inputs(data, blk, lanes)
+    t_max = mx + cut if cut < 0 or cut == 9 else cut
+    got, want = _encode_tok_both(lanes_lib, tt, lt, t_max,
+                                 host.cap_words_for((1 << blk) + 2048))
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_decoder_lanes_decode_literal_heavy_blocks(lanes_lib):
+    blk, lanes = 10, 4
+    bs = 1 << blk
+    data = corpus.random_bytes(6 * bs, seed=6) + corpus.texty(bs // 2,
+                                                              seed=7)
+    payloads = native.blocks_compress(data, 1, 10, blk)
+    sizes = [len(data[o:o + bs]) for o in range(0, len(data), bs)]
+    got, want = _decode_both(lanes_lib, payloads, sizes, blk, lanes)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+    assert b"".join(host.postprocess_decode(*got, payloads, sizes,
+                                            bs)) == data
+
+
+@pytest.mark.parametrize("kind", ["flip", "truncate", "noise"])
+def test_decoder_lanes_count_corrupt_lanes_like_plain_version(lanes_lib,
+                                                               kind):
+    # the counts rows err (4), steps (5) and state (7) of corrupt lanes,
+    # literal-heavy and match-heavy, as the plain version gives them
+    blk, lanes = 9, 8
+    bs = 1 << blk
+    rng = np.random.default_rng(len(kind))
+    data = (corpus.texty(4 * bs, seed=9)
+            + corpus.random_bytes(4 * bs, seed=10))
+    payloads = native.blocks_compress(data, 1, 10, blk)
+    for b in range(lanes):
+        p = bytearray(payloads[b])
+        at = int(rng.integers(0, len(p)))
+        if kind == "flip":
+            p[at] ^= 1 << int(rng.integers(0, 8))
+        elif kind == "truncate":
+            del p[at:]
+        else:
+            p[at:] = rng.integers(0, 256, len(p) - at,
+                                  dtype=np.uint8).tobytes()
+        payloads[b] = bytes(p)
+    got, want = _decode_both(lanes_lib, payloads, [bs] * lanes, blk, lanes)
+    np.testing.assert_array_equal(got[3][:, [4, 5, 7]], want[3][:, [4, 5, 7]])
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_divider_is_exact_for_every_model_total(lanes_lib):
+    # sqz4_div.cuh: recip64(d) == (2^64 - 1) // d and div_by(n, d) == n // d
+    # for every divisor 1..2^17-1, at the edge numerators and random ones
+    # (a few hundred for a stride of divisors)
+    rng = np.random.default_rng(17)
+    d_all = np.arange(1, 1 << 17, dtype=np.uint32)
+    m = np.zeros(d_all.size, np.uint64)
+    lanes_lib.host_recip(_ptr(d_all), d_all.size, _ptr(m))
+    np.testing.assert_array_equal(
+        m, np.uint64(0xFFFFFFFFFFFFFFFF) // d_all.astype(np.uint64))
+    d64 = d_all.astype(np.uint64)
+    edge = [np.zeros_like(d64), np.ones_like(d64), d64 - np.uint64(1), d64,
+            d64 + np.uint64(1), np.full_like(d64, 1 << 63),
+            np.full_like(d64, 0xFFFFFFFFFFFFFFFF)]
+    rand = [rng.integers(0, 1 << 64, d64.size, dtype=np.uint64)
+            for _ in range(8)]
+    sd = d_all[::97]
+    nums = np.concatenate(edge + rand + [rng.integers(
+        0, 1 << 64, sd.size * 512, dtype=np.uint64)])
+    dens = np.concatenate([d_all] * (len(edge) + len(rand))
+                          + [np.repeat(sd, 512)])
+    q = np.zeros(nums.size, np.uint64)
+    lanes_lib.host_div(_ptr(nums), _ptr(dens), nums.size, _ptr(q))
+    np.testing.assert_array_equal(q, nums // dens.astype(np.uint64))
+
+
+def test_decoder_binary_test_matches_the_cumulative_count(lanes_lib):
+    # floor(diff / rd) >= f0 exactly when diff >= f0 * rd, on random
+    # coder states: rd = rng // tot from the divider, diff inside and
+    # past the interval (the reference saturates there)
+    rng = np.random.default_rng(23)
+    n = 200000
+    tot = rng.integers(2, 1 << 17, n).astype(np.uint32)
+    rg = rng.integers(1 << 17, 1 << 64, n, dtype=np.uint64)
+    rd = np.zeros(n, np.uint64)
+    lanes_lib.host_div(_ptr(rg), _ptr(tot), n, _ptr(rd))
+    np.testing.assert_array_equal(rd, rg // tot.astype(np.uint64))
+    f0 = (rng.integers(0, 1 << 62, n, dtype=np.uint64)
+          % (tot.astype(np.uint64) - np.uint64(1))) + np.uint64(1)
+    top = tot.astype(np.uint64) * rd
+    inside = rng.integers(0, 1 << 62, n, dtype=np.uint64) % top
+    for diff in (inside, top - np.uint64(1), top, f0 * rd,
+                 f0 * rd - np.uint64(1)):
+        cum = np.minimum(diff // rd, tot.astype(np.uint64) - np.uint64(1))
+        np.testing.assert_array_equal(cum >= f0, diff >= f0 * rd)
 
 
 @pytest.mark.parametrize("nb", [16, 10])

@@ -77,6 +77,27 @@ def test_token_and_compaction_kernels_equal_plain_versions(cuda):
         words, lens, len(grp.fit) - 1).view(torch.int32))
 
 
+def test_token_encoder_and_decoder_on_literal_heavy_blocks(cuda):
+    # literal-heavy and match-heavy blocks, 13 of them (the token
+    # encoder's last CTA of four blocks holds one): the token encoder
+    # gives the plain version's payloads and the decoder restores them
+    bs = 1 << BLK
+    data = (corpus.random_bytes(6 * bs, seed=13)
+            + corpus.texty(6 * bs + bs // 2, seed=14))
+    grp = sqz4_cuda.plan_tok_group(data, BLK, 1 << 10, True)
+    toks = grp.toks.to(cuda).view(torch.uint32)
+    lits = grp.lits.to(cuda)
+    cw = host.cap_words_for(bs + 2048)
+    got = sqz4_cuda.encode_tok(toks, lits, grp.t_max, cw)
+    want = sqz4_ref.encode_tok_ref(toks, lits, grp.t_max, cw)
+    for a, b in zip(got, want):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    payloads = native.blocks_compress(data, 1, 10, BLK)
+    sizes = [len(data[o:o + bs]) for o in range(0, len(data), bs)]
+    assert b"".join(sqz4_cuda.decode_groups(payloads, sizes, BLK,
+                                            device=cuda)) == data
+
+
 def test_slice_round_trips_on_the_card(cuda, monkeypatch):
     data = corpus.texty(20000, seed=6) + corpus.random_bytes(5000, seed=7)
     blob = sqz_tpu_torch.compress(data, parse="exact", blk_bits=12)

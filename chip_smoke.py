@@ -17,10 +17,14 @@ Phases (any failure exits non-zero):
      encoder at 512 blocks of 16 KiB, the largest blocks whose model
      totals stay below its 2^15 limit; the probes at their fixed inputs):
      outputs must be equal (tolerance 0, a lossless integer codec), and
-     the payloads equal the native engine's; then the coders' chain
-     figures: the op-stream encoder, the decoder and the token encoder
-     timed on one group of the pseudo-text
-     and of 32 MiB of random bytes (the literal-heavy mix), in ns and SM
+     the payloads equal the native engine's. At both sizes the op-stream
+     and stats-fed encoders also code synthetic streams that reach every
+     op code, flushes and pads anywhere and blocks of mixed lengths
+     (``sqz_tpu_torch.utils.synthetic``), against their plain versions.
+     Then the coders' chain figures: the op-stream encoder, the decoder
+     and the token encoder timed on one group of the pseudo-text and of
+     32 MiB of random bytes (the literal-heavy mix), and the stats-fed
+     encoder on the pseudo-text's 512 x 16 KiB statistics, in ns and SM
      cycles per coded symbol, each checked against the native engine
      (``chain_figures``; ``python3 chip_smoke.py --chain`` runs only the
      build and this);
@@ -71,8 +75,11 @@ PIPE_BYTES = 128 << 20
 CORRUPT_BLOCK = 100
 REPS = 3
 PALLAS = "sqz_tpu/ops/sqz4_pallas.py"
-PLAIN_WORKERS = 5   # one per coder's plain version checked at a shape
+PLAIN_WORKERS = 7   # one per coder's plain version checked at a shape
 STATS_BITS = 14   # the stats-fed encoder's full-size blocks (16 KiB)
+# the synthetic streams' most ops a block, at 64 x 1 KiB and at the full
+# shapes (at most 2^16: the kernels' model totals stay below 2^17)
+SYNTH_OPS = {SMALL_BITS: 1 << 11, MAIN_BITS: 1 << 14}
 
 # Roofs of one H100 SXM (NVIDIA's data sheet): HBM bytes/s, and the
 # CUDA cores' rate (the fp32 rate outside the tensor cores; the coders'
@@ -371,6 +378,8 @@ def kernels_vs_plain(data, blk_bits, win_bits, lanes, reps, stats_bits,
     compact = (cerr, kms, cplain) + bound(
         2 * flat.numel() * 4 + offsets.numel() * 8, 0) + (lms,)
 
+    checks.update(synthetic_vs_plain(lanes, SYNTH_OPS[blk_bits], reps,
+                                     pool))
     checks["squeeze_bitpack"] = bitpack_vs_plain(data, blk_bits, win_bits,
                                                  lanes, reps, pool)
     checks["sqz4_encode_stats"] = stats_vs_plain(
@@ -385,6 +394,37 @@ def kernels_vs_plain(data, blk_bits, win_bits, lanes, reps, stats_bits,
         + (f", library {v[5]:.4f} ms" if v[5] is not None else "") + ")"
         for k, v in res.items() if k != "shape"))
     return res
+
+
+def synthetic_vs_plain(lanes, max_ops, reps, pool):
+    """The op-stream and stats-fed encoders against their plain versions
+    on synthetic streams of ``lanes`` blocks of up to ``max_ops`` ops
+    (every op code and symbol, flushes and pads anywhere, mixed lengths)
+    and a capacity of max_ops / 4 bytes, which the longest payloads
+    overflow. Returns {name: (PlainCheck, bound and library entries)}."""
+    from sqz_tpu_torch import convert
+    from sqz_tpu_torch.ops import sqz4_cuda, sqz4_ref
+    from sqz_tpu_torch.utils import synthetic
+    dev = "cuda"
+    cw = max_ops // 16
+    m, s = (convert.to_device(a, dev)
+            for a in synthetic.op_stream(lanes, max_ops, seed=41))
+    enc = PlainCheck(pool, sqz4_cuda.encode_full, sqz4_ref.encode_full_ref,
+                     (m, s, cw), reps)
+    packed = [convert.to_device(a, dev)
+              for a in synthetic.stats_stream(lanes, max_ops, seed=42)]
+    st = PlainCheck(pool, sqz4_cuda.encode_stats, sqz4_ref.encode_stats_ref,
+                    (*packed, cw), reps)
+    out = {}
+    for name, chk, nbytes, ops in (
+            ("sqz4_encode/synthetic", enc, 2 * m.numel() * 4,
+             coded_symbols(convert.to_numpy(m)) * OPS_PER_SYMBOL),
+            ("sqz4_encode_stats/synthetic", st, 3 * packed[0].numel() * 4,
+             int((packed[2] != 0).sum()) * OPS_PER_STAT)):
+        lens = convert.to_numpy(chk.got[1])
+        out[name] = chk, bound(nbytes + int(
+            lens[:, 0].clip(max=4 * cw).sum()) + lens.nbytes, ops) + (None,)
+    return out
 
 
 def bitpack_vs_plain(data, blk_bits, win_bits, lanes, reps, pool):
@@ -524,11 +564,12 @@ def sm_clock_under_load(fn):
 def chain_figures(inputs, blk_bits, win_bits, reps):
     """The coders' chains: the op-stream encoder (exact parse), the decoder
     (on its payloads) and the token encoder (fast parse) timed by CUDA
-    events on one group of each input of ``inputs`` ({name: bytes}), with
-    ns and SM cycles per coded symbol (mean symbols a block; every launch
-    holds one chain per block). The payloads must equal the native
-    engine's for the same parse and the decoder must restore the blocks;
-    no plain version runs here."""
+    events on one group of each input of ``inputs`` ({name: bytes}), and
+    the stats-fed encoder on the statistics of the texty input's first
+    512 blocks of 2^STATS_BITS bytes, with ns and SM cycles per coded
+    symbol (mean symbols a block; every launch holds one chain per block).
+    The payloads must equal the native engine's for the same parse and
+    the decoder must restore the blocks; no plain version runs here."""
     import numpy as np
     import torch
     from sqz_tpu_torch import convert, native
@@ -586,6 +627,8 @@ def chain_figures(inputs, blk_bits, win_bits, reps):
                                  f"from the native fast parse")
         timed["sqz4_encode_tok"] = (
             lambda: sqz4_cuda.encode_tok(toks, lits, grp.t_max, cw), tok_sym)
+        if name == "texty":
+            timed["sqz4_encode_stats"] = stats_chain(data, win_bits)
 
         for key, (fn, sym) in timed.items():
             ms = events_ms(fn, reps)
@@ -603,6 +646,27 @@ def chain_figures(inputs, blk_bits, win_bits, reps):
         "the clock read under load and at the maximum clock): "
         + json.dumps(res))
     return res
+
+
+def stats_chain(data, win_bits):
+    """(launch, mean coded symbols a block) of the stats-fed encoder on the
+    statistics of the first 512 blocks of 2^STATS_BITS bytes of ``data``;
+    its payloads must equal the native engine's."""
+    from sqz_tpu_torch import convert, native
+    from sqz_tpu_torch.ops import sqz4_cuda, sqz4_host as host
+    part = data[:host.LANES << STATS_BITS]
+    st = host.op_stream_stats(part, 1 << win_bits, STATS_BITS)
+    packed = [convert.to_device(a, "cuda")
+              for a in sqz4_cuda.pack_group_stats(st)]
+    cw = host.cap_words_for((1 << STATS_BITS) + 2048)
+    words, lens = sqz4_cuda.encode_stats(*packed, cw)
+    if host.unpack_group_payloads(convert.to_numpy(words),
+                                  convert.to_numpy(lens), host.LANES) != \
+            native.blocks_compress(part, 1, win_bits, STATS_BITS):
+        raise AssertionError("stats-fed encoder payloads differ from "
+                             "native")
+    return (lambda: sqz4_cuda.encode_stats(*packed, cw),
+            int((st[2] != 0).sum()) / host.LANES)
 
 
 def chain_inputs(texty=None):

@@ -1,11 +1,20 @@
 #!/usr/bin/env python3
-"""Time variants of the token encoder's and the decoder's kernels on one
-CUDA card, to see what their serial chains wait on.
+"""Time variants of the coders' kernels (the token, op-stream and
+stats-fed encoders, the decoder) on one CUDA card, to see what their
+serial chains wait on.
 
 Run from the root of a checkout, on a machine with a card and nvcc:
 
     python3 scripts/chain_variants.py            # every variant
     python3 scripts/chain_variants.py dec dec-nostore
+    python3 scripts/chain_variants.py --base DIR tok@256 dec
+
+``--base DIR`` also builds each named variant from the sources of the
+checkout at DIR (for example the parent commit, unpacked with ``git
+archive``) and times it beside this checkout's as ``base:<name>``: for
+kernels whose launcher has the same signature and launch geometry there
+(the token encoder's and the decoder's, and variants whose substitutions
+name files that checkout has).
 
 A variant is a kernel source from ``sqz_tpu_torch/csrc`` with a few text
 substitutions in it or its headers (some drop work the kernel must do, so
@@ -13,9 +22,11 @@ their outputs differ: they are timing probes), compiled alone with nvcc into
 ``build/chain_variants/<name>/`` and launched through its C entry point on
 one group of 512 blocks of 64 KiB of ``corpus.texty`` and of
 ``corpus.random_bytes`` (seed 1, window 2^15), the shapes chip_smoke.py
-times. Prints one line per variant and input (best of three launches by
-CUDA events, and whether the outputs equal the package kernel's), then a
-JSON object of them all.
+times: the exact parse's op streams, the fast parse's tokens, the
+payloads; the stats-fed encoder on the statistics of the first 512
+blocks of 16 KiB. Prints one line per variant and input (best of three
+launches by CUDA events, and whether the outputs equal the package
+kernel's), then a JSON object of them all.
 """
 
 import ctypes
@@ -29,7 +40,12 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(ROOT, "sqz_tpu_torch", "csrc")
 OUT = os.path.join(ROOT, "build", "chain_variants")
 TOK, DEC = "sqz4_encode_tok.cu", "sqz4_decode.cu"
-CHAIN = "sqz4_chain.cuh"
+ENC, STATS = "sqz4_encode.cu", "sqz4_encode_stats.cu"
+CHAIN, PAIR = "sqz4_chain.cuh", "sqz4_pair.cuh"
+STATS_BITS = 14
+# the coder warp codes no op and records no byte: the producers alone
+NOCODE = (PAIR, "c.code(total, start, size, m, r.pre + i, r.cnt + i);",
+          "r.cnt[i] = 0;")
 
 # name: (source, threads a CTA, blocks of the group launched,
 #        [(file, old, new)])
@@ -40,12 +56,10 @@ VARIANTS = {
     # half the blocks: one coder warp a scheduler at 64 threads a CTA
     "tok@64-half": (TOK, 64, 256, []),
     # the producer warps alone: the coder codes no op and records no byte
-    "tok@256-nocode": (TOK, 256, 512, [
-        (TOK, "c.code(total, start, size, m, r.pre + i, r.cnt + i);",
-         "r.cnt[i] = 0;")]),
+    "tok@256-nocode": (TOK, 256, 512, [NOCODE]),
     # the producer turns no record into bytes
     "tok@256-noemit": (TOK, 256, 512, [
-        (TOK, "e.put(r.pre, r.cnt, r.n + r.flushes);", "")]),
+        (PAIR, "e.put(r.pre, r.cnt, r.n + r.flushes);", "")]),
     # the coder's quotient by `/` (the software u64 divide)
     "tok@256-udiv": (TOK, 256, 512, [
         (CHAIN, "const u64 qe = mulhi64(rng, m);",
@@ -56,6 +70,14 @@ VARIANTS = {
         SQZ_UNROLL()
         for (int k = 1; k < 8; ++k)
             c += (lo ^ (lo + rg)) < (1ull << (64 - 8 * k));""")]),
+    # the op-stream encoder: four pairs of warps a CTA, one, one warp
+    "enc@256": (ENC, 256, 512, []),
+    "enc@64": (ENC, 64, 512, []),
+    "enc@32": (ENC, 32, 512, []),
+    "enc@256-nocode": (ENC, 256, 512, [NOCODE]),
+    # the stats-fed encoder
+    "stats@256": (STATS, 256, 512, []),
+    "stats@32": (STATS, 32, 512, []),
     "dec": (DEC, 32, 512, []),
     "dec-half": (DEC, 32, 256, []),
     # no record stores (the chain is the same)
@@ -78,12 +100,20 @@ VARIANTS = {
 }
 
 
-def build(name):
+def build(name, base=None):
+    """Compile variant ``name`` from this checkout's sources, or from the
+    checkout at ``base`` (then named ``base:<name>``)."""
     src, _, _, subs = VARIANTS[name]
+    csrc = CSRC if base is None else os.path.join(base, "sqz_tpu_torch",
+                                                  "csrc")
+    name = name if base is None else f"base:{name}"
     d = os.path.join(OUT, name)
     os.makedirs(d, exist_ok=True)
-    for f in os.listdir(CSRC):
-        with open(os.path.join(CSRC, f)) as fh:
+    missing = {w for w, _, _ in subs} - set(os.listdir(csrc))
+    if missing:
+        raise ValueError(f"{name}: no {sorted(missing)} in {csrc}")
+    for f in os.listdir(csrc):
+        with open(os.path.join(csrc, f)) as fh:
             text = fh.read()
         for where, old, new in subs:
             if where != f:
@@ -103,71 +133,122 @@ def build(name):
     if src == TOK:
         lib.sqz4_encode_tok_launch.argtypes = [p, i, p, i, i, i, i, p, i,
                                                p, i, i, p]
+    elif src == ENC:
+        lib.sqz4_encode_launch.argtypes = [p, p, i, i, i, p, i, p, i, p]
+    elif src == STATS:
+        lib.sqz4_encode_stats_launch.argtypes = [p, p, p, i, i, i, p, i, p,
+                                                 i, p]
     else:
         lib.sqz4_decode_launch.argtypes = [p, p, i, i, i, i, p, i, p, i, p,
                                            i, p, i, p]
     return name, lib
 
 
-def main(names):
+def launcher(src, lib, inputs, threads, k, stream):
+    """(run, got, want): a function that zeroes the outputs ``got`` and
+    launches the variant on the first k blocks of ``inputs`` (returns the
+    launch's error code), and the package kernel's outputs there."""
     import torch
-    sys.path.insert(0, ROOT)
+    if src == TOK:
+        toks, lits, t_max, cw, want = inputs
+        args = (toks[:, :k].contiguous(), lits[:, :k].contiguous())
+    else:
+        args = tuple(x[..., :k].contiguous() for x in inputs[0])
+        want = inputs[-1]
+    want = [x[..., :k].contiguous() for x in want]
+    got = [torch.zeros_like(x) for x in want]
+
+    def run():
+        for x in got:
+            x.zero_()
+        if src == TOK:
+            return lib.sqz4_encode_tok_launch(
+                args[0].data_ptr(), args[0].shape[2], args[1].data_ptr(),
+                args[1].shape[2], 1, k, t_max, got[0].data_ptr(), cw,
+                got[1].data_ptr(), threads, 0, stream)
+        if src == ENC:
+            return lib.sqz4_encode_launch(
+                args[0].data_ptr(), args[1].data_ptr(), 1, args[0].shape[1],
+                k, got[0].data_ptr(), inputs[1], got[1].data_ptr(), threads,
+                stream)
+        if src == STATS:
+            return lib.sqz4_encode_stats_launch(
+                *(a.data_ptr() for a in args), 1, args[0].shape[1], k,
+                got[0].data_ptr(), inputs[1], got[1].data_ptr(), threads,
+                stream)
+        pw, steps, dims = inputs[1]
+        return lib.sqz4_decode_launch(
+            args[0].data_ptr(), args[1].data_ptr(), 1, pw, k, steps,
+            got[0].data_ptr(), dims[0], got[1].data_ptr(), dims[1],
+            got[2].data_ptr(), dims[2], got[3].data_ptr(), threads, stream)
+    return run, got, want
+
+
+def kernel_inputs(src, data):
+    """The package kernel's inputs and outputs for one group of ``data``
+    (see ``launcher``)."""
+    import torch
     from sqz_tpu_torch import convert, native
     from sqz_tpu_torch.ops import sqz4_cuda, sqz4_host as host
+    dev = torch.device("cuda")
+    bs = 1 << 16
+    nb = len(data) // bs
+    cw = host.cap_words_for(bs + 2048)
+    if src == TOK:
+        grp = sqz4_cuda.plan_tok_group(data, 16, 1 << 15, True)
+        toks = grp.toks.to(dev).view(torch.uint32)
+        lits = grp.lits.to(dev)
+        return (toks, lits, grp.t_max, cw,
+                sqz4_cuda.encode_tok(toks, lits, grp.t_max, cw))
+    if src == ENC:
+        mw, sw, mx = native.sqz4_plan_pack(data, 1 << 15, 16, True, nb,
+                                           host.op_stream_cap(16))
+        m, s = convert.encoder_inputs(mw, sw, -(-int(mx) // 4), dev)
+        return (m, s), cw, sqz4_cuda.encode_full(m, s, cw)
+    if src == STATS:
+        part = data[:host.LANES << STATS_BITS]
+        st = host.op_stream_stats(part, 1 << 15, STATS_BITS)
+        packed = [convert.to_device(a, dev)
+                  for a in sqz4_cuda.pack_group_stats(st)]
+        scw = host.cap_words_for((1 << STATS_BITS) + 2048)
+        return packed, scw, sqz4_cuda.encode_stats(*packed, scw)
+    payloads = native.blocks_compress(data, 1, 15, 16)
+    plan = host.plan_decode_dispatch(nb, 16, lanes=nb)
+    pw = min(plan["Pw"], host.payload_rows(max(map(len, payloads))))
+    buf, meta = host.pack_decode_chunk(payloads, [bs] * nb, nb, plan["G"],
+                                       pw)
+    pt, mt = convert.decoder_inputs(buf, meta, dev)
+    dims = (plan["lw"], plan["tw"], plan["mw"])
+    return ((pt, mt), (pw, plan["t_max"], dims),
+            sqz4_cuda.decode(pt, mt, plan["t_max"], *dims))
+
+
+def main(argv):
+    import torch
+    sys.path.insert(0, ROOT)
     from sqz_tpu_torch.utils import corpus
     if not torch.cuda.is_available():
         print("chain_variants: no CUDA device", file=sys.stderr)
         return 2
-    with ThreadPoolExecutor(len(names)) as pool:
-        libs = dict(pool.map(build, names))
-    dev = torch.device("cuda")
+    base = None
+    if argv[:1] == ["--base"]:
+        base, argv = os.path.abspath(argv[1]), argv[2:]
+    names = argv or list(VARIANTS)
+    jobs = [(n, None) for n in names] + [(n, base) for n in names if base]
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        libs = dict(pool.map(lambda job: build(*job), jobs))
+    names = list(libs)
     stream = torch.cuda.current_stream().cuda_stream
-    bs = 1 << 16
-    cw = host.cap_words_for(bs + 2048)
     res = {}
     for mix, data in (("texty", corpus.texty(32 << 20, seed=1)),
                       ("random", corpus.random_bytes(32 << 20, seed=1))):
-        nb = len(data) // bs
-        payloads = native.blocks_compress(data, 1, 15, 16)
-        plan = host.plan_decode_dispatch(nb, 16, lanes=nb)
-        pw = min(plan["Pw"], host.payload_rows(max(map(len, payloads))))
-        buf, meta = host.pack_decode_chunk(payloads, [bs] * nb, nb,
-                                           plan["G"], pw)
-        pt, mt = convert.decoder_inputs(buf, meta, dev)
-        dims = (plan["lw"], plan["tw"], plan["mw"])
-        dwant = sqz4_cuda.decode(pt, mt, plan["t_max"], *dims)
-        grp = sqz4_cuda.plan_tok_group(data, 16, 1 << 15, True)
-        toks = grp.toks.to(dev).view(torch.uint32)
-        lits = grp.lits.to(dev)
-        twant = sqz4_cuda.encode_tok(toks, lits, grp.t_max, cw)
+        inputs = {src: kernel_inputs(src, data)
+                  for src in {VARIANTS[n.removeprefix("base:")][0]
+                              for n in names}}
         for name in names:
-            src, threads, k, _ = VARIANTS[name]
-            lib = libs[name]
-            if src == TOK:
-                tk, lk = toks[:, :k].contiguous(), lits[:, :k].contiguous()
-                want = [x[..., :k].contiguous() for x in twant]
-                got = [torch.zeros_like(x) for x in want]
-
-                def run():
-                    for x in got:
-                        x.zero_()
-                    return lib.sqz4_encode_tok_launch(
-                        tk.data_ptr(), tk.shape[2], lk.data_ptr(),
-                        lk.shape[2], 1, k, grp.t_max, got[0].data_ptr(), cw,
-                        got[1].data_ptr(), threads, 0, stream)
-            else:
-                pk, mk = pt[..., :k].contiguous(), mt[..., :k].contiguous()
-                want = [x[..., :k].contiguous() for x in dwant]
-                got = [torch.zeros_like(x) for x in want]
-
-                def run():
-                    for x in got:
-                        x.zero_()
-                    return lib.sqz4_decode_launch(
-                        pk.data_ptr(), mk.data_ptr(), 1, pw, k,
-                        plan["t_max"], got[0].data_ptr(), dims[0],
-                        got[1].data_ptr(), dims[1], got[2].data_ptr(),
-                        dims[2], got[3].data_ptr(), threads, stream)
+            src, threads, k, _ = VARIANTS[name.removeprefix("base:")]
+            run, got, want = launcher(src, libs[name], inputs[src], threads,
+                                      k, stream)
             if run():
                 raise RuntimeError(f"{name}: launch failed")
             torch.cuda.synchronize()
@@ -186,10 +267,11 @@ def main(names):
             res[f"{name}/{mix}"] = {"ms": best, "equal": equal}
             print(f"{name} {mix} {best:.3f} ms "
                   f"{'equal' if equal else 'differs'}", flush=True)
+        del inputs
     print(json.dumps({"card": torch.cuda.get_device_name(0),
                       "variants": res}))
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main(sys.argv[1:] or list(VARIANTS)))
+    sys.exit(main(sys.argv[1:]))

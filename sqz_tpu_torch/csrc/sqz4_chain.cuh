@@ -1,5 +1,5 @@
-// The coder pieces of the redesigned sqz4 kernels (the token encoder and
-// the decoder): models, coder step and byte streams built so that each
+// The coder pieces of the sqz4 kernels (the three encoders and the
+// decoder): models, coder step and byte streams built so that each
 // block's serial chain holds only the coder arithmetic.
 //
 // - The divide by a model total is sqz4_div.cuh's high multiply by a
@@ -19,8 +19,9 @@
 //   shared memory a chunk at a time by the warp's lanes, a chunk ahead of
 //   use (Stager).
 //
-// The integer values are those of the reference models (sqz4_coder.cuh),
-// so every statistic, and with it every byte, is the same.
+// The integer values are those of the reference models (FORMAT.md §2.3:
+// every count starts at 1 and grows by one a coded symbol), so every
+// statistic, and with it every byte, is the same.
 #pragma once
 
 #include <stdint.h>
@@ -144,6 +145,29 @@ struct LaneBinary {
         *b = shfl(y, i / kPer);
     }
 
+    // the counts of model i, which may differ from lane to lane
+    SQZ_DEVICE void get_any(int i, int* a, int* b) const {
+        const int o = i / kPer, j = i % kPer;
+        int x = 0, y = 0;
+        SQZ_UNROLL()
+        for (int k = 0; k < kPer; ++k) {
+            const int v0 = shfl(f0[k], o), v1 = shfl(f1[k], o);
+            x += v0 & -(k == j);
+            y += v1 & -(k == j);
+        }
+        *a = x;
+        *b = y;
+    }
+
+    // n0[k] more zeros and n1[k] more ones of this lane's model k
+    SQZ_DEVICE void add(const int n0[kPer], const int n1[kPer]) {
+        SQZ_UNROLL()
+        for (int k = 0; k < kPer; ++k) {
+            f0[k] += n0[k];
+            f1[k] += n1[k];
+        }
+    }
+
     SQZ_DEVICE void bump(int i, int sym) {
         const bool mine = lane_id() == i / kPer;
         SQZ_UNROLL()
@@ -184,10 +208,11 @@ struct ChainCoder {
 
     // One op: narrow to [start, start + size) of total (m =
     // recip64(total)), renormalize with the underflow escape, and record
-    // the settled bytes: the arithmetic of Encoder::code_stats with no
-    // divide and no branch. The range stays above total, so the quotient
-    // is at least one, the new range nonzero and at most seven bytes
-    // settle (no shift but the escape's reaches 64 bits).
+    // the settled bytes: the reference coder's arithmetic (sqz4_ref.py
+    // _Coder.code_stats) with no divide and no branch. The range stays
+    // above total, so the quotient is at least one, the new range nonzero
+    // and at most seven bytes settle (no shift but the escape's reaches 64
+    // bits).
     SQZ_DEVICE void code(uint32_t total, uint32_t start, uint32_t size,
                          u64 m, u64* pre, uint8_t* cnt) {
         // q = rng / total: the products for the estimate and for one more

@@ -1,98 +1,285 @@
-// sqz4 block encoder for Hopper (sm_90a).
+// sqz4 op-stream block encoder for Hopper (sm_90a).
 //
 // Replaces the TPU kernel sqz_tpu/ops/sqz4_pallas.py:_encode_full_kernel
 // (launcher _encode_full_pallas_call), cold (unseeded) mode.
 //
 // Input: the packed (model, symbol) micro-op streams m_ops / s_ops,
 // uint32 [G, T/4, B], four big-endian u8 ops per word (op codes: 0 flag,
-// 1 size, 2 byte, 3 bits, 4..35 distance bit, 254 flush, anything else a
-// no-op pad). Output: payload words uint32 [G, cap_words, B] (big-endian
-// bytes; bytes past cap_words * 4 are dropped) and lens int32 [G, 8, B]
-// (row 0 = payload byte length, which may exceed the capacity).
+// 1 size, 2 byte, 3 bits (symbol clamped to 31), 4..35 distance bit
+// (symbol read as s != 0), 254 flush, anything else a no-op pad). Output:
+// payload words uint32 [G, cap_words, B] (big-endian bytes; bytes past
+// cap_words * 4 are dropped) and lens int32 [G, 8, B] (row 0 = payload
+// byte length, which may exceed the capacity).
 //
-// What bounds it: each block is one serial dependence chain (model
-// lookup -> 64-bit divide -> multiply -> renormalize, op after op), and a
-// call carries as many chains as there are blocks: 512 for 32 MiB of
-// 64 KiB blocks, against the card's 132 SMs. Throughput is the chain's
-// latency, not bandwidth or arithmetic.
+// What bounds it: each block is one serial dependence chain of coder
+// steps (a launch holds one chain per block, 512 for 32 MiB of 64 KiB
+// blocks, on 132 SMs), so the time is the symbols of the longest block
+// times the latency of one step: latency, not bandwidth or arithmetic.
+// The one-thread design before this one spent ~1,040 SM cycles a symbol
+// on pseudo-text: a software u64 divide, Fenwick-tree model lookups and
+// updates in shared memory, strided global loads of the op words and a
+// byte sink all sat on that chain.
 //
-// What the design does about it: one thread per block and one per CTA,
-// so the blocks spread over every SM and no warp serializes the diverging
-// paths of several blocks; the coder registers are native u64 (one
-// hardware divide per op where the TPU kernel ran a five-digit f32 long
-// division on u32 pairs); the 256-symbol models are Fenwick trees in
-// shared memory (statistics and update in log2(256) steps); output bytes
-// are staged in a register word and stored once per four bytes. The coder
-// step itself (sqz4_coder.cuh Encoder::code) is shared with the token
-// encoder (sqz4_encode_tok.cu). Keeping more chains in flight per SM (a
-// warp per block, more blocks per call) is later work.
+// What the design does about it: the token encoder's two warps
+// (sqz4_pair.cuh). The statistics of an op depend only on the ops before
+// it, not on the coder's registers, so they leave the chain:
+//   - A producer warp (OpProducer) takes 32 ops at a time, one a lane.
+//     Every sqz4 model is a cumulative-count model whose counts grow by
+//     one a coded symbol (the binary ones too: start(1) = count of 0), so
+//     an op's statistics are its model's at the window's start plus the
+//     counts among the window's earlier ops of the same model: start
+//     gains those with a smaller symbol, size those with an equal one,
+//     total all of them. One pass of 31 shuffles of a packed (model,
+//     symbol) key gives all three, whatever the mix of models (pseudo-
+//     text mixes ~15 of the 36 a window, random bytes two). The base
+//     statistics come from the models in the lanes' registers
+//     (LaneModels), read at each lane's own model and symbol; then the
+//     window's counts, gathered in a histogram in shared memory, update
+//     the models at once. A ballot and a popcount drop the pads and place
+//     the coded ops in the buffer; a flush ends a buffer (the flushes
+//     follow its ops), so the coder's loop has no branch. The lanes then
+//     compute the buffer's reciprocals side by side.
+//   - A coder warp runs only ChainCoder::code per op (sqz4_chain.cuh): a
+//     high multiply and a remainder test for the divide (no `/` on the
+//     chain), multiplies, adds, xor, a leading-zero count, shifts.
+//   - The op words come into shared memory a chunk at a time (Stager, a
+//     word a lane at the column's stride), a chunk before they are used.
+//   - Four blocks a CTA, one coder chain on each of an SM's schedulers.
+// The host tests build this file with g++, where a warp is one lane
+// (sqz4_warp.cuh): the windows are then one op long; the 32-lane window
+// arithmetic runs only on the card.
 
-#include "sqz4_coder.cuh"
+#include "sqz4_pair.cuh"
 
 namespace sqz4 {
 
-// Encode one block's op stream. Pointers are offset to the lane; rows of
-// m_ops / s_ops / words are `lanes` elements apart. The output column must
-// be zero-filled by the caller.
+// the window histogram's slots: byte and size symbols, bits symbols,
+// distance-bit models' zeros and ones
+constexpr int kHistByte = 0, kHistSize = 256, kHistBits = 512,
+              kHistDist0 = 544, kHistDist1 = 576, kHist = 608;
+constexpr int kOpPad = 255;
+
+struct OpSmem {
+    uint32_t m[2 * kStage];
+    uint32_t s[2 * kStage];
+    int hist[kHist];
+    PairBufs pair;
+};
+
+// n counts of this lane's symbols from the histogram h into model md,
+// the entries read cleared
+template <int N>
+SQZ_DEVICE void absorb(LaneModel<N>& md, int* h, int n) {
+    constexpr int kPer = LaneModel<N>::kPer;
+    int inc[kPer];
+    SQZ_UNROLL()
+    for (int k = 0; k < kPer; ++k) {
+        inc[k] = h[lane_id() * kPer + k];
+        h[lane_id() * kPer + k] = 0;
+    }
+    md.add(inc, n);
+}
+
+// Turns a block's op stream into coder ops and their model statistics,
+// kLanes ops at a time.
+struct OpProducer {
+    LaneModels md;
+    Stager<uint32_t> m, s;
+    int* hist;
+    int n_ops;   // ops in the stream
+    int o;       // the next op
+    bool done;
+
+    SQZ_DEVICE void init(OpSmem* sm, const uint32_t* m_ops,
+                         const uint32_t* s_ops, int op_words, int lanes) {
+        md.init();
+        m.init(m_ops, op_words, lanes, sm->m);
+        s.init(s_ops, op_words, lanes, sm->s);
+        hist = sm->hist;
+        for (int i = lane_id(); i < kHist; i += kLanes) hist[i] = 0;
+        warp_sync();
+        n_ops = 4 * op_words;
+        o = 0;
+        done = n_ops == 0;
+    }
+
+    // op p of a staged stream (the word holding it staged)
+    SQZ_DEVICE static int op(const Stager<uint32_t>& st, int p) {
+        return (st.at(p >> 2) >> (24 - 8 * (p & 3))) & 0xFF;
+    }
+
+    // Statistics of the coded ops of the lanes in mask `in` (model mo,
+    // symbol so a lane), into entries n.. of r in lane order; then the
+    // models take their counts.
+    SQZ_DEVICE void code_ops(Ring& r, int n, int mo, int so, unsigned in) {
+        const int lane = lane_id();
+        const bool mine = (in >> lane) & 1;
+        const bool is_byte = mine && mo == kOpByte;
+        const bool is_size = mine && mo == kOpSize;
+        const bool is_bits = mine && mo == kOpBits;
+        const bool is_flag = mine && mo == kOpFlag;
+        const bool is_dist = mine && mo >= kOpDist;
+        const int sym = is_byte || is_size ? so
+                      : is_bits            ? (so < 31 ? so : 31)
+                                           : so != 0;
+        // the window's earlier ops of the same model: with a smaller
+        // symbol, an equal one, any (other lanes' keys never match)
+        const int key = mine ? (mo << 8) | sym : 0xFF00;
+        int lt = 0, eq = 0, same = 0;
+        SQZ_UNROLL()
+        for (int j = 0; j < kLanes - 1; ++j) {   // independent shuffles
+            const int kj = shfl(key, j);
+            const bool b = j < lane && (kj >> 8) == (key >> 8);
+            same += b;
+            eq += b && kj == key;
+            lt += b && kj < key;
+        }
+        // the models' statistics at the window's start, for each lane's
+        // own model and symbol (warp-uniform tests: only the models the
+        // window uses are read)
+        const unsigned w_byte = ballot(is_byte), w_size = ballot(is_size),
+                       w_bits = ballot(is_bits), w_dist = ballot(is_dist),
+                       w_flag = ballot(is_flag),
+                       w_flag1 = ballot(is_flag && sym);
+        int start = 0, size = 0, total = 0, a, b;
+        if (w_byte) {
+            md.byte.stats_any(is_byte ? sym : 0, &a, &b);
+            if (is_byte) start = a, size = b, total = md.byte.total;
+        }
+        if (w_size) {
+            md.size.stats_any(is_size ? sym : 0, &a, &b);
+            if (is_size) start = a, size = b, total = md.size.total;
+        }
+        if (w_bits) {
+            md.bits.stats_any(is_bits ? sym : 0, &a, &b);
+            if (is_bits) start = a, size = b, total = md.bits.total;
+        }
+        a = md.lit0, b = md.lit1;
+        if (w_dist) {
+            int d0, d1;
+            md.dist.get_any(is_dist ? mo - kOpDist : 0, &d0, &d1);
+            if (is_dist) a = d0, b = d1;
+        }
+        if (is_flag || is_dist) {
+            total = a + b;
+            start = sym ? a : 0;
+            size = sym ? b : a;
+        }
+        if (mine) {
+            entry(r, n + popc(in & below(lane)),
+                  static_cast<uint32_t>(total + same),
+                  static_cast<uint32_t>(start + lt),
+                  static_cast<uint32_t>(size + eq));
+            if (!is_flag)
+                smem_add(&hist[is_byte   ? kHistByte + sym
+                               : is_size ? kHistSize + sym
+                               : is_bits ? kHistBits + sym
+                               : sym     ? kHistDist1 + mo - kOpDist
+                                         : kHistDist0 + mo - kOpDist],
+                         1);
+        }
+        warp_sync();
+        // the window's counts into the models
+        md.lit0 += popc(w_flag & ~w_flag1);
+        md.lit1 += popc(w_flag1);
+        if (w_byte) absorb(md.byte, hist + kHistByte, popc(w_byte));
+        if (w_size) absorb(md.size, hist + kHistSize, popc(w_size));
+        if (w_bits) absorb(md.bits, hist + kHistBits, popc(w_bits));
+        if (w_dist) {
+            constexpr int kPer = LaneBinary<32>::kPer;
+            int n0[kPer], n1[kPer];
+            SQZ_UNROLL()
+            for (int k = 0; k < kPer; ++k) {
+                const int i = lane * kPer + k;
+                n0[k] = hist[kHistDist0 + i];
+                n1[k] = hist[kHistDist1 + i];
+                hist[kHistDist0 + i] = hist[kHistDist1 + i] = 0;
+            }
+            md.dist.add(n0, n1);
+        }
+        warp_sync();
+    }
+
+    // The window of ops o .. o + kLanes - 1 into buffer r from entry *n
+    // on, after *flushes flushes (both counts kept in registers until the
+    // buffer is full); returns true when it ends the buffer.
+    SQZ_DEVICE bool window(Ring& r, int* n, int* flushes) {
+        const int p = o + lane_id();
+        m.ensure((o + kLanes - 1) >> 2);
+        s.ensure((o + kLanes - 1) >> 2);
+        const int mo = p < n_ops ? op(m, p) : kOpPad;
+        const int so = op(s, p);
+        const bool coded = mo < kOpDist + 32;
+        const Take w = take_window(ballot(coded), ballot(mo == kOpFlush),
+                                   flushes);
+        const unsigned in = ballot(coded && lane_id() < w.seg);
+        if (in) code_ops(r, *n, mo, so, in);
+        *n += popc(in);
+        o += w.adv;
+        done = o >= n_ops;
+        return w.end;
+    }
+
+    SQZ_DEVICE bool fill(Ring& r) { return fill_windows(*this, r); }
+};
+
+// Encode one block's op stream (op_words words of m_ops and s_ops, rows
+// `lanes` elements apart). words / len_out are offset to the lane; rows
+// of words are `lanes` elements apart and must be zero-filled by the
+// caller. role and bar as in sqz4_pair.cuh (kRoleBoth: one warp, or the
+// host).
 SQZ_DEVICE void encode_lane(const uint32_t* m_ops, const uint32_t* s_ops,
                             int op_words, int lanes, uint32_t* words,
-                            int cap_words, int32_t* len_out, int* tab,
-                            int stride) {
-    Encoder enc = make_encoder(words, lanes, cap_words, tab, stride);
-    uint32_t mw = 0, sw = 0;
-    const int n_ops = op_words * 4;
-    for (int t = 0; t < n_ops; ++t) {
-        if ((t & 3) == 0) {
-            mw = m_ops[static_cast<long long>(t >> 2) * lanes];
-            sw = s_ops[static_cast<long long>(t >> 2) * lanes];
-        }
-        const int sh = 24 - 8 * (t & 3);
-        enc.code((mw >> sh) & 0xFF, (sw >> sh) & 0xFF);
+                            int cap_words, int32_t* len_out, OpSmem* sm,
+                            int role, int bar) {
+    if (role == kRoleConsumer) {
+        code_buffers(&sm->pair, bar);
+        return;
     }
-    *len_out = enc.finish();
+    OpProducer prod;
+    prod.init(sm, m_ops, s_ops, op_words, lanes);
+    produce_buffers(prod, &sm->pair, role, bar, words, lanes, cap_words,
+                    len_out);
 }
 
 }  // namespace sqz4
 
 #ifdef __CUDACC__
 
-__global__ void sqz4_encode_kernel(const uint32_t* __restrict__ m_ops,
-                                   const uint32_t* __restrict__ s_ops,
-                                   int n_lanes, int op_words, int lanes,
-                                   uint32_t* __restrict__ words,
-                                   int cap_words, int32_t* __restrict__ lens) {
-    extern __shared__ int smem[];
-    const int n = blockIdx.x * blockDim.x + threadIdx.x;
-    if (n >= n_lanes) return;
-    const long long g = n / lanes, b = n % lanes;
+// One block a pair of warps (or one warp at 32 threads a CTA), up to
+// four blocks a CTA: sqz4_pair.cuh.
+__global__ void __launch_bounds__(64 * sqz4::kMaxBlocks)
+sqz4_encode_kernel(const uint32_t* __restrict__ m_ops,
+                   const uint32_t* __restrict__ s_ops, int n_lanes,
+                   int op_words, int lanes, uint32_t* __restrict__ words,
+                   int cap_words, int32_t* __restrict__ lens) {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    const sqz4::PairSlot at = sqz4::pair_slot();
+    if (at.n >= n_lanes) return;
+    const long long g = at.n / lanes, b = at.n % lanes;
     sqz4::encode_lane(m_ops + g * op_words * lanes + b,
                       s_ops + g * op_words * lanes + b, op_words, lanes,
                       words + g * cap_words * lanes + b, cap_words,
-                      lens + g * 8 * lanes + b, smem + threadIdx.x,
-                      blockDim.x);
+                      lens + g * 8 * lanes + b,
+                      reinterpret_cast<sqz4::OpSmem*>(smem_raw) + at.j,
+                      at.role, 4 * at.j);
 }
 
 // m_ops, s_ops: [groups, op_words, lanes] u32; words: [groups, cap_words,
 // lanes] u32, zero-filled; lens: [groups, 8, lanes] i32, zero-filled.
-// Launches on `stream`; returns the cudaError_t of the launch.
+// threads: 32, 64, 128, 192 or 256 a CTA. Launches on `stream`; returns
+// the cudaError_t of the launch.
 extern "C" int sqz4_encode_launch(const void* m_ops, const void* s_ops,
                                   int groups, int op_words, int lanes,
                                   void* words, int cap_words, void* lens,
                                   int threads, void* stream) {
     const int n_lanes = groups * lanes;
-    const size_t smem = sizeof(int) * sqz4::kTableWords * threads;
-    cudaError_t err = cudaFuncSetAttribute(
-        sqz4_encode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const int ctas = (n_lanes + threads - 1) / threads;
-    sqz4_encode_kernel<<<ctas, threads, smem,
-                         static_cast<cudaStream_t>(stream)>>>(
+    return sqz4::pair_launch(
+        sqz4_encode_kernel, sizeof(sqz4::OpSmem), n_lanes, threads, stream,
         static_cast<const uint32_t*>(m_ops),
         static_cast<const uint32_t*>(s_ops), n_lanes, op_words, lanes,
         static_cast<uint32_t*>(words), cap_words,
         static_cast<int32_t*>(lens));
-    return static_cast<int>(cudaGetLastError());
 }
 
 #endif  // __CUDACC__

@@ -60,15 +60,14 @@
 //   - Tokens and literal bytes reach the producer through shared memory,
 //     a chunk loaded into the lanes' registers (coalesced) a chunk before
 //     it is needed (Stager).
-//   - Launch geometry (the launcher's `threads`): 256 threads a CTA hold
-//     four blocks, coder warps 0-3 and producer warps 4-7, so each of an
-//     SM's four schedulers issues one coder chain (warps go to schedulers
-//     by their index mod 4) and the 128 CTAs of a 512-block launch take
-//     one SM each; 64 threads, one block (two coder warps may then share
-//     a scheduler); 32, one warp that produces a buffer and then codes
-//     it. The pair of warps hands two buffers back and forth through
-//     named barriers. The wrapper launches 256, the fastest (PERF.md
-//     has the times of each).
+//   - The pair of warps, the hand-over of two buffers through named
+//     barriers, the byte emission and the launch geometry are the
+//     encoders' shared skeleton (sqz4_pair.cuh). 256 threads a CTA hold
+//     four blocks, one coder chain on each of an SM's schedulers, and the
+//     128 CTAs of a 512-block launch take one SM each; 64 threads, one
+//     block (two coder warps may then share a scheduler); 32, one warp
+//     that produces a buffer and then codes it. The wrapper launches
+//     256, the fastest (PERF.md has the times of each).
 // What bounds it now: the coder warp's chain, ~200 SM cycles an op on
 // pseudo-text (64-bit values as 32-bit pairs), and the issue slots it
 // shares with the CTA's other warps: half the blocks at one pair a CTA ran
@@ -78,47 +77,19 @@
 // producer's models; lit_skip would change only the expansion. Both are
 // refused by the launcher, as before.
 
-#include "sqz4_chain.cuh"
+#include "sqz4_pair.cuh"
 
 namespace sqz4 {
 
-constexpr int kRingOps = 256;   // ops per hand-over buffer
 constexpr int kTokOps = 64;     // the most ops one token pass adds
 constexpr int kLitPer = 32 / kLanes;   // literals of a chunk a lane holds
-constexpr int kRoleBoth = 0, kRoleProducer = 1, kRoleConsumer = 2;
-constexpr int kMaxBlocks = 4;   // blocks a CTA codes (four named
-                                // barriers each, of the 16)
-
-constexpr int kRecs = kRingOps + 8;   // its ops and the block's flushes
-
-// One buffer of coder ops (statistics and reciprocal) and the flushes that
-// follow them (the block's end), then the coder's records of their
-// settled bytes.
-struct TokRing {
-    u64 m[kRingOps];
-    uint32_t total[kRingOps];
-    uint32_t start[kRingOps];
-    uint32_t size[kRingOps];
-    u64 pre[kRecs];
-    uint8_t cnt[kRecs];
-    int n;
-    int flushes;
-    int last;
-};
 
 struct TokSmem {
     uint32_t tok[2 * kStage];
     uint8_t lit_bytes[2 * kStage];
     int hist[256];
-    uint32_t out[kOutBytes / 4];
-    TokRing ring[2];
+    PairBufs pair;
 };
-
-SQZ_DEVICE void entry(TokRing& r, int i, int total, int start, int size) {
-    r.total[i] = static_cast<uint32_t>(total);
-    r.start[i] = static_cast<uint32_t>(start);
-    r.size[i] = static_cast<uint32_t>(size);
-}
 
 // Expands a block's tokens into coder ops and their model statistics, a
 // token (or 32 literals) at a time, the warp's lanes side by side.
@@ -146,7 +117,7 @@ struct TokProducer {
     }
 
     // a literal flag (symbol s), in order
-    SQZ_DEVICE void flag(TokRing& r, int i, int s) {
+    SQZ_DEVICE void flag(Ring& r, int i, int s) {
         const int a = md.lit0, b = md.lit1;
         entry(r, i, a + b, s ? a : 0, s ? b : a);
         md.lit0 += !s;
@@ -154,7 +125,7 @@ struct TokProducer {
     }
 
     template <int N>
-    SQZ_DEVICE void model(LaneModel<N>& m, TokRing& r, int i, int s) {
+    SQZ_DEVICE void model(LaneModel<N>& m, Ring& r, int i, int s) {
         int start, size;
         m.stats(s, &start, &size);
         entry(r, i, m.total, start, size);
@@ -165,7 +136,7 @@ struct TokProducer {
     // on; returns their count. Pairs: (flag 0, size), (bits, distance bit
     // 0), then distance bits two a pair; EOS (flag 0, size 255) and four
     // pairs of flushes, after which the lane is done.
-    SQZ_DEVICE int match(TokRing& r, int n, uint32_t tok, int budget) {
+    SQZ_DEVICE int match(Ring& r, int n, uint32_t tok, int budget) {
         const int len = tok & 0xFF, nb = (tok >> 9) & 0x1F;
         const int dist = (tok >> 16) & 0x7FFF;
         flag(r, n, 0);
@@ -209,7 +180,7 @@ struct TokProducer {
     // flag and a byte each. A literal's byte statistics are the model's
     // before the chunk plus the chunk's earlier literals below it (start)
     // and equal to it (size); then the chunk's counts update the model.
-    SQZ_DEVICE void literals(TokRing& r, int n, int k) {
+    SQZ_DEVICE void literals(Ring& r, int n, int k) {
         lits.ensure(lidx + k - 1);
         int c[kLitPer], less[kLitPer], eq[kLitPer];
         SQZ_UNROLL()
@@ -259,7 +230,7 @@ struct TokProducer {
     // Fill buffer r (whole tokens or literal chunks, at most kRingOps
     // ops) and its reciprocals; returns true when this is the block's last
     // buffer.
-    SQZ_DEVICE bool fill(TokRing& r) {
+    SQZ_DEVICE bool fill(Ring& r) {
         int n = 0;
         r.flushes = 0;
         while (!done && n <= kRingOps - kTokOps) {
@@ -279,12 +250,7 @@ struct TokProducer {
             }
         }
         warp_sync();
-        // the buffer's reciprocals, the lanes side by side
-        SQZ_UNROLL()
-        for (int j = 0; j < kRingOps / kLanes; ++j) {
-            const int i = lane_id() + j * kLanes;
-            if (i < n) r.m[i] = recip64(r.total[i]);
-        }
+        recips(r, n);
         r.n = n;
         r.last = done;
         warp_sync();
@@ -292,98 +258,34 @@ struct TokProducer {
     }
 };
 
-// Code one buffer of ops, then its flushes, recording their settled
-// bytes. Each op's entry is read while the op before it is coded, so no
-// load waits on the chain.
-SQZ_DEVICE void drain(ChainCoder& c, TokRing& r) {
-    const int n = r.n;
-    u64 m = r.m[0];
-    uint32_t total = r.total[0], start = r.start[0], size = r.size[0];
-    SQZ_UNROLL(4)
-    for (int i = 0; i < n; ++i) {
-        const int j = i + 1 < kRingOps ? i + 1 : i;
-        const u64 m2 = r.m[j];
-        const uint32_t total2 = r.total[j], start2 = r.start[j],
-                       size2 = r.size[j];
-        c.code(total, start, size, m, r.pre + i, r.cnt + i);
-        m = m2, total = total2, start = start2, size = size2;
-    }
-    for (int i = n; i < n + r.flushes; ++i) c.flush(r.pre + i, r.cnt + i);
-}
-
-// The payload bytes of a coded buffer.
-SQZ_DEVICE void emit(ByteEmitter& e, const TokRing& r) {
-    e.put(r.pre, r.cnt, r.n + r.flushes);
-}
-
 // Encode one block from its token row (tok_rows tokens) and literal row
 // (lit_bytes bytes); reads past either row see zeros, as the Pallas
 // kernel's windows do. words / len_out are offset to the lane; rows of
 // words are `lanes` elements apart and must be zero-filled by the caller.
 // role: kRoleBoth (one warp, or the host: produce a buffer, then code
 // it), or the producer or the coder warp of a pair that hands buffers
-// over through named barriers bar .. bar + 3 (full 0 and 1, empty 0 and
-// 1).
+// over through named barriers bar .. bar + 3 (sqz4_pair.cuh).
 SQZ_DEVICE void encode_tok_lane(const uint32_t* toks, int tok_rows,
                                 const uint8_t* lits, int lit_bytes,
                                 int t_max, int lanes, uint32_t* words,
                                 int cap_words, int32_t* len_out,
                                 TokSmem* sm, int role, int bar) {
-    const int threads = 2 * kLanes, full = bar, empty = bar + 2;
     if (role == kRoleConsumer) {
-        ChainCoder coder{0ull, ~0ull};
-        for (int c = 0;; ++c) {
-            bar_wait(full + (c & 1), threads);
-            drain(coder, sm->ring[c & 1]);
-            const bool last = sm->ring[c & 1].last;
-            bar_arrive(empty + (c & 1), threads);
-            if (last) break;
-        }
+        code_buffers(&sm->pair, bar);
         return;
     }
     TokProducer prod;
     prod.init(sm, toks, tok_rows, lits, lit_bytes, t_max);
-    ByteEmitter out{words, lanes, cap_words, sm->out, 0, 0};
-    if (role == kRoleProducer) {
-        // buffer c & 1 is refilled once the coder hands it back, and its
-        // records turned into bytes first
-        int c = 0;
-        for (;; ++c) {
-            if (c >= 2) {
-                bar_wait(empty + (c & 1), threads);
-                emit(out, sm->ring[c & 1]);
-            }
-            const bool last = prod.fill(sm->ring[c & 1]);
-            bar_arrive(full + (c & 1), threads);
-            if (last) break;
-        }
-        // the coder's hand-backs of the last two buffers
-        for (int k = c >= 1 ? c - 1 : c; k <= c; ++k) {
-            bar_wait(empty + (k & 1), threads);
-            emit(out, sm->ring[k & 1]);
-        }
-    } else {
-        ChainCoder coder{0ull, ~0ull};
-        for (;;) {
-            const bool last = prod.fill(sm->ring[0]);
-            drain(coder, sm->ring[0]);
-            warp_sync();
-            emit(out, sm->ring[0]);
-            if (last) break;
-        }
-    }
-    const int32_t n = out.finish();
-    if (lane_id() == 0) *len_out = n;
+    produce_buffers(prod, &sm->pair, role, bar, words, lanes, cap_words,
+                    len_out);
 }
 
 }  // namespace sqz4
 
 #ifdef __CUDACC__
 
-// 32 threads a CTA: one block, one warp (kRoleBoth). 64 * k threads (k
-// = 1..4): k blocks, warp j < k codes block j and warp k + j produces
-// it, so with one CTA on an SM each of its four schedulers holds one
-// coder warp (warps go to schedulers by their index mod 4).
+// One block a pair of warps (or one warp at 32 threads a CTA), up to
+// four blocks a CTA: sqz4_pair.cuh.
 __global__ void __launch_bounds__(64 * sqz4::kMaxBlocks)
 sqz4_encode_tok_kernel(const uint32_t* __restrict__ toks, int tok_rows,
                        const uint8_t* __restrict__ lits, int lit_bytes,
@@ -391,22 +293,15 @@ sqz4_encode_tok_kernel(const uint32_t* __restrict__ toks, int tok_rows,
                        uint32_t* __restrict__ words, int cap_words,
                        int32_t* __restrict__ lens) {
     extern __shared__ __align__(16) unsigned char smem_raw[];
-    const int per = blockDim.x == 32 ? 1 : blockDim.x / 64;
-    const int warp = threadIdx.x / 32, j = warp % per;
-    const int n = blockIdx.x * per + j;
-    if (n >= n_lanes) return;
-    const long long g = n / lanes, b = n % lanes;
-    const int role = blockDim.x == 32 ? sqz4::kRoleBoth
-                   : warp < per ? sqz4::kRoleConsumer
-                                : sqz4::kRoleProducer;
-    sqz4::encode_tok_lane(toks + static_cast<long long>(n) * tok_rows,
-                          tok_rows,
-                          lits + static_cast<long long>(n) * lit_bytes,
-                          lit_bytes, t_max, lanes,
+    const sqz4::PairSlot at = sqz4::pair_slot();
+    if (at.n >= n_lanes) return;
+    const long long n = at.n, g = n / lanes, b = n % lanes;
+    sqz4::encode_tok_lane(toks + n * tok_rows, tok_rows,
+                          lits + n * lit_bytes, lit_bytes, t_max, lanes,
                           words + g * cap_words * lanes + b, cap_words,
                           lens + g * 8 * lanes + b,
-                          reinterpret_cast<sqz4::TokSmem*>(smem_raw) + j,
-                          role, 4 * j);
+                          reinterpret_cast<sqz4::TokSmem*>(smem_raw) + at.j,
+                          at.role, 4 * at.j);
 }
 
 // toks: [groups, lanes, tok_rows] u32; lits: [groups, lanes, lit_bytes]
@@ -422,24 +317,13 @@ extern "C" int sqz4_encode_tok_launch(const void* toks, int tok_rows,
                                       int threads, int lit_skip,
                                       void* stream) {
     if (lit_skip) return static_cast<int>(cudaErrorNotSupported);
-    if (threads != 32 && (threads % 64 || threads < 64
-                          || threads > 64 * sqz4::kMaxBlocks))
-        return static_cast<int>(cudaErrorInvalidValue);
     const int n_lanes = groups * lanes;
-    if (n_lanes == 0) return static_cast<int>(cudaSuccess);
-    const int per = threads == 32 ? 1 : threads / 64;
-    const size_t smem = sizeof(sqz4::TokSmem) * per;
-    cudaError_t err = cudaFuncSetAttribute(
-        sqz4_encode_tok_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    sqz4_encode_tok_kernel<<<(n_lanes + per - 1) / per, threads, smem,
-                             static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint32_t*>(toks), tok_rows,
+    return sqz4::pair_launch(
+        sqz4_encode_tok_kernel, sizeof(sqz4::TokSmem), n_lanes, threads,
+        stream, static_cast<const uint32_t*>(toks), tok_rows,
         static_cast<const uint8_t*>(lits), lit_bytes, n_lanes, lanes, t_max,
         static_cast<uint32_t*>(words), cap_words,
         static_cast<int32_t*>(lens));
-    return static_cast<int>(cudaGetLastError());
 }
 
 #endif  // __CUDACC__

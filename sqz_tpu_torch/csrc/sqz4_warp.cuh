@@ -11,7 +11,9 @@
 // A host C++ compiler (the host tests) sees one lane (kLanes = 1, lane 0),
 // no-op syncs and no barriers: the same code then runs the producer and
 // the coder one after the other in one thread and computes the same
-// bytes.
+// bytes. A host includer that defines SQZ_HOST_WARP supplies these
+// primitives itself (tests/test_torch_csrc_host.py runs a warp of 32
+// host threads that way).
 #pragma once
 
 #include <stdint.h>
@@ -63,7 +65,12 @@ SQZ_DEVICE int warp_exscan(int v) {
 // *p += v in shared memory, atomically among the lanes
 SQZ_DEVICE void smem_add(int* p, int v) { atomicAdd(p, v); }
 SQZ_DEVICE uint32_t bswap32(uint32_t x) { return __byte_perm(x, 0, 0x0123); }
-#else
+// bit l set for each lane l whose p holds
+SQZ_DEVICE unsigned ballot(bool p) { return __ballot_sync(0xffffffffu, p); }
+SQZ_DEVICE int popc(unsigned x) { return __popc(x); }
+// the lowest set lane of x, kLanes if none
+SQZ_DEVICE int lowest(unsigned x) { return x ? __ffs(x) - 1 : kLanes; }
+#elif !defined(SQZ_HOST_WARP)   // else the includer defines these
 constexpr int kLanes = 1;
 SQZ_DEVICE int lane_id() { return 0; }
 SQZ_DEVICE void warp_sync() {}
@@ -74,6 +81,12 @@ SQZ_DEVICE int warp_sum(int v) { return v; }
 SQZ_DEVICE int warp_exscan(int) { return 0; }
 SQZ_DEVICE void smem_add(int* p, int v) { *p += v; }
 SQZ_DEVICE uint32_t bswap32(uint32_t x) { return __builtin_bswap32(x); }
+SQZ_DEVICE unsigned ballot(bool p) { return p; }
+SQZ_DEVICE int popc(unsigned x) { return __builtin_popcount(x); }
+SQZ_DEVICE int lowest(unsigned x) { return x ? __builtin_ctz(x) : kLanes; }
 #endif
+
+// the lanes below lane k (0 <= k <= 32)
+SQZ_DEVICE unsigned below(int k) { return k >= 32 ? ~0u : (1u << k) - 1u; }
 
 }  // namespace sqz4

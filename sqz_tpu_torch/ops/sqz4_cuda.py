@@ -28,10 +28,14 @@ from sqz_tpu_torch import convert, native
 from sqz_tpu_torch.ops import sqz4_host as host
 from sqz_tpu_torch.ops import launch, sqz4_ref
 
-# Blocks (one per thread) per CTA of the op-stream and stats-fed encoders.
-# One spreads a call's serial chains over every SM with no divergence
-# inside a warp; it measured fastest (PERF.md).
-THREADS = 1
+# Threads per CTA of the op-stream and the stats-fed encoders
+# (csrc/sqz4_encode.cu, csrc/sqz4_encode_stats.cu): four blocks a CTA,
+# each a coder warp beside a producer warp (statistics, reciprocals, byte
+# placement), as the token encoder's; the launchers also take 32 (one
+# warp doing both in turn) and 64-192. scripts/chain_variants.py times
+# them (PERF.md).
+ENC_THREADS = 256
+STATS_THREADS = 256
 # Threads per CTA (one block each) of the decoder: a warp whose lanes run
 # the block's chain together (csrc/sqz4_decode.cu).
 DECODE_THREADS = 32
@@ -71,7 +75,7 @@ def encode_full(m_ops: torch.Tensor, s_ops: torch.Tensor, cap_words: int):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = _build.library().sqz4_encode_launch(
             m_ops.data_ptr(), s_ops.data_ptr(), G, TW, B, words.data_ptr(),
-            cap_words, lens.data_ptr(), THREADS, stream)
+            cap_words, lens.data_ptr(), ENC_THREADS, stream)
     launch.launched(rc, "sqz4_encode")
     encode_full.launches += 1
     return words, lens
@@ -151,8 +155,9 @@ def encode_stats(start: torch.Tensor, size: torch.Tensor,
                  total: torch.Tensor, cap_words: int):
     """sqz4 stats-fed encoder: start / size / total uint32 [G, T, B], each
     op's coder statistics (total 0: a pad; size 0 with total != 0: a
-    flush; anything else coded) -> (payload words uint32 [G, cap_words, B],
-    lens int32 [G, 8, B]), as ``encode_full``'s."""
+    flush; anything else coded; totals below 2^17, where the kernel's
+    divide is exact) -> (payload words uint32 [G, cap_words, B], lens
+    int32 [G, 8, B]), as ``encode_full``'s."""
     for t, name in ((start, "start"), (size, "size"), (total, "total")):
         launch.check_tensor(t, name, torch.uint32)
     if not start.shape == size.shape == total.shape:
@@ -168,7 +173,8 @@ def encode_stats(start: torch.Tensor, size: torch.Tensor,
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = _build.library().sqz4_encode_stats_launch(
             start.data_ptr(), size.data_ptr(), total.data_ptr(), G, T, B,
-            words.data_ptr(), cap_words, lens.data_ptr(), THREADS, stream)
+            words.data_ptr(), cap_words, lens.data_ptr(), STATS_THREADS,
+            stream)
     launch.launched(rc, "sqz4_encode_stats")
     encode_stats.launches += 1
     return words, lens

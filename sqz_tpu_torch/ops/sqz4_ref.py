@@ -84,7 +84,8 @@ def to_u32(x):
 class _Coder:
     """Per-lane range encoders (coder registers, models, output bytes) for
     N lanes in lock-step; ``code`` takes one micro-op per lane, as the
-    kernels' shared coder step does (csrc/sqz4_coder.cuh Encoder::code)."""
+    op-stream encoder's producer and coder warps do together
+    (csrc/sqz4_encode.cu)."""
 
     def __init__(self, n: int, cap_words: int, dev):
         self.iota256 = torch.arange(256, dtype=I64, device=dev)[None, :]
@@ -151,8 +152,8 @@ class _Coder:
         self.code_stats(start, size, total, active, flush)
 
     def code_stats(self, start, size, total, active, flush):
-        """The coder half of a step (csrc/sqz4_coder.cuh
-        Encoder::code_stats and flush): on lanes ``active``, narrow to
+        """The coder half of a step (csrc/sqz4_chain.cuh ChainCoder::code
+        and flush): on lanes ``active``, narrow to
         [start, start + size) of total, renormalize with the underflow
         escape and emit the settled bytes; on lanes ``flush``, emit the
         top byte. Other lanes code nothing. int64 [N] each."""

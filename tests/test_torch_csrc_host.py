@@ -9,6 +9,13 @@ So a host C++ compiler can build the lane bodies as they are, and running
 them one lane after another computes what the kernel computes. This
 checks the kernel source's arithmetic on a machine with no card; the
 card itself is checked by chip_smoke.py and tests/test_torch_cuda.py.
+
+The coders' warp primitives (csrc/sqz4_warp.cuh) give a host compiler a
+warp of one lane. A second harness supplies a warp of 32 host threads
+instead (shuffles, ballots and syncs through a barrier), so the encoders'
+32-lane window arithmetic and the decoder's lane splits run here too, one
+block a warp (the two-warp hand-over through named barriers runs only on
+the card).
 """
 
 import ctypes
@@ -25,6 +32,7 @@ from sqz_tpu.utils import corpus
 from sqz_tpu_torch import convert, native as port_native
 from sqz_tpu_torch.ops import probe, sqz4_cuda, sqz4_host as host, sqz4_ref
 from sqz_tpu_torch.ops import squeeze_ref
+from sqz_tpu_torch.utils import synthetic
 
 # the plain versions step over small tensors: one intra-op thread each,
 # so parallel test workers do not oversubscribe the cores
@@ -36,7 +44,6 @@ HARNESS = r"""
 #define SQZ_DEVICE inline
 #define __clzll(x) __builtin_clzll(x)
 #include <memory>
-#include <vector>
 #include "sqz4_encode.cu"
 #include "sqz4_decode.cu"
 #include "sqz4_encode_tok.cu"
@@ -48,12 +55,13 @@ HARNESS = r"""
 extern "C" void host_encode(const uint32_t* m, const uint32_t* s, int G,
                             int TW, int B, uint32_t* words, int cw,
                             int32_t* lens) {
-    std::vector<int> tab(sqz4::kTableWords);
+    std::unique_ptr<sqz4::OpSmem> sm(new sqz4::OpSmem);
     for (long long g = 0; g < G; ++g)
         for (long long b = 0; b < B; ++b)
             sqz4::encode_lane(m + g * TW * B + b, s + g * TW * B + b, TW, B,
                               words + g * cw * B + b, cw,
-                              lens + g * 8 * B + b, tab.data(), 1);
+                              lens + g * 8 * B + b, sm.get(),
+                              sqz4::kRoleBoth, 0);
 }
 
 extern "C" void host_decode(const uint32_t* p, const int32_t* meta, int G,
@@ -107,12 +115,14 @@ extern "C" void host_bitpack(const uint32_t* ops, int G, int T, int B,
 extern "C" void host_encode_stats(const uint32_t* st, const uint32_t* sz,
                                   const uint32_t* tt, int G, int T, int B,
                                   uint32_t* words, int cw, int32_t* lens) {
+    std::unique_ptr<sqz4::StatsSmem> sm(new sqz4::StatsSmem);
     for (long long g = 0; g < G; ++g)
         for (long long b = 0; b < B; ++b) {
             const long long in = g * T * B + b;
             sqz4::encode_stats_lane(st + in, sz + in, tt + in, T, B,
                                     words + g * cw * B + b, cw,
-                                    lens + g * 8 * B + b);
+                                    lens + g * 8 * B + b, sm.get(),
+                                    sqz4::kRoleBoth, 0);
         }
 }
 
@@ -134,25 +144,186 @@ extern "C" void host_compact(const uint32_t* words, int B,
 """
 
 
-@pytest.fixture(scope="module")
-def lanes_lib(tmp_path_factory):
+WARP_HARNESS = r"""
+#define SQZ_DEVICE inline
+#define SQZ_HOST_WARP
+#define __clzll(x) __builtin_clzll(x)
+#include <stdint.h>
+#include <barrier>
+#include <memory>
+#include <mutex>
+#include <thread>
+#include <vector>
+
+namespace sqz4 {
+constexpr int kLanes = 32;
+struct HostWarp {
+    std::barrier<> bar{kLanes};
+    long long v[kLanes];
+    std::mutex mu;
+};
+inline thread_local int t_lane = 0;
+inline thread_local HostWarp* t_warp = nullptr;
+inline int lane_id() { return t_lane; }
+inline void warp_sync() { t_warp->bar.arrive_and_wait(); }
+inline void bar_wait(int, int) {}
+inline void bar_arrive(int, int) {}
+// every lane posts x; returns the posts of lanes [0, n) combined by f
+template <class F>
+inline long long gather(long long x, int n, F f) {
+    t_warp->v[t_lane] = x;
+    warp_sync();
+    long long r = 0;
+    for (int l = 0; l < n; ++l) r = f(r, l, t_warp->v[l]);
+    warp_sync();
+    return r;
+}
+inline int shfl(int v, int src) {
+    return static_cast<int>(gather(v, kLanes, [src](long long r, int l,
+                                                    long long x) {
+        return l == src ? x : r;
+    }));
+}
+inline long long add(long long r, int, long long x) { return r + x; }
+inline int warp_sum(int v) { return static_cast<int>(gather(v, kLanes, add)); }
+inline int warp_exscan(int v) {
+    return static_cast<int>(gather(v, t_lane, add));
+}
+inline unsigned ballot(bool p) {
+    return static_cast<unsigned>(gather(p, kLanes, [](long long r, int l,
+                                                      long long x) {
+        return r | (x ? 1ll << l : 0ll);
+    }));
+}
+inline void smem_add(int* p, int v) {
+    std::lock_guard<std::mutex> lk(t_warp->mu);
+    *p += v;
+}
+inline uint32_t bswap32(uint32_t x) { return __builtin_bswap32(x); }
+inline int popc(unsigned x) { return __builtin_popcount(x); }
+inline int lowest(unsigned x) { return x ? __builtin_ctz(x) : kLanes; }
+}  // namespace sqz4
+
+#include "sqz4_encode.cu"
+#include "sqz4_encode_stats.cu"
+#include "sqz4_encode_tok.cu"
+#include "sqz4_decode.cu"
+
+// body() on a warp of 32 host threads, one lane each
+template <class F>
+static void on_warp(F body) {
+    sqz4::HostWarp w;
+    std::vector<std::thread> th;
+    for (int l = 0; l < sqz4::kLanes; ++l)
+        th.emplace_back([&, l] {
+            sqz4::t_lane = l;
+            sqz4::t_warp = &w;
+            body();
+        });
+    for (auto& t : th) t.join();
+}
+
+extern "C" void host_encode(const uint32_t* m, const uint32_t* s, int G,
+                            int TW, int B, uint32_t* words, int cw,
+                            int32_t* lens) {
+    std::unique_ptr<sqz4::OpSmem> sm(new sqz4::OpSmem);
+    for (long long g = 0; g < G; ++g)
+        for (long long b = 0; b < B; ++b)
+            on_warp([&] {
+                sqz4::encode_lane(m + g * TW * B + b, s + g * TW * B + b, TW,
+                                  B, words + g * cw * B + b, cw,
+                                  lens + g * 8 * B + b, sm.get(),
+                                  sqz4::kRoleBoth, 0);
+            });
+}
+
+extern "C" void host_encode_stats(const uint32_t* st, const uint32_t* sz,
+                                  const uint32_t* tt, int G, int T, int B,
+                                  uint32_t* words, int cw, int32_t* lens) {
+    std::unique_ptr<sqz4::StatsSmem> sm(new sqz4::StatsSmem);
+    for (long long g = 0; g < G; ++g)
+        for (long long b = 0; b < B; ++b)
+            on_warp([&] {
+                const long long in = g * T * B + b;
+                sqz4::encode_stats_lane(st + in, sz + in, tt + in, T, B,
+                                        words + g * cw * B + b, cw,
+                                        lens + g * 8 * B + b, sm.get(),
+                                        sqz4::kRoleBoth, 0);
+            });
+}
+
+extern "C" void host_encode_tok(const uint32_t* toks, int TT,
+                                const uint8_t* lits, int L, int G, int B,
+                                int t_max, uint32_t* words, int cw,
+                                int32_t* lens) {
+    std::unique_ptr<sqz4::TokSmem> sm(new sqz4::TokSmem);
+    for (long long g = 0; g < G; ++g)
+        for (long long b = 0; b < B; ++b)
+            on_warp([&] {
+                sqz4::encode_tok_lane(toks + (g * B + b) * TT, TT,
+                                      lits + (g * B + b) * L, L, t_max, B,
+                                      words + g * cw * B + b, cw,
+                                      lens + g * 8 * B + b, sm.get(),
+                                      sqz4::kRoleBoth, 0);
+            });
+}
+
+extern "C" void host_decode(const uint32_t* p, const int32_t* meta, int G,
+                            int pw, int B, int t_max, uint32_t* lit, int lw,
+                            uint32_t* tok, int tw, uint32_t* mrec, int mw,
+                            int32_t* counts) {
+    std::unique_ptr<sqz4::DecSmem> sm(new sqz4::DecSmem);
+    for (long long g = 0; g < G; ++g)
+        for (long long b = 0; b < B; ++b)
+            on_warp([&] {
+                sqz4::decode_lane(p + g * pw * B + b, pw,
+                                  meta + g * 8 * B + b, B, t_max,
+                                  lit + g * lw * B + b, lw,
+                                  tok + g * tw * B + b, tw,
+                                  mrec + g * mw * B + b, mw,
+                                  counts + g * 8 * B + b, sm.get());
+            });
+}
+"""
+
+
+def _build(tmp_path_factory, name, source, std):
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         pytest.skip("no host C++ compiler")
-    d = tmp_path_factory.mktemp("csrc_host")
-    (d / "harness.cpp").write_text(HARNESS)
-    so = d / "libsqz4host.so"
-    subprocess.run([cxx, "-O2", "-std=c++17", "-Wall", "-Wextra", "-Werror",
-                    "-shared", "-fPIC", f"-I{CSRC}", "-o", str(so),
-                    str(d / "harness.cpp")], check=True, capture_output=True)
-    lib = ctypes.CDLL(str(so))
+    d = tmp_path_factory.mktemp(name)
+    (d / "harness.cpp").write_text(source)
+    so = d / f"lib{name}.so"
+    subprocess.run([cxx, "-O2", f"-std={std}", "-pthread", "-Wall",
+                    "-Wextra", "-Werror", "-shared", "-fPIC", f"-I{CSRC}",
+                    "-o", str(so), str(d / "harness.cpp")], check=True,
+                   capture_output=True)
+    return ctypes.CDLL(str(so))
+
+
+def _coder_argtypes(lib):
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.host_encode.argtypes = [p, p, i, i, i, p, i, p]
     lib.host_decode.argtypes = [p, p, i, i, i, i, p, i, p, i, p, i, p]
     lib.host_encode_tok.argtypes = [p, i, p, i, i, i, i, p, i, p]
+    lib.host_encode_stats.argtypes = [p, p, p, i, i, i, p, i, p]
+    return lib
+
+
+@pytest.fixture(scope="module")
+def warp_lib(tmp_path_factory):
+    """The coders on a warp of 32 host threads (WARP_HARNESS)."""
+    return _coder_argtypes(_build(tmp_path_factory, "sqz4warp",
+                                  WARP_HARNESS, "c++20"))
+
+
+@pytest.fixture(scope="module")
+def lanes_lib(tmp_path_factory):
+    lib = _coder_argtypes(_build(tmp_path_factory, "csrc_host", HARNESS,
+                                 "c++17"))
+    p, i = ctypes.c_void_p, ctypes.c_int
     lib.host_compact.argtypes = [p, i, p, i, p]
     lib.host_bitpack.argtypes = [p, i, i, i, p, i, p]
-    lib.host_encode_stats.argtypes = [p, p, p, i, i, i, p, i, p]
     lib.host_probe.argtypes = [i, p, p, p, i, i]
     lib.host_recip.argtypes = [p, ctypes.c_longlong, p]
     lib.host_div.argtypes = [p, p, ctypes.c_longlong, p]
@@ -512,3 +683,154 @@ def test_probe_lanes_equal_plain_version(lanes_lib, name):
     np.testing.assert_array_equal(out, probe.expected(name))
     want = probe.plain(name, *probe.probe_tensors(name, "cpu"))
     np.testing.assert_array_equal(out, convert.to_numpy(want))
+
+
+# The op-stream and stats-fed encoders on synthetic streams that reach
+# every input case, and the coders on a warp of 32 host threads.
+
+@pytest.fixture(params=["lane", "warp"])
+def coder_lib(request):
+    """The coders built with one lane a warp, then with 32 host threads."""
+    return request.getfixturevalue("lanes_lib" if request.param == "lane"
+                                   else "warp_lib")
+
+
+def _encode_ops_both(lib, m, s, cw):
+    G, TW, B = m.shape
+    words = np.zeros((G, cw, B), np.uint32)
+    lens = np.zeros((G, 8, B), np.int32)
+    lib.host_encode(_ptr(m), _ptr(s), G, TW, B, _ptr(words), cw, _ptr(lens))
+    want = sqz4_ref.encode_full_ref(convert.to_device(m, "cpu"),
+                                    convert.to_device(s, "cpu"), cw)
+    return (words, lens), [convert.to_numpy(x) for x in want]
+
+
+def _encode_stats_both(lib, packed, cw):
+    G, T, B = packed[0].shape
+    words = np.zeros((G, cw, B), np.uint32)
+    lens = np.zeros((G, 8, B), np.int32)
+    lib.host_encode_stats(*map(_ptr, packed), G, T, B, _ptr(words), cw,
+                          _ptr(lens))
+    want = sqz4_ref.encode_stats_ref(
+        *(convert.to_device(a, "cpu") for a in packed), cw)
+    return (words, lens), [convert.to_numpy(x) for x in want]
+
+
+def _assert_equal(got, want):
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_encoder_lanes_code_every_op(coder_lib):
+    # every op code 0..35 with symbols 0..255 (bits past 31, binary
+    # symbols past 1), flushes and pads (36..253, 255) anywhere, blocks
+    # of mixed lengths, some ending in the eight flushes
+    m, s = synthetic.op_stream(10, 700, seed=21, lanes=5)
+    ops = m.astype(">u4").view(np.uint8)
+    assert {0, 1, 2, 3, 4, 35, 254, 255} <= set(np.unique(ops).tolist())
+    got, want = _encode_ops_both(coder_lib, m, s,
+                                 host.cap_words_for(4096))
+    _assert_equal(got, want)
+
+
+@pytest.mark.parametrize("op", [0, 1, 2, 3, 4, 19, 35])
+def test_encoder_lanes_code_one_model_in_a_row(coder_lib, op):
+    # 64 ops of one model: two windows whose ops all share a model, so
+    # each op's statistics count every earlier op of its window
+    m, s = synthetic.one_model(op, 64, seed=op)
+    got, want = _encode_ops_both(coder_lib, m, s, 64)
+    _assert_equal(got, want)
+
+
+def test_stats_encoder_lanes_code_flushes_and_pads(coder_lib):
+    # statistics with flushes and pads mid-stream, runs of flushes longer
+    # than a buffer's room, blocks of mixed lengths
+    packed = synthetic.stats_stream(10, 900, seed=22, lanes=5)
+    tt, sz = packed[2], packed[1]
+    assert ((tt != 0) & (sz == 0)).any() and (tt == 0).any()
+    got, want = _encode_stats_both(coder_lib, packed,
+                                   host.cap_words_for(4096))
+    _assert_equal(got, want)
+
+
+@pytest.mark.parametrize("which", ["ops", "stats"])
+def test_encoder_lanes_drop_bytes_past_the_capacity(coder_lib, which):
+    # payloads longer than cap_words words: the words past it are dropped
+    # and lens counts every byte
+    cw = 16
+    if which == "ops":
+        m, s = synthetic.op_stream(6, 900, seed=23)
+        got, want = _encode_ops_both(coder_lib, m, s, cw)
+    else:
+        got, want = _encode_stats_both(
+            coder_lib, synthetic.stats_stream(6, 900, seed=24), cw)
+    _assert_equal(got, want)
+    assert (got[1][0, 0] > 4 * cw).sum() >= 3
+
+
+@pytest.mark.parametrize("kind", ["mixed", "random"])
+def test_encoder_warp_codes_parsed_blocks(warp_lib, kind):
+    # the exact parse's op streams (pseudo-text, runs, zeros, random
+    # bytes; or random bytes alone, a flag and a byte an op pair) through
+    # the 32-lane windows: the native engine's payloads
+    blk, lanes = 10, 4
+    bs = 1 << blk
+    data = _data(bs) if kind == "mixed" else corpus.random_bytes(
+        3 * bs + 100, seed=25)
+    nb = -(-len(data) // bs)
+    mw, sw, mx = native.sqz4_plan_pack(data, 1 << 10, blk, True, lanes,
+                                       host.op_stream_cap(blk))
+    rows = -(-int(mx) // 4)
+    m, s = (np.ascontiguousarray(a[:, :rows]) for a in (mw, sw))
+    got, want = _encode_ops_both(warp_lib, m, s,
+                                 host.cap_words_for(bs + 2048))
+    _assert_equal(got, want)
+    assert (host.unpack_group_payloads(*got, nb)
+            == native.blocks_compress(data, 1, 10, blk))
+
+
+def test_stats_encoder_warp_codes_parsed_statistics(warp_lib):
+    blk, lanes = 10, 4
+    bs = 1 << blk
+    data = _data(bs)
+    nb = -(-len(data) // bs)
+    packed = sqz4_cuda.pack_group_stats(
+        host.op_stream_stats(data, 1 << 10, blk, lanes=lanes), lanes)
+    got, want = _encode_stats_both(warp_lib, packed,
+                                   host.cap_words_for(bs + 2048))
+    _assert_equal(got, want)
+    assert (host.unpack_group_payloads(*got, nb)
+            == native.blocks_compress(data, 1, 10, blk))
+
+
+@pytest.mark.parametrize("cut", [0, 3, 100, -1, 9])
+def test_token_encoder_warp_equals_plain_version(warp_lib, cut):
+    # literal chunks, distance bits a lane each, the pair budget's cuts
+    blk, lanes = 10, 4
+    data = (corpus.texty(2 << blk, seed=26)
+            + corpus.random_bytes(1 << blk, seed=27))
+    tt, lt, mx, _ = _tok_inputs(data, blk, lanes)
+    t_max = mx + cut if cut < 0 or cut == 9 else cut
+    got, want = _encode_tok_both(warp_lib, tt, lt, t_max,
+                                 host.cap_words_for((1 << blk) + 2048))
+    _assert_equal(got, want)
+
+
+@pytest.mark.parametrize("corrupt", [False, True])
+def test_decoder_warp_equals_plain_version(warp_lib, corrupt):
+    blk, lanes = 9, 4
+    bs = 1 << blk
+    data = corpus.texty(2 * bs, seed=28) + corpus.random_bytes(2 * bs,
+                                                               seed=29)
+    payloads = native.blocks_compress(data, 1, 10, blk)
+    if corrupt:
+        rng = np.random.default_rng(30)
+        for b in range(lanes):
+            p = bytearray(payloads[b])
+            p[int(rng.integers(0, len(p)))] ^= int(rng.integers(1, 256))
+            payloads[b] = bytes(p)
+    got, want = _decode_both(warp_lib, payloads, [bs] * lanes, blk, lanes)
+    _assert_equal(got, want)
+    if not corrupt:
+        assert b"".join(host.postprocess_decode(*got, payloads,
+                                                [bs] * lanes, bs)) == data

@@ -15,7 +15,7 @@ from sqz_tpu_torch import convert, native
 from sqz_tpu_torch.formats import container
 from sqz_tpu_torch.ops import engine, sqz4_cuda, sqz4_host as host, sqz4_ref
 from sqz_tpu_torch.ops import probe, squeeze_cuda, squeeze_ref
-from sqz_tpu_torch.utils import corpus
+from sqz_tpu_torch.utils import corpus, synthetic
 
 pytestmark = pytest.mark.gpu
 
@@ -148,6 +148,28 @@ def test_stats_encoder_equals_plain_version(cuda):
         assert torch.equal(a.view(torch.int32), b.view(torch.int32))
     assert (sqz4_cuda.encode_groups(*st, bs + 2048, device=cuda, lanes=NB)
             == native.blocks_compress(data, 1, 10, BLK))
+
+
+@pytest.mark.parametrize("which", ["ops", "stats"])
+def test_encoders_code_synthetic_streams_like_plain_versions(cuda, which):
+    # every op code and symbol, flushes and pads anywhere (runs of
+    # flushes past a buffer's room), 41 blocks of mixed lengths up to 3,000
+    # ops (the four-blocks-a-CTA launch's last CTA holds one block), and
+    # a capacity some of them overflow
+    cw = 192
+    if which == "ops":
+        m, s = (convert.to_device(a, cuda)
+                for a in synthetic.op_stream(41, 3000, seed=31))
+        got = sqz4_cuda.encode_full(m, s, cw)
+        want = sqz4_ref.encode_full_ref(m, s, cw)
+    else:
+        packed = [convert.to_device(a, cuda)
+                  for a in synthetic.stats_stream(41, 3000, seed=32)]
+        got = sqz4_cuda.encode_stats(*packed, cw)
+        want = sqz4_ref.encode_stats_ref(*packed, cw)
+    for a, b in zip(got, want):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    assert (convert.to_numpy(got[1])[0, 0] > 4 * cw).any()
 
 
 def test_probes_equal_plain_versions(cuda):

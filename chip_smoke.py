@@ -21,6 +21,11 @@ Phases (any failure exits non-zero):
      and stats-fed encoders also code synthetic streams that reach every
      op code, flushes and pads anywhere and blocks of mixed lengths
      (``sqz_tpu_torch.utils.synthetic``), against their plain versions.
+     The seeded modes of the op-stream encoder and the decoder (warm
+     start) are checked the same way at both sizes: the device pass of a
+     warm container (blocks 1+ from block 0's final state, block 0 cold)
+     against the plain version and the native seeded codec, then its
+     warm blocks through the seeded decoder against the plain version.
      Then the coders' chain figures: the op-stream encoder, the decoder
      and the token encoder timed on one group of the pseudo-text and of
      32 MiB of random bytes (the literal-heavy mix), and the stats-fed
@@ -53,7 +58,18 @@ Phases (any failure exits non-zero):
      statistics of 512 blocks of 16 KiB (payloads equal the native
      engine's), and the probes' main path, ``probe.run_probes`` (every
      probe equals its expected value), each with its launch count > 0;
-  8. a corrupt payload byte must be rejected, naming its block.
+  8. a corrupt payload byte must be rejected, naming its block;
+  9. sqz4 warm start (sqzt v2): the 32 MiB input through ``compress(warm=
+     True)`` / ``decompress``, exact and fast parse. The exact container
+     must equal the native copy's (``blocks_compress(warm=True)``); both
+     must round-trip, and the seeded encoder's and the seeded decoder's
+     launch counts over this run must be > 0;
+ 10. anchored warm start (sqzt v3), sqz4 and squeeze: 1.75 MiB mixing
+     pseudo-text, random bytes and runs, so that the planner picks several
+     anchors, through ``compress(warm="anchors")`` / ``decompress``: round
+     trip, and (sqz4) one seeded decoder launch per anchor;
+ 11. sqz4 at ``blk_bits`` 17 (the host route): 4 MiB, exact parse, equal to
+     the native copy's container, round trip, the host-route count > 0.
 
 The second-to-last line is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
@@ -75,7 +91,9 @@ PIPE_BYTES = 128 << 20
 CORRUPT_BLOCK = 100
 REPS = 3
 PALLAS = "sqz_tpu/ops/sqz4_pallas.py"
-PLAIN_WORKERS = 7   # one per coder's plain version checked at a shape
+PLAIN_WORKERS = 7   # plain versions checked at a shape side by side
+ANCHOR_BLOCKS = 7   # blocks of one anchored phase's pattern (four of them)
+HOST_ROUTE_BYTES, HOST_ROUTE_BITS = 4 << 20, 17
 STATS_BITS = 14   # the stats-fed encoder's full-size blocks (16 KiB)
 # the synthetic streams' most ops a block, at 64 x 1 KiB and at the full
 # shapes (at most 2^16: the kernels' model totals stay below 2^17)
@@ -345,6 +363,9 @@ def kernels_vs_plain(data, blk_bits, win_bits, lanes, reps, stats_bits,
         toks.numel() * 4 + lits.numel() + int(tlens_np[:, 0].sum())
         + tlens_np.nbytes, tok_symbols(grp) * OPS_PER_SYMBOL) + (None,)
 
+    checks.update(seeded_vs_plain(data, blk_bits, win_bits, lanes, reps,
+                                  pool, payloads[0]))
+
     # compaction of the token encoder's output (every lane)
     n = len(grp.fit)
     flat = sqz4_cuda.compact_words(twords, tlens, n)
@@ -394,6 +415,67 @@ def kernels_vs_plain(data, blk_bits, win_bits, lanes, reps, stats_bits,
         + (f", library {v[5]:.4f} ms" if v[5] is not None else "") + ")"
         for k, v in res.items() if k != "shape"))
     return res
+
+
+def seeded_vs_plain(data, blk_bits, win_bits, lanes, reps, pool, cold0):
+    """The seeded modes against their plain versions (in workers of
+    ``pool``, see PlainCheck): the warm device pass of ``data`` (exact
+    parse; blocks 1+ start from block 0's final state, block 0, whose
+    cold payload is ``cold0``, stays cold), whose payloads must equal the
+    native seeded codec's; then its blocks 1+ through the seeded decoder,
+    which must restore them. Returns {kernel: (PlainCheck, bound and
+    library entries)}."""
+    import torch
+    from sqz_tpu_torch import convert, native
+    from sqz_tpu_torch.ops import sqz4_cuda, sqz4_host as host, sqz4_ref
+    dev = torch.device("cuda")
+    bs = 1 << blk_bits
+    nb = len(data) // bs
+    mw, sw, mx, seed = native.sqz4_plan_pack(
+        data, 1 << win_bits, blk_bits, True, lanes,
+        host.op_stream_cap(blk_bits), warm=True)
+    rows = -(-int(mx) // 4)
+    m, s = convert.encoder_inputs(mw, sw, rows, dev)
+    col = convert.to_device(host.seed_column(seed), dev)
+    cw = host.cap_words_for(bs + 2048 + bs // 4)
+    enc = PlainCheck(pool, sqz4_cuda.encode_full, sqz4_ref.encode_full_ref,
+                     (m, s, cw, col, 0), reps)
+    words, lens = (convert.to_numpy(x) for x in enc.got)
+    payloads = host.unpack_group_payloads(words, lens, nb)
+    dictionary = data[:bs][-(1 << win_bits):]
+    if payloads[0] != cold0 or any(
+            payloads[b] != native.sqz4_compress_payload(
+                data[b * bs:(b + 1) * bs], 1 << win_bits, seed=seed,
+                dictionary=dictionary) for b in range(1, nb)):
+        raise AssertionError("seeded encoder payloads differ from the "
+                             "native seeded codec")
+    out = {"sqz4_encode_seeded": (enc, bound(
+        2 * m.numel() * 4 + col.numel() * 4 + int(lens[:, 0].sum())
+        + lens.nbytes, coded_symbols(mw[:, :rows]) * OPS_PER_SYMBOL)
+        + (None,))}
+
+    warm, sizes = payloads[1:], [bs] * (nb - 1)
+    plan = host.plan_decode_dispatch(nb - 1, blk_bits, lanes=lanes)
+    pw = min(plan["Pw"], host.payload_rows(max(map(len, warm))))
+    buf, meta = host.pack_decode_chunk(warm, sizes, lanes, plan["G"], pw,
+                                       len(dictionary))
+    pt, mt = convert.decoder_inputs(buf, meta, dev)
+    dec = PlainCheck(pool, sqz4_cuda.decode, sqz4_ref.decode_ref,
+                     (pt, mt, plan["t_max"], plan["lw"], plan["tw"],
+                      plan["mw"], col), reps)
+    outs = host.postprocess_decode(*[convert.to_numpy(x) for x in dec.got],
+                                   warm, sizes, bs, seed=seed,
+                                   dictionary=dictionary)
+    if b"".join(outs) != data[bs:]:
+        raise AssertionError("seeded decoder did not restore the blocks")
+    cnt = convert.to_numpy(dec.got[3])
+    out_bytes = int(cnt[:, 1].sum() + (cnt[:, 2].sum() + 7) // 8
+                    + 4 * cnt[:, 3].sum()) + cnt.nbytes
+    wsym = coded_symbols(mw[:, :rows]) - coded_symbols(mw[:1, :rows, :1])
+    out["sqz4_decode_seeded"] = dec, bound(
+        pt.numel() * 4 + mt.numel() * 4 + col.numel() * 4 + out_bytes,
+        wsym * OPS_PER_SYMBOL) + (None,)
+    return out
 
 
 def synthetic_vs_plain(lanes, max_ops, reps, pool):
@@ -501,8 +583,10 @@ def probe_library_calls(dev):
 
 def probes_vs_plain():
     """Every probe kernel against its plain version and its expected
-    value; kernel and library times are means of 20 launches, summed
-    over the probes."""
+    value; kernel and library times are means of 20 launches. The times
+    returned (kernel, plain, library) and the bound are summed over the
+    same probes: those that one torch call computes
+    (``probe_library_calls``); the kernel time of all of them is logged."""
     import torch
     from sqz_tpu_torch import convert
     from sqz_tpu_torch.ops import _build, probe
@@ -511,6 +595,7 @@ def probes_vs_plain():
     stream = torch.cuda.current_stream().cuda_stream
     calls = probe_library_calls(dev)
     kms = plain_ms = lib_ms = 0.0
+    all_kms = 0.0
     nbytes = 0
     for i, name in enumerate(probe.PROBES):
         a, b = probe.probe_tensors(name, dev)
@@ -519,24 +604,30 @@ def probes_vs_plain():
         t = time.perf_counter()
         want = probe.plain(name, a, b)
         torch.cuda.synchronize()
-        plain_ms += (time.perf_counter() - t) * 1e3
+        p_ms = (time.perf_counter() - t) * 1e3
         if max_abs_err([got], [want]) or not (
                 convert.to_numpy(got) == probe.expected(name)).all():
             raise AssertionError(f"probe {name} differs from its plain "
                                  f"version or its expected value")
         out = torch.empty_like(got)
-        kms += mean_events_ms(lambda: lib.probe_launch(
+        k_ms = mean_events_ms(lambda: lib.probe_launch(
             i, a.data_ptr(), b.data_ptr() if b is not None else None,
             out.data_ptr(), probe.B, a.shape[0], stream), 20)
         if not torch.equal(out.view(torch.int32), got.view(torch.int32)):
             raise AssertionError(f"timed probe {name} launches differ")
-        if name in calls:
-            if not (calls[name]().cpu().numpy()
-                    == probe.expected(name)).all():
-                raise AssertionError(f"library call for {name} differs")
-            lib_ms += mean_events_ms(calls[name], 20)
+        all_kms += k_ms
+        if name not in calls:
+            continue
+        if not (calls[name]().cpu().numpy() == probe.expected(name)).all():
+            raise AssertionError(f"library call for {name} differs")
+        lib_ms += mean_events_ms(calls[name], 20)
+        kms += k_ms
+        plain_ms += p_ms
         nbytes += sum(x.numel() * x.element_size() for x in (a, b, got)
                       if x is not None)
+    log(f"probes: kernels {all_kms:.4f} ms over all {len(probe.PROBES)}, "
+        f"{kms:.4f} ms over the {len(calls)} with a library call "
+        f"(library {lib_ms:.4f} ms)")
     return (0, kms, plain_ms) + bound(nbytes, 0) + (lib_ms,)
 
 
@@ -964,6 +1055,170 @@ def stats_and_probe_paths(data):
     return {"sqz4_encode_stats": stats_launches, "probe": probe_launches}
 
 
+def warm_path(data, cold_blob):
+    """Phase 9: sqz4 warm start (sqzt v2) on the 32 MiB input, exact and
+    fast parse, against the native copy; the seeded kernels' launches
+    counted over the run."""
+    import sqz_tpu_torch
+    from sqz_tpu_torch import native
+    from sqz_tpu_torch.formats import container
+    from sqz_tpu_torch.formats.constants import (SQZT_FORMAT_SQZ4,
+                                                 warm_dictionary)
+    from sqz_tpu_torch.ops import sqz4_cuda
+    t = time.perf_counter()
+    wpay, wfresh = native.blocks_compress(data, 1, MAIN_WIN_BITS, MAIN_BITS,
+                                          warm=True)
+    ref = container.pack(SQZT_FORMAT_SQZ4, MAIN_WIN_BITS, MAIN_BITS,
+                         len(data), wpay, container.fnv1a64(data),
+                         warm=True, fresh_mask=wfresh)
+    log(f"sqz4 warm native reference: {time.perf_counter() - t:.1f} s")
+    kw = dict(blk_bits=MAIN_BITS, win_bits=MAIN_WIN_BITS, warm=True)
+    sqz4_cuda.encode_full.seeded_launches = 0
+    sqz4_cuda.decode.seeded_launches = 0
+    runs = {}
+    for parse in ("exact", "fast"):
+        t = time.perf_counter()
+        blob = sqz_tpu_torch.compress(data, parse=parse, **kw)
+        enc_s = time.perf_counter() - t
+        t = time.perf_counter()
+        out = sqz_tpu_torch.decompress(blob)
+        runs[parse] = (blob, enc_s, time.perf_counter() - t)
+        if out != data:
+            raise AssertionError(f"sqz4 warm {parse} round trip failed")
+    launches = {"sqz4_encode_seeded": sqz4_cuda.encode_full.seeded_launches,
+                "sqz4_decode_seeded": sqz4_cuda.decode.seeded_launches}
+    log(f"launches over the sqz4 warm path: {launches}")
+    if runs["exact"][0] != ref:
+        raise AssertionError("sqz4 warm exact container differs from the "
+                             "native copy's")
+    fblob = runs["fast"][0]
+    if native.blocks_decompress(container.unpack(fblob)[4], len(data), 1,
+                                MAIN_BITS, fresh_mask=container.unpack(
+                                    fblob)[6], win_bits=MAIN_WIN_BITS) \
+            != data:
+        raise AssertionError("native copy cannot decode the sqz4 warm "
+                             "fast-parse container")
+    if min(launches.values()) < 1:
+        raise AssertionError(f"a seeded kernel was not launched: "
+                             f"{launches}")
+    mb = len(data) / 1e6
+    log(f"sqz4 warm path, {len(data) >> 20} MiB in 64 KiB blocks: "
+        + "; ".join(
+        f"{k} enc {e:.3f} s ({mb / e:.1f} MB/s) dec {d:.3f} s "
+        f"({mb / d:.1f} MB/s) ratio {len(b) / len(data):.4f}"
+        for k, (b, e, d) in runs.items())
+        + f"; cold exact ratio {len(cold_blob) / len(data):.4f}; warm "
+        f"blocks {wfresh.count(False)} of {len(wfresh)}")
+    # one run's stages of the seeded device pass and the seeded decode
+    bs = 1 << MAIN_BITS
+    enc_st, dec_st = {}, {}
+    warm_p = sqz4_cuda.encode_data_full(
+        data, MAIN_BITS, 1 << MAIN_WIN_BITS, True, bs + 2048, parse="exact",
+        warm=True, stats=enc_st)
+    _b0, seed = native.sqz4_decompress_payload(warm_p[0], bs,
+                                               return_state=True)
+    sqz4_cuda.decode_groups(warm_p[1:], [bs] * (len(warm_p) - 1), MAIN_BITS,
+                            stats=dec_st, seed=seed, dictionary=
+                            warm_dictionary(data[:bs], MAIN_WIN_BITS))
+    log("sqz4 warm stages (s): seeded device pass " + json.dumps(
+        {k: round(v, 4) for k, v in enc_st.items()}) + "; seeded decode of "
+        "blocks 1+ " + json.dumps({k: round(v, 4) for k, v in dec_st.items()}))
+    return launches, {
+        **{f"warm_{k}_enc_MBps": mb / e for k, (_, e, _) in runs.items()},
+        **{f"warm_{k}_dec_MBps": mb / d for k, (_, _, d) in runs.items()},
+        **{f"warm_{k}_ratio": len(b) / len(data)
+           for k, (b, _, _) in runs.items()}}
+
+
+def anchored_input():
+    """Four turns of pseudo-text (two blocks), random bytes (one), runs
+    (three) and pseudo-text of another seed (one), 64 KiB blocks: the v3
+    planner anchors warm blocks on several fresh ones."""
+    from sqz_tpu_torch.utils import corpus
+    b = 1 << MAIN_BITS
+    return b"".join(corpus.texty(2 * b, seed=10 + k)
+                    + corpus.random_bytes(b, seed=20 + k)
+                    + corpus.rle4(3 * b) + corpus.texty(b, seed=30 + k)
+                    for k in range(4))
+
+
+def anchored_path():
+    """Phase 10: anchored warm start (sqzt v3), both formats: round trip,
+    and one seeded decoder launch per anchor (sqz4)."""
+    import sqz_tpu_torch
+    from sqz_tpu_torch.formats import container
+    from sqz_tpu_torch.ops import sqz4_cuda
+    data = anchored_input()
+    out = {}
+    for fmt in ("sqz4", "squeeze"):
+        t = time.perf_counter()
+        blob = sqz_tpu_torch.compress(data, fmt=fmt, warm="anchors",
+                                      blk_bits=MAIN_BITS,
+                                      win_bits=MAIN_WIN_BITS)
+        enc_s = time.perf_counter() - t
+        *_, fresh, anch = container.unpack(blob)
+        anchors = {a for a in container.resolve_anchors(fresh, anch)
+                   if a is not None}
+        sqz4_cuda.decode.seeded_launches = 0
+        t = time.perf_counter()
+        res = sqz_tpu_torch.decompress(blob)
+        dec_s = time.perf_counter() - t
+        seeded = sqz4_cuda.decode.seeded_launches
+        if res != data:
+            raise AssertionError(f"{fmt} anchored round trip failed")
+        if len(anchors) < 2 or not any(anch):
+            raise AssertionError(f"{fmt}: the planner chose one anchor")
+        if fmt == "sqz4" and seeded != len(anchors):
+            raise AssertionError(f"{seeded} seeded decoder launches for "
+                                 f"{len(anchors)} anchors")
+        log(f"{fmt} anchored, {len(data) / 2**20:.2f} MiB in 64 KiB blocks:"
+            f" enc {enc_s:.3f} s dec {dec_s:.3f} s ratio "
+            f"{len(blob) / len(data):.4f}; anchors {sorted(anchors)}, warm "
+            f"blocks {fresh.count(False)} of {len(fresh)}, seeded decoder "
+            f"launches {seeded}")
+        out[f"{fmt}_anchors"] = len(anchors)
+        out[f"{fmt}_anchored_ratio"] = len(blob) / len(data)
+    return out
+
+
+def host_route_path():
+    """Phase 11: sqz4 at blk_bits 17 through the host route, against the
+    native copy."""
+    import sqz_tpu_torch
+    from sqz_tpu_torch import native
+    from sqz_tpu_torch.formats import container
+    from sqz_tpu_torch.formats.constants import SQZT_FORMAT_SQZ4
+    from sqz_tpu_torch.ops import engine
+    from sqz_tpu_torch.utils import corpus
+    data = corpus.texty(HOST_ROUTE_BYTES, seed=1)
+    ref = container.pack(
+        SQZT_FORMAT_SQZ4, MAIN_WIN_BITS, HOST_ROUTE_BITS, len(data),
+        native.blocks_compress(data, 1, MAIN_WIN_BITS, HOST_ROUTE_BITS),
+        container.fnv1a64(data))
+    engine.host_route_blocks = 0
+    t = time.perf_counter()
+    blob = sqz_tpu_torch.compress(data, parse="exact",
+                                  blk_bits=HOST_ROUTE_BITS,
+                                  win_bits=MAIN_WIN_BITS)
+    enc_s = time.perf_counter() - t
+    t = time.perf_counter()
+    out = sqz_tpu_torch.decompress(blob)
+    dec_s = time.perf_counter() - t
+    routed = engine.host_route_blocks
+    if blob != ref:
+        raise AssertionError("blk_bits 17 container differs from the "
+                             "native copy's")
+    if out != data:
+        raise AssertionError("blk_bits 17 round trip failed")
+    if routed < 1:
+        raise AssertionError("the host route served no block")
+    log(f"sqz4 blk_bits {HOST_ROUTE_BITS} (host route), "
+        f"{len(data) >> 20} MiB: enc {enc_s:.3f} s dec "
+        f"{dec_s:.3f} s ratio {len(blob) / len(data):.4f}; blocks on the "
+        f"host route {routed}")
+    return {"host_route_blocks": routed}
+
+
 def corrupt_rejected(blob):
     """Phase 8: one flipped payload byte -> ValueError naming the block."""
     import sqz_tpu_torch
@@ -987,7 +1242,9 @@ def corrupt_rejected(blob):
 
 KERNELS = (   # name, source, the TPU kernel it replaces
     ("sqz4_encode", "sqz4_encode.cu", f"{PALLAS}:686"),
+    ("sqz4_encode_seeded", "sqz4_encode.cu", f"{PALLAS}:686"),
     ("sqz4_decode", "sqz4_decode.cu", f"{PALLAS}:1705"),
+    ("sqz4_decode_seeded", "sqz4_decode.cu", f"{PALLAS}:1705"),
     ("sqz4_encode_tok", "sqz4_encode_tok.cu", f"{PALLAS}:1127"),
     ("sqz4_compact", "sqz4_compact.cu", f"{PALLAS}:464"),
     ("squeeze_bitpack", "squeeze_bitpack.cu", f"{PALLAS}:1489"),
@@ -1027,6 +1284,10 @@ def main() -> int:
                          for k in ("sqz4_encode_tok", "sqz4_compact")})
         launches["squeeze_bitpack"], se2e = squeeze_path(data)
         launches.update(stats_and_probe_paths(data))
+        wlaunches, we2e = warm_path(data, blob)
+        launches.update(wlaunches)
+        we2e.update(anchored_path())
+        we2e.update(host_route_path())
         t = time.perf_counter()
         full = kernels_vs_plain(data, MAIN_BITS, MAIN_WIN_BITS,
                                 sqz4_host.LANES, REPS, STATS_BITS, pool)
@@ -1042,8 +1303,10 @@ def main() -> int:
     kernels = []
     shapes = {"sqz4_encode_stats":
               f"{sqz4_host.LANES} blocks x {1 << STATS_BITS} B",
-              "probe": "the reference's probe inputs, [1, 128] and "
-                       "[256, 128]"}
+              "sqz4_decode_seeded": f"{sqz4_host.LANES - 1} blocks x "
+                                    f"{1 << MAIN_BITS} B (blocks 1+)",
+              "probe": "the 8 of the 14 probes one torch call computes, "
+                       "at the reference's inputs, [1, 128] and [256, 128]"}
     for name, src, replaces in KERNELS:
         err, ms, plain_ms, bound_ms, bound_by, lib_ms = full[name]
         kernels.append({
@@ -1056,7 +1319,8 @@ def main() -> int:
             "shape": shapes.get(name, full["shape"])})
     log(json.dumps({"card": card, "wall_s": round(
         time.perf_counter() - t0, 1), **{k: round(v, 4) for k, v in
-                                         {**e2e, **pe2e, **se2e}.items()}}))
+                                         {**e2e, **pe2e, **se2e,
+                                          **we2e}.items()}}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,8 +13,9 @@ Run from the root of a checkout, on a machine with a card and nvcc:
 checkout at DIR (for example the parent commit, unpacked with ``git
 archive``) and times it beside this checkout's as ``base:<name>``: for
 kernels whose launcher has the same signature and launch geometry there
-(the token encoder's and the decoder's, and variants whose substitutions
-name files that checkout has).
+(the token encoder's; the decoder's in checkouts whose launcher takes the
+seed column, as this one's does; and variants whose substitutions name
+files that checkout has). Every variant runs cold (a null seed).
 
 A variant is a kernel source from ``sqz_tpu_torch/csrc`` with a few text
 substitutions in it or its headers (some drop work the kernel must do, so
@@ -134,13 +135,14 @@ def build(name, base=None):
         lib.sqz4_encode_tok_launch.argtypes = [p, i, p, i, i, i, i, p, i,
                                                p, i, i, p]
     elif src == ENC:
-        lib.sqz4_encode_launch.argtypes = [p, p, i, i, i, p, i, p, i, p]
+        lib.sqz4_encode_launch.argtypes = [p, p, i, i, i, p, i, p, p, i,
+                                           i, p]
     elif src == STATS:
         lib.sqz4_encode_stats_launch.argtypes = [p, p, p, i, i, i, p, i, p,
                                                  i, p]
     else:
         lib.sqz4_decode_launch.argtypes = [p, p, i, i, i, i, p, i, p, i, p,
-                                           i, p, i, p]
+                                           i, p, p, i, p]
     return name, lib
 
 
@@ -169,8 +171,8 @@ def launcher(src, lib, inputs, threads, k, stream):
         if src == ENC:
             return lib.sqz4_encode_launch(
                 args[0].data_ptr(), args[1].data_ptr(), 1, args[0].shape[1],
-                k, got[0].data_ptr(), inputs[1], got[1].data_ptr(), threads,
-                stream)
+                k, got[0].data_ptr(), inputs[1], got[1].data_ptr(), None, -1,
+                threads, stream)
         if src == STATS:
             return lib.sqz4_encode_stats_launch(
                 *(a.data_ptr() for a in args), 1, args[0].shape[1], k,
@@ -180,7 +182,8 @@ def launcher(src, lib, inputs, threads, k, stream):
         return lib.sqz4_decode_launch(
             args[0].data_ptr(), args[1].data_ptr(), 1, pw, k, steps,
             got[0].data_ptr(), dims[0], got[1].data_ptr(), dims[1],
-            got[2].data_ptr(), dims[2], got[3].data_ptr(), threads, stream)
+            got[2].data_ptr(), dims[2], got[3].data_ptr(), None, threads,
+            stream)
     return run, got, want
 
 

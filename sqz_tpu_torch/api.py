@@ -1,26 +1,32 @@
 """Public API of the port: compress / decompress with the reference's
 signatures (``sqz_tpu.api``) plus an explicit ``device``.
 
-The one engine served is ``torch``, the default, on ``sqzt`` containers:
-sqz4 (cold) and squeeze (cold, and warm: sqzt v2), coded by the CUDA
-kernels on ``device="cuda"`` (the default; without a card it raises) or
-by their plain PyTorch versions on ``device="cpu"`` (for tests).
+The one engine served is ``torch``, the default, on ``sqzt`` containers
+of both formats, cold, warm (``warm=True``, sqzt v2) and anchored
+(``warm="anchors"``, sqzt v3), coded by the CUDA kernels on
+``device="cuda"`` (the default; without a card it raises) or by their
+plain PyTorch versions on ``device="cpu"`` (for tests). sqz4 blocks above
+64 KiB (``blk_bits`` 17..40) take the native host codec
+(``ops/engine.py``); the v3 planner runs on the host, and its containers
+decode on the card.
 
 Not served yet (each raises NotImplementedError naming its ROADMAP item):
-the host engines ``native`` and ``oracle``, sqz4 warm start, anchored
-warm start (``warm="anchors"``, sqzt v3), and the resident paths.
+the host engines ``native`` and ``oracle``, and the resident paths.
 """
 
 from __future__ import annotations
 
 import enum
+import os
 from typing import Optional
 
 import torch
 
 from sqz_tpu_torch.formats import container as sqzt
+from sqz_tpu_torch.formats.anchors import plan_anchored
 from sqz_tpu_torch.formats.constants import (SQZT_FORMAT_SQUEEZE,
-                                             SQZT_FORMAT_SQZ4)
+                                             SQZT_FORMAT_SQZ4,
+                                             warm_dictionary, warm_gate_mask)
 
 
 class Format(str, enum.Enum):
@@ -60,6 +66,49 @@ def _device(device) -> torch.device:
     return dev
 
 
+def _block_encoder(fmt: Format, win_bits: int, lz: bool, parse: str):
+    """Per-block payload encoder ``(part, seed, dictionary, want_state) ->
+    payload | (payload, state)`` on the port's native host codec."""
+    from sqz_tpu_torch import native
+
+    def encode_one(part, seed, dictionary, want_state):
+        if fmt is Format.SQUEEZE:
+            return native.squeeze_compress_payload(
+                part, win_bits, seed=seed, return_state=want_state,
+                dictionary=dictionary, parse=parse)
+        return native.sqz4_compress_payload(
+            part, 1 << win_bits, lz=lz, seed=seed, return_state=want_state,
+            dictionary=dictionary, parse=parse)
+    return encode_one
+
+
+def _compress_anchored(parts, fmt: Format, win_bits: int, lz: bool,
+                       beam: int, parse: str):
+    """sqzt v3 (FORMAT.md §3.2): (payloads, fresh_mask, anchor_mask) from
+    the anchor planner (``formats/anchors.plan_anchored``, a beam of
+    ``beam``) on the native per-block encoder, as the reference's device
+    engine plans them (sqz_tpu/api.py _compress_anchored): 'auto' parses
+    fast (SQZ_PARSE overrides; sqz4 without LZ exact); beams are priced
+    by encoding each block's first SQZ_ANCHOR_PRICE_PREFIX bytes (default
+    4096; 0 prices whole blocks), and only the chosen variant of each
+    block is coded in full."""
+    from sqz_tpu_torch.ops.sqz4_host import parse_mode
+    use_parse = parse_mode(parse)
+    if fmt is Format.SQZ4 and not lz:
+        use_parse = "exact"   # the fast matcher codes LZ parses only
+    encode_one = _block_encoder(fmt, win_bits, lz, use_parse)
+    pfx = int(os.environ.get("SQZ_ANCHOR_PRICE_PREFIX", str(4096)))
+    price_one = None
+    if pfx > 0 and max(len(p) for p in parts) > pfx:
+        def price_one(p, seed, dictionary):
+            return len(encode_one(p[:pfx], seed, dictionary, False))
+    return plan_anchored(parts, encode_one,
+                         lambda blk: warm_dictionary(blk, win_bits),
+                         beam=beam,
+                         gate_of=lambda d: warm_gate_mask(parts, d),
+                         price_one=price_one)
+
+
 def compress(data: bytes, fmt: Format | str = Format.SQZ4,
              engine: Engine | str = Engine.TORCH,
              win_bits: int = 15, lz: bool = True,
@@ -68,9 +117,11 @@ def compress(data: bytes, fmt: Format | str = Format.SQZ4,
              parse: str = "auto", anchor_beam: int = 4,
              device="cuda") -> bytes:
     """See ``sqz_tpu.api.compress``. Codes an sqzt container
-    (``blocks=True``) on ``device``: sqz4 (``blk_bits`` <= 16) cold, or
-    squeeze cold or ``warm=True`` (sqzt v2). ``parse`` 'exact' gives the
-    reference native engine's bytes."""
+    (``blocks=True``) on ``device``, cold, ``warm=True`` (sqzt v2) or
+    ``warm="anchors"`` (sqzt v3, planned on the host with a beam of
+    ``anchor_beam``). sqz4 at ``blk_bits`` above 16 takes the native host
+    codec with the exact parse. ``parse`` 'exact' gives the reference
+    native engine's bytes."""
     fmt = Format(fmt)
     _check_engine(engine)
     if not 10 <= win_bits <= 15:
@@ -83,44 +134,44 @@ def compress(data: bytes, fmt: Format | str = Format.SQZ4,
         raise ValueError(f"blk_bits {blk_bits} outside 1..40")
     parts = sqzt.split_blocks(data, blk_bits)
     warm = warm if len(parts) > 1 else False
-    if warm == "anchors":
-        raise _todo("anchored warm start (warm='anchors', sqzt v3)", 5)
-    if warm and fmt is Format.SQZ4:
-        raise _todo("sqz4 warm start", 5)
     dev = _device(device)
-    from sqz_tpu_torch.ops import engine as torch_engine
     code = SQZT_FORMAT_SQUEEZE if fmt is Format.SQUEEZE else SQZT_FORMAT_SQZ4
-    res = torch_engine.compress_blocks(parts, code, win_bits, lz, blk_bits,
-                                       warm=warm, parse=parse, device=dev)
-    payloads, fresh_mask = res if warm else (res, None)
+    anchor_mask = None
+    if warm == "anchors":
+        payloads, fresh_mask, anchor_mask = _compress_anchored(
+            parts, fmt, win_bits, lz, anchor_beam, parse)
+    else:
+        from sqz_tpu_torch.ops import engine as torch_engine
+        res = torch_engine.compress_blocks(parts, code, win_bits, lz,
+                                           blk_bits, warm=warm, parse=parse,
+                                           device=dev)
+        payloads, fresh_mask = res if warm else (res, None)
     csum = sqzt.fnv1a64(data) if checksum else None
     return sqzt.pack(code, win_bits, blk_bits, len(data), payloads, csum,
-                     warm=warm, fresh_mask=fresh_mask)
+                     warm=bool(warm), fresh_mask=fresh_mask,
+                     anchor_mask=anchor_mask)
 
 
 def decompress(blob: bytes, fmt: Optional[Format | str] = None,
                engine: Engine | str = Engine.TORCH,
                device="cuda") -> bytes:
     """See ``sqz_tpu.api.decompress``. Decodes an sqzt container on
-    ``device``: cold sqz4 (a corrupt block raises ValueError naming it),
-    or squeeze, cold or warm (sqzt v2)."""
+    ``device``, cold, warm (sqzt v2) or anchored (sqzt v3); a corrupt sqz4
+    block raises ValueError naming it (one whose decode seeds others, on
+    the host codec, OSError)."""
     _check_engine(engine)
     if blob[:8] != sqzt.SQZT_MAGIC:
         raise ValueError("torch engine requires an sqzt container")
     code, win_bits, blk_bits, osize, payloads, csum, fresh, anch = \
         sqzt.unpack(blob)
-    if anch is not None:
-        raise _todo("anchored warm containers (sqzt v3)", 5)
-    if (code == SQZT_FORMAT_SQZ4 and fresh is not None and len(payloads) > 1
-            and not all(fresh)):
-        raise _todo("sqz4 warm start", 5)
     dev = _device(device)
     from sqz_tpu_torch.ops import engine as torch_engine
     bs = 1 << blk_bits
     sizes = [max(0, min(bs, osize - i * bs)) for i in range(len(payloads))]
     data = torch_engine.decompress_blocks(payloads, sizes, code, blk_bits,
                                           fresh_mask=fresh,
-                                          win_bits=win_bits, device=dev)
+                                          win_bits=win_bits,
+                                          anchor_mask=anch, device=dev)
     if csum is not None and sqzt.fnv1a64(data) != csum:
         raise ValueError("sqzt checksum mismatch (EILSEQ)")
     return data

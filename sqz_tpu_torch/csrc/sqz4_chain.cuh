@@ -20,8 +20,9 @@
 //   use (Stager).
 //
 // The integer values are those of the reference models (FORMAT.md §2.3:
-// every count starts at 1 and grows by one a coded symbol), so every
-// statistic, and with it every byte, is the same.
+// every count starts at 1, or at a warm block's seed (§3.1), and grows by
+// one a coded symbol), so every statistic, and with it every byte, is the
+// same.
 #pragma once
 
 #include <stdint.h>
@@ -31,6 +32,17 @@
 #include "sqz4_warp.cuh"
 
 namespace sqz4 {
+
+// A warm block's seed (sqzt v2 and v3, FORMAT.md §3.1): block 0's (or the
+// anchor's) final rescaled model counts, int32 words in the reference's
+// csum form (sqz4_pallas.py _enc_seed_table): the inclusive running sums
+// of the byte, size and bits models' counts, the literal flag's counts of
+// 0 and 1, the distance-bit models' counts of 0, then of 1. Each model's
+// total is at most 2^14 after the rescale; a block of up to 2^16 symbols
+// keeps it below 2^17, where recip64 is exact (sqz4_div.cuh).
+constexpr int kSeedByte = 0, kSeedSize = 256, kSeedBits = 512,
+              kSeedLit = 544, kSeedDist0 = 546, kSeedDist1 = 578,
+              kSeedWords = 610;
 
 // An adaptive model of N symbols (N a multiple of kLanes) spread over the
 // warp's lanes, in registers: lane l holds the counts of symbols
@@ -53,6 +65,15 @@ struct LaneModel {
         for (int k = 0; k < kPer; ++k) cum[k] = k + 1;
         base = lane_id() * kPer;
         total = N;
+    }
+
+    // warm: from csum, the inclusive running sums of the N counts
+    SQZ_DEVICE void init(const int32_t* csum) {
+        const int lo = lane_id() * kPer;
+        base = lo ? csum[lo - 1] : 0;
+        SQZ_UNROLL()
+        for (int k = 0; k < kPer; ++k) cum[k] = csum[lo + k] - base;
+        total = csum[N - 1];
     }
 
     // start and size of symbol s. cum[j - 1] and cum[j] are taken as the
@@ -131,6 +152,15 @@ struct LaneBinary {
         for (int k = 0; k < kPer; ++k) f0[k] = f1[k] = 1;
     }
 
+    // warm: model i's counts n0[i] and n1[i]
+    SQZ_DEVICE void init(const int32_t* n0, const int32_t* n1) {
+        SQZ_UNROLL()
+        for (int k = 0; k < kPer; ++k) {
+            f0[k] = n0[lane_id() * kPer + k];
+            f1[k] = n1[lane_id() * kPer + k];
+        }
+    }
+
     // the counts of model i (the masked sums keep the arrays in
     // registers, as in LaneModel::stats)
     SQZ_DEVICE void get(int i, int* a, int* b) const {
@@ -179,7 +209,7 @@ struct LaneBinary {
     }
 };
 
-// The models of one sqz4 block (FORMAT.md §2.3), cold: the byte and size
+// The models of one sqz4 block (FORMAT.md §2.3): the byte and size
 // models, the 32-entry bits model, the 32 distance-bit models and the
 // literal flag (counts of 0 and 1, the same on every lane).
 struct LaneModels {
@@ -189,12 +219,27 @@ struct LaneModels {
     LaneBinary<32> dist;
     int lit0, lit1;
 
+    // cold: every count 1
     SQZ_DEVICE void init() {
         byte.init();
         size.init();
         bits.init();
         dist.init();
         lit0 = lit1 = 1;
+    }
+
+    // warm from a seed (kSeed* layout), or cold where seed is null
+    SQZ_DEVICE void init(const int32_t* seed) {
+        if (!seed) {
+            init();
+            return;
+        }
+        byte.init(seed + kSeedByte);
+        size.init(seed + kSeedSize);
+        bits.init(seed + kSeedBits);
+        dist.init(seed + kSeedDist0, seed + kSeedDist1);
+        lit0 = seed[kSeedLit];
+        lit1 = seed[kSeedLit + 1];
     }
 };
 

@@ -1,7 +1,15 @@
 // sqz4 block decoder for Hopper (sm_90a).
 //
 // Replaces the TPU kernel sqz_tpu/ops/sqz4_pallas.py:_decode_kernel
-// (launcher _decode_pallas), cold (unseeded) mode.
+// (launcher _decode_pallas) in both its modes: cold, and seeded
+// (seeded=True, _decode_pallas(seed_tab=)), where every block of the
+// launch starts its models from one warm seed (sqz4_chain.cuh kSeed*, the
+// anchor block's final rescaled state, FORMAT.md §3.1) and a match may
+// reach back into the shared dictionary (meta row 2 bytes before the
+// block; the host's assembly prepends them). A seeded launch takes the
+// seed as one column of kSeedWords int32 words; a cold launch passes a
+// null seed. Only the models' start differs: the reciprocal windows
+// (DecRcp) are filled at each model's starting total, whatever it is.
 //
 // Input: payload words uint32 [G, Pw, B] (big-endian bytes, zero-padded;
 // bytes past Pw * 4 read as zero) and meta int32 [G, 8, B] (row 1 the
@@ -108,6 +116,12 @@ SQZ_DEVICE u64 rcp_next(DecSmem* sm, int slot, uint32_t tot) {
     return sm->rcp[slot][tot & 31];
 }
 
+// The reciprocal of model `slot`'s starting total tot, its window filled.
+SQZ_DEVICE u64 rcp_start(DecSmem* sm, int slot, uint32_t tot) {
+    rcp_fill(sm, slot, tot);
+    return sm->rcp[slot][tot & 31];
+}
+
 // The reciprocals of every model's current total, in registers: one each
 // for the literal flag, bits, byte and size models (the same on every
 // lane), and the distance-bit models' spread over the lanes as their
@@ -117,15 +131,36 @@ struct DecRcp {
     u64 lit, bits, byte, size;
     u64 dist[kPer];
 
-    SQZ_DEVICE void init(DecSmem* sm) {
-        for (int k = 0; k < kRcpSlots; ++k)
-            rcp_fill(sm, k, k == kRcpBits ? 32u : k >= kRcpByte ? 256u : 2u);
-        lit = sm->rcp[kRcpLit][2];
-        bits = sm->rcp[kRcpBits][0];
-        byte = sm->rcp[kRcpByte][0];
-        size = sm->rcp[kRcpSize][0];
+    // every model's window at its starting total: cold, the fresh totals
+    // 2, 32 and 256 (the cold kernel's code); seeded, a warm seed's (up to
+    // 2^14), which differs from one distance-bit model to the next
+    SQZ_DEVICE void init(DecSmem* sm, const LaneModels& md, bool seeded) {
+        if (!seeded) {
+            for (int k = 0; k < kRcpSlots; ++k)
+                rcp_fill(sm, k,
+                         k == kRcpBits ? 32u : k >= kRcpByte ? 256u : 2u);
+            lit = sm->rcp[kRcpLit][2];
+            bits = sm->rcp[kRcpBits][0];
+            byte = sm->rcp[kRcpByte][0];
+            size = sm->rcp[kRcpSize][0];
+            SQZ_UNROLL()
+            for (int q = 0; q < kPer; ++q) dist[q] = sm->rcp[kRcpDist][2];
+            return;
+        }
+        lit = rcp_start(sm, kRcpLit, md.lit0 + md.lit1);
+        bits = rcp_start(sm, kRcpBits, md.bits.total);
+        byte = rcp_start(sm, kRcpByte, md.byte.total);
+        size = rcp_start(sm, kRcpSize, md.size.total);
         SQZ_UNROLL()
-        for (int q = 0; q < kPer; ++q) dist[q] = sm->rcp[kRcpDist][2];
+        for (int q = 0; q < kPer; ++q) dist[q] = 0;
+        for (int i = 0; i < 32; ++i) {
+            int a, b;
+            md.dist.get(i, &a, &b);
+            const u64 m = rcp_start(sm, kRcpDist + i, a + b);
+            SQZ_UNROLL()
+            for (int q = 0; q < kPer; ++q)
+                dist[q] = lane_id() * kPer + q == i ? m : dist[q];
+        }
     }
 
     // distance-bit model i's
@@ -215,18 +250,19 @@ struct ChainDecoder {
     }
 };
 
-// Decode one block. Pointers are offset to the lane; rows of every array
-// are `lanes` elements apart. Every lane of the warp decodes the same
-// block; lane 0 stores.
+// Decode one block, its models started from `seed` (kSeed* layout) or,
+// where it is null, cold. Pointers are offset to the lane; rows of every
+// array are `lanes` elements apart. Every lane of the warp decodes the
+// same block; lane 0 stores.
 SQZ_DEVICE void decode_lane(const uint32_t* payload, int pw,
                             const int32_t* meta, int lanes, int t_max,
-                            uint32_t* lit, int lw, uint32_t* tok, int tw,
-                            uint32_t* mrec, int mw, int32_t* counts,
-                            DecSmem* sm) {
+                            const int32_t* seed, uint32_t* lit, int lw,
+                            uint32_t* tok, int tw, uint32_t* mrec, int mw,
+                            int32_t* counts, DecSmem* sm) {
     LaneModels md;
-    md.init();
+    md.init(seed);
     DecRcp rc;
-    rc.init(sm);
+    rc.init(sm, md, seed != nullptr);
     const bool st = lane_id() == 0;
     const int sizes = meta[1 * lanes], dlen = meta[2 * lanes];
     ChainDecoder dec{0, ~0ull, 0, ByteReader{}};
@@ -364,11 +400,15 @@ SQZ_DEVICE void decode_lane(const uint32_t* payload, int pw,
 
 #ifdef __CUDACC__
 
-// One block per CTA of 32 threads.
+// One block per CTA of 32 threads. kSeeded: the seeded mode; the cold
+// instantiation starts every block's models cold at compile time, so it
+// holds the cold code alone.
+template <bool kSeeded>
 __global__ void __launch_bounds__(32)
 sqz4_decode_kernel(const uint32_t* __restrict__ payload,
                                    const int32_t* __restrict__ meta,
                                    int pw, int lanes, int t_max,
+                                   const int32_t* __restrict__ seed,
                                    uint32_t* __restrict__ lit, int lw,
                                    uint32_t* __restrict__ tok, int tw,
                                    uint32_t* __restrict__ mrec, int mw,
@@ -378,6 +418,7 @@ sqz4_decode_kernel(const uint32_t* __restrict__ payload,
     const long long g = n / lanes, b = n % lanes;
     sqz4::decode_lane(payload + g * pw * lanes + b, pw,
                       meta + g * 8 * lanes + b, lanes, t_max,
+                      kSeeded ? seed : nullptr,
                       lit + g * lw * lanes + b, lw,
                       tok + g * tw * lanes + b, tw,
                       mrec + g * mw * lanes + b, mw,
@@ -386,22 +427,26 @@ sqz4_decode_kernel(const uint32_t* __restrict__ payload,
 
 // payload: [groups, pw, lanes] u32; meta: [groups, 8, lanes] i32; lit,
 // tok, mrec: [groups, lw | tw | mw, lanes] u32; counts: [groups, 8, lanes]
-// i32. threads: 32 (a warp per block). Launches on `stream`; returns the
+// i32. seed: null (cold) or kSeedWords i32 (every block starts warm from
+// it). threads: 32 (a warp per block). Launches on `stream`; returns the
 // cudaError_t of the launch.
 extern "C" int sqz4_decode_launch(const void* payload, const void* meta,
                                   int groups, int pw, int lanes, int t_max,
                                   void* lit, int lw, void* tok, int tw,
                                   void* mrec, int mw, void* counts,
-                                  int threads, void* stream) {
+                                  const void* seed, int threads,
+                                  void* stream) {
     if (threads != 32) return static_cast<int>(cudaErrorInvalidValue);
     const int n_lanes = groups * lanes;
     if (n_lanes == 0) return static_cast<int>(cudaSuccess);
-    sqz4_decode_kernel<<<n_lanes, threads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
+    const auto kernel =
+        seed ? sqz4_decode_kernel<true> : sqz4_decode_kernel<false>;
+    kernel<<<n_lanes, threads, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const uint32_t*>(payload),
         static_cast<const int32_t*>(meta), pw, lanes, t_max,
-        static_cast<uint32_t*>(lit), lw, static_cast<uint32_t*>(tok), tw,
-        static_cast<uint32_t*>(mrec), mw, static_cast<int32_t*>(counts));
+        static_cast<const int32_t*>(seed), static_cast<uint32_t*>(lit), lw,
+        static_cast<uint32_t*>(tok), tw, static_cast<uint32_t*>(mrec), mw,
+        static_cast<int32_t*>(counts));
     return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,7 +1,16 @@
 // sqz4 op-stream block encoder for Hopper (sm_90a).
 //
 // Replaces the TPU kernel sqz_tpu/ops/sqz4_pallas.py:_encode_full_kernel
-// (launcher _encode_full_pallas_call), cold (unseeded) mode.
+// (launcher _encode_full_pallas_call) in both its modes: cold, and seeded
+// (seeded=True, launcher _encode_full_pallas_seeded), where every block
+// but one starts its models from a warm seed (sqz4_chain.cuh kSeed*: the
+// rescaled final state of block 0, FORMAT.md §3.1) instead of fresh
+// counts. A seeded launch takes the seed as one column of kSeedWords
+// int32 words, shared by its blocks, and the index of the one block that
+// stays cold (block 0 of a warm container's device pass; -1 for none);
+// a cold launch passes a null seed. Only the models' start differs: the
+// producer reads the seed once a block, and the rest of the chain is the
+// cold one's.
 //
 // Input: the packed (model, symbol) micro-op streams m_ops / s_ops,
 // uint32 [G, T/4, B], four big-endian u8 ops per word (op codes: 0 flag,
@@ -91,8 +100,9 @@ struct OpProducer {
     bool done;
 
     SQZ_DEVICE void init(OpSmem* sm, const uint32_t* m_ops,
-                         const uint32_t* s_ops, int op_words, int lanes) {
-        md.init();
+                         const uint32_t* s_ops, int op_words, int lanes,
+                         const int32_t* seed) {
+        md.init(seed);
         m.init(m_ops, op_words, lanes, sm->m);
         s.init(s_ops, op_words, lanes, sm->s);
         hist = sm->hist;
@@ -224,20 +234,21 @@ struct OpProducer {
 };
 
 // Encode one block's op stream (op_words words of m_ops and s_ops, rows
-// `lanes` elements apart). words / len_out are offset to the lane; rows
-// of words are `lanes` elements apart and must be zero-filled by the
+// `lanes` elements apart), its models started from `seed` (kSeed* layout)
+// or, where it is null, cold. words / len_out are offset to the lane;
+// rows of words are `lanes` elements apart and must be zero-filled by the
 // caller. role and bar as in sqz4_pair.cuh (kRoleBoth: one warp, or the
 // host).
 SQZ_DEVICE void encode_lane(const uint32_t* m_ops, const uint32_t* s_ops,
-                            int op_words, int lanes, uint32_t* words,
-                            int cap_words, int32_t* len_out, OpSmem* sm,
-                            int role, int bar) {
+                            int op_words, int lanes, const int32_t* seed,
+                            uint32_t* words, int cap_words, int32_t* len_out,
+                            OpSmem* sm, int role, int bar) {
     if (role == kRoleConsumer) {
         code_buffers(&sm->pair, bar);
         return;
     }
     OpProducer prod;
-    prod.init(sm, m_ops, s_ops, op_words, lanes);
+    prod.init(sm, m_ops, s_ops, op_words, lanes, seed);
     produce_buffers(prod, &sm->pair, role, bar, words, lanes, cap_words,
                     len_out);
 }
@@ -247,18 +258,24 @@ SQZ_DEVICE void encode_lane(const uint32_t* m_ops, const uint32_t* s_ops,
 #ifdef __CUDACC__
 
 // One block a pair of warps (or one warp at 32 threads a CTA), up to
-// four blocks a CTA: sqz4_pair.cuh.
+// four blocks a CTA: sqz4_pair.cuh. kSeeded: the seeded mode; the cold
+// instantiation starts every block's models cold at compile time, so it
+// holds the cold code alone.
+template <bool kSeeded>
 __global__ void __launch_bounds__(64 * sqz4::kMaxBlocks)
 sqz4_encode_kernel(const uint32_t* __restrict__ m_ops,
                    const uint32_t* __restrict__ s_ops, int n_lanes,
-                   int op_words, int lanes, uint32_t* __restrict__ words,
-                   int cap_words, int32_t* __restrict__ lens) {
+                   int op_words, int lanes,
+                   const int32_t* __restrict__ seed, int fresh_block,
+                   uint32_t* __restrict__ words, int cap_words,
+                   int32_t* __restrict__ lens) {
     extern __shared__ __align__(16) unsigned char smem_raw[];
     const sqz4::PairSlot at = sqz4::pair_slot();
     if (at.n >= n_lanes) return;
     const long long g = at.n / lanes, b = at.n % lanes;
     sqz4::encode_lane(m_ops + g * op_words * lanes + b,
                       s_ops + g * op_words * lanes + b, op_words, lanes,
+                      kSeeded && at.n != fresh_block ? seed : nullptr,
                       words + g * cap_words * lanes + b, cap_words,
                       lens + g * 8 * lanes + b,
                       reinterpret_cast<sqz4::OpSmem*>(smem_raw) + at.j,
@@ -267,17 +284,22 @@ sqz4_encode_kernel(const uint32_t* __restrict__ m_ops,
 
 // m_ops, s_ops: [groups, op_words, lanes] u32; words: [groups, cap_words,
 // lanes] u32, zero-filled; lens: [groups, 8, lanes] i32, zero-filled.
-// threads: 32, 64, 128, 192 or 256 a CTA. Launches on `stream`; returns
-// the cudaError_t of the launch.
+// seed: null (cold) or kSeedWords i32 (every block but block fresh_block,
+// counted g * lanes + b, starts warm from it). threads: 32, 64, 128, 192
+// or 256 a CTA. Launches on `stream`; returns the cudaError_t of the
+// launch.
 extern "C" int sqz4_encode_launch(const void* m_ops, const void* s_ops,
                                   int groups, int op_words, int lanes,
                                   void* words, int cap_words, void* lens,
+                                  const void* seed, int fresh_block,
                                   int threads, void* stream) {
     const int n_lanes = groups * lanes;
     return sqz4::pair_launch(
-        sqz4_encode_kernel, sizeof(sqz4::OpSmem), n_lanes, threads, stream,
+        seed ? sqz4_encode_kernel<true> : sqz4_encode_kernel<false>,
+        sizeof(sqz4::OpSmem), n_lanes, threads, stream,
         static_cast<const uint32_t*>(m_ops),
         static_cast<const uint32_t*>(s_ops), n_lanes, op_words, lanes,
+        static_cast<const int32_t*>(seed), fresh_block,
         static_cast<uint32_t*>(words), cap_words,
         static_cast<int32_t*>(lens));
 }

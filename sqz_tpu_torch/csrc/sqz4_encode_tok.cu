@@ -73,9 +73,11 @@
 // shares with the CTA's other warps: half the blocks at one pair a CTA ran
 // 10% faster, while leaving out the byte emission saved 1%
 // (scripts/chain_variants.py, PERF.md).
-// The seeded modes (initial counts from a seed table) would initialize the
-// producer's models; lit_skip would change only the expansion. Both are
-// refused by the launcher, as before.
+// The reference's token kernel has no seeded mode: warm blocks take the
+// op-stream encoder's (sqz4_encode.cu), whose producer starts its models
+// from the seed (LaneModels::init(seed)), as this one's would. lit_skip
+// (the resident paths' raw literal stream) would change only the
+// expansion; the launcher refuses it.
 
 #include "sqz4_pair.cuh"
 

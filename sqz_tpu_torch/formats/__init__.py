@@ -1,2 +1,3 @@
-"""The port's copies of the wire-format constants and the sqzt container
-framing (``sqz_tpu/formats``; see FORMAT.md)."""
+"""The port's copies of the wire-format constants, the sqzt container
+framing and the anchored warm-start planner (``sqz_tpu/formats``; see
+FORMAT.md)."""

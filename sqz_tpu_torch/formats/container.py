@@ -185,3 +185,20 @@ def unpack(blob: bytes) -> Tuple[int, int, int, int, List[bytes],
     return (fmt, win_bits, blk_bits, osize, payloads, checksum, fresh_mask,
             anchor_mask)
 
+
+
+def resolve_anchors(fresh_mask: List[bool],
+                    anchor_mask: Optional[List[bool]]):
+    """Per-block anchor indices (FORMAT.md §3.2): None for fresh blocks;
+    for warm blocks, 0 (v2 semantics) or — when the anchor bit is set —
+    the index of the nearest previous fresh block."""
+    out = []
+    last_fresh = 0
+    for b, fresh in enumerate(fresh_mask):
+        if fresh:
+            out.append(None)
+            last_fresh = b
+        else:
+            use_near = anchor_mask is not None and anchor_mask[b]
+            out.append(last_fresh if use_near else 0)
+    return out

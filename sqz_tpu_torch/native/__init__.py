@@ -4,8 +4,10 @@
 runtime (``sqz_tpu/native/sqz_native.cpp``), so the planners, packers and
 host codec here give the reference's bytes. The bindings below are the
 reference's (``sqz_tpu/native/__init__.py``) trimmed to the functions
-the port calls. A squeeze tree seed (the warm state of sqzt v2) stays the
-flat int64 array of ``TREE_SEED_WORDS`` the native code reads and writes.
+the port calls. The warm states of sqzt v2 stay the flat arrays the
+native code reads and writes: a squeeze tree seed ``TREE_SEED_WORDS``
+int64 words, an sqz4 model seed ``SEED4_WORDS`` uint32 words (the
+reference's ``ModelSeed.flat``).
 
 The library is built with g++ on first use into
 ``build/sqz_tpu_torch/libsqznative.so`` at the root of the checkout
@@ -70,6 +72,16 @@ def library() -> ctypes.CDLL:
             u32p = ctypes.POINTER(ctypes.c_uint32)
             lib.sqz_sqz4_decompress.restype = i64
             lib.sqz_sqz4_decompress.argtypes = [u8p, u64, u64, u8p, u64]
+            lib.sqz_sqz4_compress_s.restype = i64
+            lib.sqz_sqz4_compress_s.argtypes = [u8p, u64, u32, i32, u32p,
+                                                u32p, u8p, u64, u8p, u64]
+            lib.sqz_sqz4_compress_f.restype = i64
+            lib.sqz_sqz4_compress_f.argtypes = [u8p, u64, u32, i32, i32,
+                                                u32p, u32p, u8p, u64, u8p,
+                                                u64]
+            lib.sqz_sqz4_decompress_s.restype = i64
+            lib.sqz_sqz4_decompress_s.argtypes = [u8p, u64, u64, u32p, u32p,
+                                                  u8p, u64, u8p, u64]
             lib.sqz_blocks_compress.restype = i64
             lib.sqz_blocks_compress.argtypes = [u8p, u64, i32, i32, i32, i32,
                                                 i32, i32, i32, u8p, u64, i64p,
@@ -239,12 +251,54 @@ def sqz4_model_stats(m_ops: np.ndarray, s_ops: np.ndarray, seed=None):
     return start, size, total
 
 
-def sqz4_decompress_payload(payload: bytes, size: int) -> bytes:
-    """One cold sqz4 block payload -> its ``size`` original bytes."""
+def sqz4_compress_payload(data: bytes, window: int, lz: bool = True,
+                          seed=None, return_state: bool = False,
+                          dictionary: bytes = b"", parse: str = "exact",
+                          depth: int = 32):
+    """One sqz4 block payload; ``seed`` (the 610 model-seed words) and
+    ``dictionary`` warm-start it (sqzt v2, FORMAT.md §3.1).
+    ``return_state``: also the final rescaled model state, u32[610].
+    ``parse="fast"`` (with ``lz``): the bounded approximate matcher
+    (``depth`` hash-chain links; sqzt-contract paths only)."""
+    out = np.empty(_cap_for(len(data)), dtype=np.uint8)
+    sin = _seed4_in(seed)
+    sout = np.zeros(SEED4_WORDS, dtype=np.uint32) if return_state else None
+    d, dn = _dict_in(dictionary)
+    lib = library()
+    if parse == "fast" and lz:
+        rc = _check(lib.sqz_sqz4_compress_f(
+            _u8(_src(data)), len(data), window, int(lz), depth,
+            _opt(_u32p, sin), _opt(_u32p, sout), _opt(_u8, d), dn, _u8(out),
+            out.size))
+    else:
+        rc = _check(lib.sqz_sqz4_compress_s(
+            _u8(_src(data)), len(data), window, int(lz), _opt(_u32p, sin),
+            _opt(_u32p, sout), _opt(_u8, d), dn, _u8(out), out.size))
+    payload = out[:rc].tobytes()
+    return (payload, sout) if return_state else payload
+
+
+def sqz4_decompress_payload(payload: bytes, size: int, seed=None,
+                            return_state: bool = False,
+                            dictionary: bytes = b""):
+    """One sqz4 block payload -> its ``size`` original bytes; ``seed`` and
+    ``dictionary`` as in ``sqz4_compress_payload``. ``return_state``: also
+    the final rescaled model state, u32[610] (the seed of the blocks
+    anchored on this one)."""
     out = np.empty(max(size, 1), dtype=np.uint8)
-    rc = _check(library().sqz_sqz4_decompress(
-        _u8(_src(payload)), len(payload), size, _u8(out), out.size))
-    return out[:rc].tobytes()
+    lib = library()
+    if seed is None and not return_state and not dictionary:
+        rc = _check(lib.sqz_sqz4_decompress(
+            _u8(_src(payload)), len(payload), size, _u8(out), out.size))
+        return out[:rc].tobytes()
+    sin = _seed4_in(seed)
+    sout = np.zeros(SEED4_WORDS, dtype=np.uint32) if return_state else None
+    d, dn = _dict_in(dictionary)
+    rc = _check(lib.sqz_sqz4_decompress_s(
+        _u8(_src(payload)), len(payload), size, _opt(_u32p, sin),
+        _opt(_u32p, sout), _opt(_u8, d), dn, _u8(out), out.size))
+    data = out[:rc].tobytes()
+    return (data, sout) if return_state else data
 
 
 def blocks_compress(data: bytes, fmt: int, win_bits: int, blk_bits: int,
@@ -303,9 +357,11 @@ def blocks_decompress(payloads: List[bytes], total_size: int, fmt: int,
 
 def assemble_blocks(tok: np.ndarray, lit: np.ndarray, mrec: np.ndarray,
                     ntok: np.ndarray, sizes: np.ndarray, out_stride: int,
-                    nthreads: int = 0) -> np.ndarray:
+                    nthreads: int = 0, dictionary: bytes = b"") -> np.ndarray:
     """Reconstruct decode-kernel record streams: [B, *] row-major arrays
-    (tok u32 words, lit u8 bytes, mrec u32 records) -> [B, out_stride] u8."""
+    (tok u32 words, lit u8 bytes, mrec u32 records) -> [B, out_stride] u8.
+    ``dictionary``: the shared warm preset history match records may reach
+    into (FORMAT.md §3.1)."""
     B = tok.shape[0]
     tok = np.ascontiguousarray(tok, dtype=np.uint32)
     lit = np.ascontiguousarray(lit, dtype=np.uint8)
@@ -313,19 +369,23 @@ def assemble_blocks(tok: np.ndarray, lit: np.ndarray, mrec: np.ndarray,
     nt = np.ascontiguousarray(ntok, dtype=np.int64)
     sz = np.ascontiguousarray(sizes, dtype=np.int64)
     out = np.zeros((B, out_stride), dtype=np.uint8)
+    d, dn = _dict_in(dictionary)
     _check(library().sqz_assemble_blocks(
         _u32p(tok), tok.shape[1], _u8(lit), lit.shape[1], _u32p(mrec),
-        mrec.shape[1], _i64p(nt), _i64p(sz), B, nthreads, None, 0, _u8(out),
-        out_stride))
+        mrec.shape[1], _i64p(nt), _i64p(sz), B, nthreads, _opt(_u8, d), dn,
+        _u8(out), out_stride))
     return out
 
 
 def sqz4_plan_pack(data: bytes, window: int, blk_bits: int, lz: bool,
                    lanes: int, tp_cap: int, nthreads: int = 0,
-                   paired: bool = False):
+                   warm: bool = False, paired: bool = False):
     """Tokenize + expand + pack the encoder op streams in one threaded
     pass (exact parse). Returns (m_words, s_words [G, tp_cap//4, lanes]
-    u32, max_ops). ``paired``: alignment pads for the fused pair grammar."""
+    u32, max_ops[, seed]). ``warm`` (sqzt v2): blocks 1+ tokenize against
+    block 0's tail dictionary, and the seed (u32[610]) holds block 0's
+    final rescaled model state. ``paired``: alignment pads for the fused
+    pair grammar."""
     n = len(data)
     bs = 1 << blk_bits
     nblocks = max(1, (n + bs - 1) // bs)
@@ -334,30 +394,33 @@ def sqz4_plan_pack(data: bytes, window: int, blk_bits: int, lz: bool,
     m_words = np.full((G, tp_rows, lanes), 0xFFFFFFFF, dtype=np.uint32)
     s_words = np.zeros((G, tp_rows, lanes), dtype=np.uint32)
     counts = np.zeros(nblocks, dtype=np.int64)
+    seed = np.zeros(SEED4_WORDS, dtype=np.uint32) if warm else None
     mx = _check(library().sqz4_plan_pack(
         _u8(_src(data)), n, window, blk_bits, int(lz), lanes, tp_cap,
-        nthreads, 0, int(paired), None, _u32p(m_words), _u32p(s_words),
-        _i64p(counts)))
-    return m_words, s_words, mx
+        nthreads, int(warm), int(paired), _opt(_u32p, seed), _u32p(m_words),
+        _u32p(s_words), _i64p(counts)))
+    return (m_words, s_words, mx, seed) if warm else (m_words, s_words, mx)
 
 
 def sqz4_fast_plan(data: bytes, window: int, blk_bits: int, lz: bool,
-                   tp_cap: int, nthreads: int = 0, paired: bool = False,
-                   depth: int = 32):
+                   tp_cap: int, nthreads: int = 0, warm: bool = False,
+                   paired: bool = False, depth: int = 32):
     """Fast approximate planning pass (bounded match search) with
     contiguous per-block op emission. Returns (m8, s8 [nblocks, tp_cap]
-    u8, max_ops). Streams are spec-valid sqz4 but not byte-identical to
-    the exact parse."""
+    u8, max_ops[, seed]), ``warm`` as in ``sqz4_plan_pack``. Streams are
+    spec-valid sqz4 but not byte-identical to the exact parse."""
     n = len(data)
     bs = 1 << blk_bits
     nblocks = max(1, (n + bs - 1) // bs)
     m8 = np.full((nblocks, tp_cap), 255, dtype=np.uint8)
     s8 = np.zeros((nblocks, tp_cap), dtype=np.uint8)
     counts = np.zeros(nblocks, dtype=np.int64)
+    seed = np.zeros(SEED4_WORDS, dtype=np.uint32) if warm else None
     mx = _check(library().sqz4_fast_plan(
-        _u8(_src(data)), n, window, blk_bits, int(lz), tp_cap, nthreads, 0,
-        int(paired), depth, None, _u8(m8), _u8(s8), _i64p(counts)))
-    return m8, s8, mx
+        _u8(_src(data)), n, window, blk_bits, int(lz), tp_cap, nthreads,
+        int(warm), int(paired), depth, _opt(_u32p, seed), _u8(m8), _u8(s8),
+        _i64p(counts)))
+    return (m8, s8, mx, seed) if warm else (m8, s8, mx)
 
 
 def sqz4_tok_plan(data: bytes, window: int, blk_bits: int, lz: bool,

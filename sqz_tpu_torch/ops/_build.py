@@ -106,10 +106,11 @@ def library() -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build()))
             p, i = ctypes.c_void_p, ctypes.c_int
             lib.sqz4_encode_launch.restype = i
-            lib.sqz4_encode_launch.argtypes = [p, p, i, i, i, p, i, p, i, p]
+            lib.sqz4_encode_launch.argtypes = [p, p, i, i, i, p, i, p, p, i,
+                                               i, p]
             lib.sqz4_decode_launch.restype = i
             lib.sqz4_decode_launch.argtypes = [p, p, i, i, i, i, p, i, p, i,
-                                               p, i, p, i, p]
+                                               p, i, p, p, i, p]
             lib.sqz4_encode_tok_launch.restype = i
             lib.sqz4_encode_tok_launch.argtypes = [p, i, p, i, i, i, i, p, i,
                                                    p, i, i, p]

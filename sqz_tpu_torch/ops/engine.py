@@ -1,7 +1,7 @@
 """Block-level device engine of the sqzt containers (the "torch" engine).
 
 Counterpart of ``sqz_tpu/ops/engine.py`` (``compress_blocks`` and
-``decompress_blocks``) for the formats the port serves:
+``decompress_blocks``):
 
 - sqz4, cold: the host planner parses each block, the card codes and
   decodes the blocks, and the host assembles the decoded bytes. Inputs of
@@ -9,14 +9,30 @@ Counterpart of ``sqz_tpu/ops/engine.py`` (``compress_blocks`` and
   (planner thread and card overlapped, ``ops/pipeline.py``) unless
   SQZ_PIPELINE is "0"; smaller ones in one launch
   (``sqz4_cuda.encode_data_full``). Both give the same payloads.
+- sqz4, warm (sqzt v2): the cold pass, then, per the warm gate's
+  candidates, a seeded pass (blocks 1+ start from block 0's final model
+  state and match into its tail): on host threads when there are few
+  candidates, else on the card (the seeded op-stream kernel); each block
+  keeps the smaller payload. Warm containers (v2, and v3 with anchors,
+  FORMAT.md §3.2) decode their anchor blocks on the host first, then one
+  cold device batch and one seeded device batch per anchor
+  (``_warm_scatter``, the seeded decoder).
+- sqz4 at ``blk_bits`` above 16: the kernels' divider is exact only for
+  model totals below 2^17, which 64 KiB blocks keep. Larger blocks go to
+  the port's native host codec by a named route (``_host_route``), as the
+  reference's device engine sends them to its XLA scans; the blocks it
+  serves are counted in ``host_route_blocks``.
 - squeeze, cold and warm (sqzt v2): the native planner codes every block
   and records its bitstream writes, and the bit-packer kernel assembles
   the payloads (``squeeze_cuda.squeeze_encode_data``). Warm keeps per
   block the smaller of the fresh and the seeded payload; the seeded pass
   runs only for the warm gate's candidates. Decode is the native threaded
-  decoder, as in the reference's device engine: adaptive-Huffman decode
-  is pointer chasing with data-dependent tree restructuring, which a
-  lock-step device loop runs at microseconds a symbol.
+  decoder, as in the reference's device engine (v3: the native per-block
+  decoder under ``_warm_scatter``): adaptive-Huffman decode is pointer
+  chasing with data-dependent tree restructuring, which a lock-step
+  device loop runs at microseconds a symbol.
+
+Anchored containers (sqzt v3) are planned on the host (``api.py``).
 """
 
 from __future__ import annotations
@@ -28,8 +44,13 @@ from sqz_tpu_torch import native
 from sqz_tpu_torch.formats.constants import (SQZT_FORMAT_SQUEEZE,
                                              SQZT_FORMAT_SQZ4,
                                              warm_dictionary, warm_gate_mask)
+from sqz_tpu_torch.formats.container import resolve_anchors
 from sqz_tpu_torch.ops import pipeline, sqz4_cuda, squeeze_cuda
 from sqz_tpu_torch.ops.sqz4_host import LANES, parse_mode
+
+# blocks served by the host route (sqz4 above DEVICE_BLK_BITS), encoded
+# or decoded: a run shows with it which route its containers took
+host_route_blocks = 0
 
 
 def _pick_smaller(cold: List[bytes], warm: List[bytes], gate=None):
@@ -45,10 +66,38 @@ def _pick_smaller(cold: List[bytes], warm: List[bytes], gate=None):
     return out, mask
 
 
+def _warm_pass(parts, cold, win_bits, lz, parse, decode_state,
+               encode_seeded, device_pass):
+    """(payloads, fresh_mask) of a warm container from its cold payloads,
+    as the reference's device engine (sqz_tpu/ops/engine.py:119-140,
+    :170-184): blocks that the warm gate passes are coded again seeded
+    from block 0's final state (``decode_state(payload, size)`` -> (block,
+    state)) against its tail; few of them on host threads
+    (``encode_seeded(part, seed, dictionary, parse)``), more by the
+    device pass (``device_pass()``, every block's seeded payload); each
+    block keeps the smaller."""
+    dictionary = warm_dictionary(parts[0], win_bits)
+    gate = warm_gate_mask(parts, dictionary)
+    if not any(gate):
+        return cold, [True] * len(parts)
+    if not lz:
+        dictionary = b""
+    if sum(gate) > len(parts) // 4:
+        return _pick_smaller(cold, device_pass(), gate)
+    # few candidates (the common case): host threads code just those,
+    # seeded from the state the decoder derives from block 0
+    _blk0, seed = decode_state(cold[0], len(parts[0]))
+    warm_p = list(cold)
+    host_parse = parse_mode(parse)
+    for b in range(1, len(parts)):
+        if gate[b]:
+            warm_p[b] = encode_seeded(parts[b], seed, dictionary, host_parse)
+    return _pick_smaller(cold, warm_p, gate)
+
+
 def _squeeze_blocks(parts, data, win_bits, lz, blk_bits, warm, parse,
                     device):
-    """squeeze payloads (cold) or (payloads, fresh_mask) (warm), as the
-    reference's device engine (sqz_tpu/ops/engine.py:158-184)."""
+    """squeeze payloads (cold) or (payloads, fresh_mask) (warm)."""
     def encode(warm_pass):
         return squeeze_cuda.squeeze_encode_data(
             data, blk_bits, win_bits, cap=(1 << blk_bits) + 4096,
@@ -57,26 +106,53 @@ def _squeeze_blocks(parts, data, win_bits, lz, blk_bits, warm, parse,
     cold = encode(False)
     if not warm:
         return cold
-    dictionary = warm_dictionary(parts[0], win_bits)
-    gate = warm_gate_mask(parts, dictionary)
-    if not any(gate):
-        return cold, [True] * len(parts)
-    if not lz:
-        dictionary = b""
-    if sum(gate) <= len(parts) // 4:
-        # few candidates (the common case): host threads code just those,
-        # seeded from the state the decoder derives from block 0
-        _blk0, seed = native.squeeze_decompress_payload(
-            cold[0], len(parts[0]), return_state=True)
-        warm_p = list(cold)
-        host_parse = parse_mode(parse)
-        for b in range(1, len(parts)):
-            if gate[b]:
-                warm_p[b] = native.squeeze_compress_payload(
-                    parts[b], win_bits, seed=seed, dictionary=dictionary,
-                    parse=host_parse)
-        return _pick_smaller(cold, warm_p, gate)
-    return _pick_smaller(cold, encode(True), gate)
+    return _warm_pass(
+        parts, cold, win_bits, lz, parse,
+        lambda pl, sz: native.squeeze_decompress_payload(
+            pl, sz, return_state=True),
+        lambda part, seed, dictionary, host_parse:
+            native.squeeze_compress_payload(
+                part, win_bits, seed=seed, dictionary=dictionary,
+                parse=host_parse),
+        lambda: encode(True))
+
+
+def _host_route(nblocks: int):
+    """Count ``nblocks`` sqz4 blocks that the host route serves: blocks
+    larger than the kernels take (``sqz4_cuda.DEVICE_BLK_BITS``)."""
+    global host_route_blocks
+    host_route_blocks += nblocks
+
+
+def _sqz4_blocks(parts, data, win_bits, lz, blk_bits, warm, parse, device):
+    """sqz4 payloads (cold) or (payloads, fresh_mask) (warm), as the
+    reference's device engine (sqz_tpu/ops/engine.py:97-143)."""
+    if blk_bits > sqz4_cuda.DEVICE_BLK_BITS:
+        # exact native tokens whatever ``parse`` says, as the reference's
+        # scan route tokenizes
+        _host_route(len(parts))
+        return native.blocks_compress(data, 1, win_bits, blk_bits, lz=lz,
+                                      warm=warm, parse="exact")
+    bs = 1 << blk_bits
+    encode = (pipeline.encode_data_pipelined
+              if len(parts) > LANES
+              and os.environ.get("SQZ_PIPELINE", "1") != "0"
+              else sqz4_cuda.encode_data_full)
+    cold = encode(data, blk_bits, 1 << win_bits, lz, cap=bs + 2048,
+                  parse=parse, device=device)
+    if not warm:
+        return cold
+    return _warm_pass(
+        parts, cold, win_bits, lz, parse,
+        lambda pl, sz: native.sqz4_decompress_payload(pl, sz,
+                                                      return_state=True),
+        lambda part, seed, dictionary, host_parse:
+            native.sqz4_compress_payload(
+                part, 1 << win_bits, lz=lz, seed=seed,
+                dictionary=dictionary, parse=host_parse),
+        lambda: sqz4_cuda.encode_data_full(
+            data, blk_bits, 1 << win_bits, lz, cap=bs + 2048, parse=parse,
+            device=device, warm=True))
 
 
 def compress_blocks(parts: Sequence[bytes], fmt: int, win_bits: int,
@@ -84,38 +160,92 @@ def compress_blocks(parts: Sequence[bytes], fmt: int, win_bits: int,
                     parse: str = "auto", device="cuda"):
     """The container's block payloads (every part but the last is
     2^blk_bits bytes, as ``sqzt.split_blocks`` cuts them) in the sqzt
-    format ``fmt``. Cold: payloads. Warm (squeeze only): (payloads,
+    format ``fmt``. Cold: payloads. Warm (sqzt v2): (payloads,
     fresh_mask)."""
     if any(len(p) != 1 << blk_bits for p in parts[:-1]):
         raise ValueError("every block but the last must be full")
     data = b"".join(parts)
+    warm = warm and len(parts) > 1
     if fmt == SQZT_FORMAT_SQUEEZE:
-        return _squeeze_blocks(parts, data, win_bits, lz, blk_bits,
-                               warm and len(parts) > 1, parse, device)
-    if fmt != SQZT_FORMAT_SQZ4 or warm:
-        raise ValueError(f"the torch engine codes cold sqz4 and squeeze "
-                         f"blocks, not format {fmt} with warm={warm}")
-    encode = (pipeline.encode_data_pipelined
-              if len(parts) > LANES
-              and os.environ.get("SQZ_PIPELINE", "1") != "0"
-              else sqz4_cuda.encode_data_full)
-    return encode(data, blk_bits, 1 << win_bits, lz,
-                  cap=(1 << blk_bits) + 2048, parse=parse, device=device)
+        return _squeeze_blocks(parts, data, win_bits, lz, blk_bits, warm,
+                               parse, device)
+    if fmt != SQZT_FORMAT_SQZ4:
+        raise ValueError(f"unknown sqzt format {fmt}")
+    return _sqz4_blocks(parts, data, win_bits, lz, blk_bits, warm, parse,
+                        device)
+
+
+def _warm_scatter(payloads, sizes, fresh_mask, anchor_mask, decode_batch,
+                  decode_anchor, win_bits: int) -> bytes:
+    """Decode a warm container's blocks as parallel batches
+    (sqz_tpu/ops/engine.py _warm_scatter): anchor blocks on the host first
+    (their final model state seeds the blocks anchored on them; v2: block
+    0; v3: every fresh block some warm block anchors on, FORMAT.md §3.2),
+    then one cold batch for the other fresh blocks and one seeded batch
+    per anchor. ``decode_batch(payloads, sizes, seed, dictionary,
+    block_ids)`` -> blocks; ``decode_anchor(payload, size)`` -> (block,
+    final state)."""
+    anchors = resolve_anchors(fresh_mask, anchor_mask)
+    needed = sorted({a for a in anchors if a is not None})
+    outs = [None] * len(payloads)
+    states = {}
+    for a in needed:
+        outs[a], seed = decode_anchor(payloads[a], sizes[a])
+        states[a] = (seed, warm_dictionary(outs[a], win_bits))
+    cold_idx = [b for b in range(len(payloads))
+                if fresh_mask[b] and b not in states]
+    batches = [(cold_idx, None)] + [
+        ([b for b, a in enumerate(anchors) if a == anc], anc)
+        for anc in needed]
+    for idx, anc in batches:
+        if not idx:
+            continue
+        seed, dictionary = states[anc] if anc is not None else (None, b"")
+        batch = decode_batch([payloads[b] for b in idx],
+                             [sizes[b] for b in idx], seed, dictionary, idx)
+        for b, blk in zip(idx, batch):
+            outs[b] = blk
+    return b"".join(outs)
 
 
 def decompress_blocks(payloads: Sequence[bytes], sizes: Sequence[int],
                       fmt: int, blk_bits: int, fresh_mask=None,
-                      win_bits: int = 15, device="cuda") -> bytes:
+                      win_bits: int = 15, anchor_mask=None,
+                      device="cuda") -> bytes:
     """The concatenated decoded blocks of a container in the sqzt format
-    ``fmt``: cold sqz4, or squeeze, cold or warm (``fresh_mask``, sqzt
-    v2)."""
-    if fmt == SQZT_FORMAT_SQUEEZE:
-        warm = (fresh_mask is not None and len(payloads) > 1
-                and not all(fresh_mask))
+    ``fmt``, cold or warm (``fresh_mask``, sqzt v2; with ``anchor_mask``,
+    v3)."""
+    payloads, sizes = list(payloads), list(sizes)
+    warm = (fresh_mask is not None and len(payloads) > 1
+            and not all(fresh_mask))
+    code = 0 if fmt == SQZT_FORMAT_SQUEEZE else 1
+    host = fmt == SQZT_FORMAT_SQUEEZE or blk_bits > sqz4_cuda.DEVICE_BLK_BITS
+    if fmt == SQZT_FORMAT_SQZ4 and host:
+        _host_route(len(payloads))
+    if host and anchor_mask is None:
+        # the native threaded decoder: squeeze (pointer chasing, see the
+        # module docstring) and the host route, cold and v2
         return native.blocks_decompress(
-            list(payloads), sum(sizes), 0, blk_bits,
+            payloads, sum(sizes), code, blk_bits,
             fresh_mask=fresh_mask if warm else None, win_bits=win_bits)
-    decode = (pipeline.decode_data_pipelined if len(payloads) > LANES
-              else sqz4_cuda.decode_groups)
-    return b"".join(decode(list(payloads), list(sizes), blk_bits,
-                           device=device))
+    decompress_payload = (native.squeeze_decompress_payload if code == 0
+                          else native.sqz4_decompress_payload)
+
+    def decode_anchor(pl, sz):
+        return decompress_payload(pl, sz, return_state=True)
+    if host:
+        def decode_batch(pls, szs, seed, dictionary, _ids):
+            return [decompress_payload(p, s, seed=seed,
+                                       dictionary=dictionary)
+                    for p, s in zip(pls, szs)]
+    else:
+        def decode_batch(pls, szs, seed, dictionary, ids):
+            decode = (pipeline.decode_data_pipelined if len(pls) > LANES
+                      else sqz4_cuda.decode_groups)
+            return decode(pls, szs, blk_bits, device=device, seed=seed,
+                          dictionary=dictionary, block_ids=ids)
+    if not warm:
+        return b"".join(decode_batch(payloads, sizes, None, b"",
+                                     list(range(len(payloads)))))
+    return _warm_scatter(payloads, sizes, fresh_mask, anchor_mask,
+                         decode_batch, decode_anchor, win_bits)

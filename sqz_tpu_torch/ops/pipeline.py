@@ -177,9 +177,14 @@ def _encode_ops_group(plan, chunk: bytes, blk_bits: int, cap: int, dev,
 
 
 def decode_data_pipelined(payloads, sizes, blk_bits: int, device="cuda",
-                          stats: dict = None) -> List[bytes]:
+                          stats: dict = None, seed=None,
+                          dictionary: bytes = b"",
+                          block_ids=None) -> List[bytes]:
     """Whole-container decode: ``sqz4_cuda.decode_groups``, which takes
     every block in one launch (the reference's default; its threaded
-    packer, SQZ_DEC_PIPE=thread, is not ported)."""
+    packer, SQZ_DEC_PIPE=thread, is not ported), warm with ``seed`` and
+    ``dictionary``."""
     return sqz4_cuda.decode_groups(payloads, sizes, blk_bits, device=device,
-                                   stats=stats)
+                                   stats=stats, seed=seed,
+                                   dictionary=dictionary,
+                                   block_ids=block_ids)

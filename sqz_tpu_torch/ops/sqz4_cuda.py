@@ -4,7 +4,8 @@
 ``compact_words`` launch the CUDA kernels (``csrc/``) for tensors on a
 CUDA device and run the plain versions (``sqz4_ref``) for tensors on the
 CPU; any other device raises. Each counts its kernel launches in its
-``launches`` attribute.
+``launches`` attribute; ``encode_full`` and ``decode`` count their seeded
+(warm-start) launches apart, in ``seeded_launches``.
 
 ``encode_data_full``, ``encode_data_tok`` and ``decode_groups`` are the
 main path around them: the native host planner -> op streams or tokens
@@ -49,24 +50,48 @@ TOK_THREADS = 256
 COMPACT_THREADS = 256
 
 
+# the largest sqz4 blocks the kernels code: a model total (at most 2^14
+# from a warm seed, plus one a coded symbol) stays below 2^17, where their
+# divider is exact (csrc/sqz4_div.cuh); the engine routes larger blocks
+# to the native host codec
+DEVICE_BLK_BITS = 16
+
+
 def check_blk_bits(blk_bits: int):
-    if blk_bits > 16:
-        # the device model totals stay below 2^17 only up to 64 KiB blocks
+    if blk_bits > DEVICE_BLK_BITS:
         raise ValueError("sqz4 device kernels support blk_bits <= 16")
 
 
-def encode_full(m_ops: torch.Tensor, s_ops: torch.Tensor, cap_words: int):
+def _seed_arg(seed, dev):
+    """The seed column's pointer for a launch (None: cold), checked."""
+    if seed is None:
+        return None
+    launch.check_tensor(seed, "seed", torch.int32, ndim=1)
+    if seed.shape[0] != sqz4_ref.SEED_WORDS or seed.device != dev \
+            or not seed.is_contiguous():
+        raise ValueError(f"seed must be a contiguous [{sqz4_ref.SEED_WORDS}]"
+                         f" int32 tensor on the kernel's device")
+    return seed.data_ptr()
+
+
+def encode_full(m_ops: torch.Tensor, s_ops: torch.Tensor, cap_words: int,
+                seed: torch.Tensor = None, fresh_block: int = -1):
     """sqz4 encoder: m_ops / s_ops uint32 [G, T/4, B] (four big-endian u8
     micro-ops a word: 0 flag, 1 size, 2 byte, 3 bits, 4..35 distance bit,
     254 flush, others pad) -> (payload words uint32 [G, cap_words, B],
-    big-endian bytes; lens int32 [G, 8, B], row 0 the byte length)."""
+    big-endian bytes; lens int32 [G, 8, B], row 0 the byte length).
+    ``seed`` (the seeded mode): the seed column, int32 [SEED_WORDS]
+    (``sqz4_host.seed_column``), from which every block but
+    ``fresh_block`` (counted g * B + b) starts its models."""
     launch.check_tensor(m_ops, "m_ops", torch.uint32)
     launch.check_tensor(s_ops, "s_ops", torch.uint32)
     if m_ops.shape != s_ops.shape:
         raise ValueError("m_ops and s_ops differ in shape")
     dev = launch.kernel_device(m_ops, s_ops)
+    seed_ptr = _seed_arg(seed, dev)
     if dev.type == "cpu":
-        return sqz4_ref.encode_full_ref(m_ops, s_ops, cap_words)
+        return sqz4_ref.encode_full_ref(m_ops, s_ops, cap_words, seed,
+                                        fresh_block)
     from sqz_tpu_torch.ops import _build
     G, TW, B = m_ops.shape
     words = launch.zeros((G, cap_words, B), torch.uint32, dev)
@@ -75,30 +100,37 @@ def encode_full(m_ops: torch.Tensor, s_ops: torch.Tensor, cap_words: int):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = _build.library().sqz4_encode_launch(
             m_ops.data_ptr(), s_ops.data_ptr(), G, TW, B, words.data_ptr(),
-            cap_words, lens.data_ptr(), ENC_THREADS, stream)
+            cap_words, lens.data_ptr(), seed_ptr, fresh_block, ENC_THREADS,
+            stream)
     launch.launched(rc, "sqz4_encode")
-    encode_full.launches += 1
+    if seed is None:
+        encode_full.launches += 1
+    else:
+        encode_full.seeded_launches += 1
     return words, lens
 
 
 encode_full.launches = 0
+encode_full.seeded_launches = 0
 
 
 def decode(payload: torch.Tensor, meta: torch.Tensor, t_max: int, lw: int,
-           tw: int, mw: int):
+           tw: int, mw: int, seed: torch.Tensor = None):
     """sqz4 decoder: payload uint32 [G, Pw, B] (big-endian bytes), meta
     int32 [G, 8, B] (row 1 block sizes, row 2 dictionary length) ->
     (lit uint32 [G, lw, B], tok uint32 [G, tw, B], mrec uint32 [G, mw, B],
     counts int32 [G, 8, B]: optr, nlit, ntok, nmatch, err, steps, ovf,
-    state)."""
+    state). ``seed`` (the seeded mode): the seed column, int32
+    [SEED_WORDS], from which every block starts its models."""
     launch.check_tensor(payload, "payload", torch.uint32)
     launch.check_tensor(meta, "meta", torch.int32)
     if meta.shape[0] != payload.shape[0] or meta.shape[2] != payload.shape[2]\
             or meta.shape[1] < 3:
         raise ValueError("meta must be [G, 8, B] beside payload [G, Pw, B]")
     dev = launch.kernel_device(payload, meta)
+    seed_ptr = _seed_arg(seed, dev)
     if dev.type == "cpu":
-        return sqz4_ref.decode_ref(payload, meta, t_max, lw, tw, mw)
+        return sqz4_ref.decode_ref(payload, meta, t_max, lw, tw, mw, seed)
     from sqz_tpu_torch.ops import _build
     G, PW, B = payload.shape
     lit = launch.zeros((G, lw, B), torch.uint32, dev)
@@ -110,13 +142,17 @@ def decode(payload: torch.Tensor, meta: torch.Tensor, t_max: int, lw: int,
         rc = _build.library().sqz4_decode_launch(
             payload.data_ptr(), meta.data_ptr(), G, PW, B, t_max,
             lit.data_ptr(), lw, tok.data_ptr(), tw, mrec.data_ptr(), mw,
-            counts.data_ptr(), DECODE_THREADS, stream)
+            counts.data_ptr(), seed_ptr, DECODE_THREADS, stream)
     launch.launched(rc, "sqz4_decode")
-    decode.launches += 1
+    if seed is None:
+        decode.launches += 1
+    else:
+        decode.seeded_launches += 1
     return lit, tok, mrec, counts
 
 
 decode.launches = 0
+decode.seeded_launches = 0
 
 
 def encode_tok(toks: torch.Tensor, lits: torch.Tensor, t_max: int,
@@ -266,43 +302,65 @@ def pack_ops_words(x8: torch.Tensor) -> torch.Tensor:
 
 def encode_data_full(data: bytes, blk_bits: int, window: int, lz: bool,
                      cap: int, parse: str = "auto", device="cuda",
-                     lanes: int = host.LANES, stats: dict = None):
+                     lanes: int = host.LANES, stats: dict = None,
+                     warm: bool = False):
     """Whole-buffer encode -> one payload per 2^blk_bits block.
 
     ``parse`` 'exact' plans with ``native.sqz4_plan_pack`` (payloads equal
     the native engine's); 'fast' (the 'auto' default, SQZ_PARSE overrides)
     with ``native.sqz4_fast_plan`` (SQZ_FAST_DEPTH hash-chain links) plus
     the device relayout. ``stats`` (optional dict) accumulates the stage
-    times plan_s, upload_s, kernel_s and fetch_s."""
+    times plan_s, upload_s, kernel_s and fetch_s.
+
+    ``warm`` (sqzt v2, FORMAT.md §3.1; the seeded device pass of
+    sqz4_pallas.encode_data_full): blocks 1+ match into block 0's tail and
+    start their models from its rescaled final state, which the planner
+    returns (the seeded kernel); block 0 stays cold. A seed that
+    mismatches a block's content may expand it, so the capacity grows by a
+    quarter block, and a block past it is coded again on the host codec,
+    seeded the same way."""
     check_blk_bits(blk_bits)
     dev = torch.device(device)
     parse = host.parse_mode(parse)
     bs = 1 << blk_bits
     nb = max(1, -(-len(data) // bs))
+    warm = warm and nb > 1
     tp_cap = host.op_stream_cap(blk_bits)
     st = launch.Stages(stats, dev)
     if parse == "fast":
-        m8, s8, mx = native.sqz4_fast_plan(data, window, blk_bits, lz,
-                                           tp_cap, depth=fast_depth())
+        plan = native.sqz4_fast_plan(data, window, blk_bits, lz, tp_cap,
+                                     warm=warm, depth=fast_depth())
+        m8, s8, mx = plan[:3]
         rows = -(-int(mx) // 4)
         st.mark("plan_s")
         m_u8, s_u8 = convert.fast_plan_inputs(m8, s8, lanes, rows, dev)
         m_ops, s_ops = pack_ops_words(m_u8), pack_ops_words(s_u8)
     else:
-        mw, sw, mx = native.sqz4_plan_pack(data, window, blk_bits, lz,
-                                           lanes, tp_cap)
+        plan = native.sqz4_plan_pack(data, window, blk_bits, lz, lanes,
+                                     tp_cap, warm=warm)
+        mw, sw, mx = plan[:3]
         rows = -(-int(mx) // 4)
         st.mark("plan_s")
         m_ops, s_ops = convert.encoder_inputs(mw, sw, rows, dev)
+    seed = plan[3] if warm else None
+    seed_t = (convert.to_device(host.seed_column(seed), dev) if warm
+              else None)
     st.mark("upload_s")
-    cap_words = host.cap_words_for(cap)
-    words, lens = encode_full(m_ops, s_ops, cap_words)
+    cap_words = host.cap_words_for(cap + bs // 4 if warm else cap)
+    words, lens = encode_full(m_ops, s_ops, cap_words, seed_t,
+                              0 if warm else -1)
     lens = convert.to_numpy(lens)
     st.mark("kernel_s")
-    if int(lens[:, 0].max(initial=0)) > cap_words * 4:
+    over = np.nonzero(lens[:, 0].reshape(-1)[:nb] > cap_words * 4)[0]
+    if over.size and not warm:
         raise ValueError("compressed block exceeded the output capacity")
     words = convert.to_numpy(words[:, :host.trimmed_rows(lens)])
     payloads = host.unpack_group_payloads(words, lens, nb)
+    dictionary = data[:bs][-window:] if lz else b""
+    for b in over.tolist():
+        payloads[b] = native.sqz4_compress_payload(
+            data[b * bs:(b + 1) * bs], window, lz=lz,
+            seed=seed if b else None, dictionary=dictionary if b else b"")
     st.mark("fetch_s")
     return payloads
 
@@ -454,13 +512,17 @@ def fetch_decode_host(lit, tok, mrec, counts):
 
 def decode_groups(payloads, sizes, blk_bits: int, device="cuda",
                   lanes: int = host.LANES, block_ids=None,
-                  stats: dict = None):
+                  stats: dict = None, seed=None, dictionary: bytes = b""):
     """Payload byte strings + original sizes -> decoded blocks.
 
-    Raises ValueError naming the caller's block index (``block_ids``,
-    default positions) for a corrupt block. Payloads too long for the
-    decoder buffer decode on the host codec. ``stats`` (optional dict)
-    accumulates pack_s, upload_s, kernel_s, fetch_s and assemble_s."""
+    ``seed`` / ``dictionary`` (sqzt v2 and v3 warm start, FORMAT.md §3.1):
+    the model seed (u32[610], the anchor's final state) and the shared
+    preset history every block of the call was coded with (the seeded
+    kernel). Raises ValueError naming the caller's block index
+    (``block_ids``, default positions) for a corrupt block. Payloads too
+    long for the decoder buffer decode on the host codec, seeded the same
+    way. ``stats`` (optional dict) accumulates pack_s, upload_s, kernel_s,
+    fetch_s and assemble_s."""
     check_blk_bits(blk_bits)
     nb = len(payloads)
     if nb == 0:
@@ -471,7 +533,7 @@ def decode_groups(payloads, sizes, blk_bits: int, device="cuda",
     outs = [None] * nb
     order = [b for b in range(nb) if len(payloads[b]) <= cap]
     for b in set(range(nb)) - set(order):
-        outs[b] = host.host_decode(payloads[b], sizes[b])
+        outs[b] = host.host_decode(payloads[b], sizes[b], seed, dictionary)
     if not order:
         return outs
     plan = host.plan_decode_dispatch(len(order), blk_bits, lanes)
@@ -481,19 +543,23 @@ def decode_groups(payloads, sizes, blk_bits: int, device="cuda",
     # decoder reads bytes past its buffer as zeros, as it does the padding
     pw = min(plan["Pw"], host.payload_rows(max(map(len, pls))))
     st = launch.Stages(stats, dev)
-    buf, meta = host.pack_decode_chunk(pls, szs, lanes, plan["G"], pw)
+    buf, meta = host.pack_decode_chunk(pls, szs, lanes, plan["G"], pw,
+                                       len(dictionary))
     st.mark("pack_s")
     payload_t, meta_t = convert.decoder_inputs(buf, meta, dev)
+    seed_t = (convert.to_device(host.seed_column(seed), dev)
+              if seed is not None else None)
     st.mark("upload_s")
     res = decode(payload_t, meta_t, plan["t_max"], plan["lw"], plan["tw"],
-                 plan["mw"])
+                 plan["mw"], seed_t)
     st.mark("kernel_s")
     lt, tt, mt, cnt = fetch_decode_host(*res)
     st.mark("fetch_s")
     dec = host.postprocess_decode(lt, tt, mt, cnt, pls, szs,
                                   1 << blk_bits,
                                   block_ids=[ids[b] for b in order],
-                                  transposed=True)
+                                  transposed=True, seed=seed,
+                                  dictionary=dictionary)
     st.mark("assemble_s")
     for pos, b in enumerate(order):
         outs[b] = dec[pos]

@@ -142,10 +142,28 @@ def plan_decode_dispatch(nb: int, blk_bits: int, lanes: int = LANES):
     )
 
 
-def pack_decode_chunk(payloads, sizes, lanes: int, groups: int, pw: int):
+def seed_column(seed) -> np.ndarray:
+    """An sqz4 model seed (u32[610] counts: literal[2], size[256],
+    byte[256], bits[32], dist0[32], dist1[32], FORMAT.md §3.1) -> the
+    seeded kernels' column, int32[610] (csrc/sqz4_chain.cuh kSeed*; the
+    reference's sqz4_pallas._enc_seed_table column): the byte, size and
+    bits models' inclusive running sums, the literal counts, the
+    distance-bit counts of 0, then of 1."""
+    f = np.asarray(seed, dtype=np.int64)
+    col = np.zeros(610, np.int32)
+    col[0:256] = np.cumsum(f[258:514])
+    col[256:512] = np.cumsum(f[2:258])
+    col[512:544] = np.cumsum(f[514:546])
+    col[544:546] = f[0:2]
+    col[546:610] = f[546:610]
+    return col
+
+
+def pack_decode_chunk(payloads, sizes, lanes: int, groups: int, pw: int,
+                      dlen: int = 0):
     """Payload bytes -> ([groups, pw, lanes] big-endian u32 words, zero
     padded; [groups, 8, lanes] i32 meta: rows payload length, original
-    size, dictionary length (0: cold blocks))."""
+    size, dictionary length ``dlen`` (0: cold blocks))."""
     meta = np.zeros((groups, 8, lanes), dtype=np.int32)
     for i, p in enumerate(payloads):
         if len(p) > 4 * pw:
@@ -154,6 +172,7 @@ def pack_decode_chunk(payloads, sizes, lanes: int, groups: int, pw: int):
         g, lane = divmod(i, lanes)
         meta[g, 0, lane] = len(p)
         meta[g, 1, lane] = sizes[i]
+        meta[g, 2, lane] = dlen
     buf = native.sqz4_pack_payloads(payloads, lanes, pw)
     if buf.shape[0] < groups:
         buf = np.concatenate(
@@ -163,14 +182,17 @@ def pack_decode_chunk(payloads, sizes, lanes: int, groups: int, pw: int):
 
 
 def postprocess_decode(lit, tok, mrec, counts, payloads, sizes, bs,
-                       block_ids=None, transposed: bool = False):
+                       block_ids=None, transposed: bool = False, seed=None,
+                       dictionary: bytes = b""):
     """Decoder records -> per-block output bytes (lane-major block order).
 
     Raises ValueError naming the block for an error lane or a block that
     produced the wrong length; lanes whose match records overflowed the
     record buffer (counts row 6) decode on the host codec instead, as the
     reference does. ``transposed``: lit/tok/mrec are [g, lanes, W];
-    default is the kernel layout [g, W, lanes]."""
+    default is the kernel layout [g, W, lanes]. ``seed`` / ``dictionary``:
+    the warm start the blocks were decoded with (the assembly reads
+    matches into the dictionary; the host codec is seeded too)."""
     nb = len(payloads)
     if transposed:
         g, lanes = lit.shape[0], lit.shape[1]
@@ -198,17 +220,21 @@ def postprocess_decode(lit, tok, mrec, counts, payloads, sizes, bs,
                          f"{optr[short[0]]} of {szs[short[0]]}")
     outs: list = [None] * nb
     for b in np.nonzero(ovf)[0]:
-        outs[b] = host_decode(payloads[b], sizes[b])
+        outs[b] = host_decode(payloads[b], sizes[b], seed, dictionary)
     live = np.nonzero(ovf == 0)[0]
     if live.size:
         asm = native.assemble_blocks(
             tokb[live], litu8[live], mrecb[live],
-            ntoks[live].astype(np.int64), szs[live], bs)
+            ntoks[live].astype(np.int64), szs[live], bs,
+            dictionary=dictionary)
         for i, b in enumerate(live):
             outs[b] = asm[i, :sizes[b]].tobytes()
     return outs
 
 
-def host_decode(payload: bytes, size: int) -> bytes:
-    """One payload through the native host codec."""
-    return native.sqz4_decompress_payload(payload, size)
+def host_decode(payload: bytes, size: int, seed=None,
+                dictionary: bytes = b"") -> bytes:
+    """One payload through the native host codec (warm: ``seed`` and
+    ``dictionary`` as the device pass takes them)."""
+    return native.sqz4_decompress_payload(payload, size, seed=seed,
+                                          dictionary=dictionary)

@@ -13,6 +13,11 @@ any device; the wrappers in ``sqz4_cuda`` use them for CPU tensors, and
 A u64 coder register is an int64 tensor holding the same 64 bits: add,
 subtract, multiply and left shift wrap identically, and the helpers below
 supply the unsigned compare, divide and byte count.
+
+The op-stream encoder and the decoder also run seeded (sqzt v2 and v3
+warm start, FORMAT.md §3.1): their models start from a seed column, int32
+[SEED_WORDS] in the kernels' csum form (``sqz4_host.seed_column``),
+instead of fresh counts.
 """
 
 from __future__ import annotations
@@ -27,6 +32,34 @@ M32 = 0xFFFFFFFF
 ST_FLAG, ST_BYTE, ST_SIZE, ST_BITS, ST_DIST, ST_DONE, ST_ERR = range(7)
 E_ILSEQ, E_SIZE, E_BITS, E_DIST, E_OVERRUN = 1, 2, 3, 4, 5
 MOP_FLUSH = 254
+SEED_WORDS = 610   # the seed column (csrc/sqz4_chain.cuh kSeed*)
+
+
+def _start_counts(n: int, dev, seed=None, cold_lane: int = -1):
+    """Each lane's starting model counts, int64 [n, SEED_WORDS] in the seed
+    column's form: ``seed``'s (int32 [SEED_WORDS]) where it is given,
+    fresh (every count 1) where it is None and on lane ``cold_lane``."""
+    cold = torch.ones(SEED_WORDS, dtype=I64, device=dev)
+    cold[0:256] = torch.arange(1, 257, device=dev)
+    cold[256:512] = torch.arange(1, 257, device=dev)
+    cold[512:544] = torch.arange(1, 33, device=dev)
+    if seed is None:
+        return cold.repeat(n, 1)
+    if seed.shape != (SEED_WORDS,):
+        raise ValueError(f"seed must be [{SEED_WORDS}] int32")
+    tab = seed.to(device=dev, dtype=I64).repeat(n, 1)
+    if 0 <= cold_lane < n:
+        tab[cold_lane] = cold
+    return tab
+
+
+def _models(tab):
+    """(byte csum, size csum, bits csum, dist freq0, dist freq1, literal
+    freq0, literal freq1) of starting counts ``tab`` [n, SEED_WORDS]."""
+    return (tab[:, 0:256].clone(), tab[:, 256:512].clone(),
+            tab[:, 512:544].clone(), tab[:, 546:578].clone(),
+            tab[:, 578:610].clone(), tab[:, 544].clone(),
+            tab[:, 545].clone())
 
 
 def _ult(a, b):
@@ -85,18 +118,15 @@ class _Coder:
     """Per-lane range encoders (coder registers, models, output bytes) for
     N lanes in lock-step; ``code`` takes one micro-op per lane, as the
     op-stream encoder's producer and coder warps do together
-    (csrc/sqz4_encode.cu)."""
+    (csrc/sqz4_encode.cu). The models start cold, or from ``seed`` on every
+    lane but ``cold_lane`` (``_start_counts``)."""
 
-    def __init__(self, n: int, cap_words: int, dev):
+    def __init__(self, n: int, cap_words: int, dev, seed=None,
+                 cold_lane: int = -1):
         self.iota256 = torch.arange(256, dtype=I64, device=dev)[None, :]
         self.iota32 = torch.arange(32, dtype=I64, device=dev)[None, :]
-        self.cb = (self.iota256 + 1).repeat(n, 1)
-        self.cs = self.cb.clone()
-        self.bits = (self.iota32 + 1).repeat(n, 1)
-        self.d0 = torch.ones(n, 32, dtype=I64, device=dev)
-        self.d1 = torch.ones_like(self.d0)
-        self.lit0 = torch.ones(n, dtype=I64, device=dev)
-        self.lit1 = torch.ones_like(self.lit0)
+        (self.cb, self.cs, self.bits, self.d0, self.d1, self.lit0,
+         self.lit1) = _models(_start_counts(n, dev, seed, cold_lane))
         self.low = torch.zeros(n, dtype=I64, device=dev)
         self.rng = torch.full((n,), -1, dtype=I64, device=dev)
         self.cap = cap_words * 4
@@ -209,8 +239,11 @@ def encode_stats_ref(start, size, total, cap_words: int):
     return coder.result(G, B)
 
 
-def encode_full_ref(m_ops, s_ops, cap_words: int):
-    """m_ops / s_ops: uint32 [G, T/4, B] (four big-endian u8 ops a word).
+def encode_full_ref(m_ops, s_ops, cap_words: int, seed=None,
+                    fresh_block: int = -1):
+    """m_ops / s_ops: uint32 [G, T/4, B] (four big-endian u8 ops a word);
+    ``seed``: None (cold) or the seed column, int32 [SEED_WORDS], every
+    block but ``fresh_block`` (counted g * B + b) starting warm from it.
     Returns (words uint32 [G, cap_words, B], lens int32 [G, 8, B])."""
     G, TW, B = m_ops.shape
     dev = m_ops.device
@@ -220,7 +253,7 @@ def encode_full_ref(m_ops, s_ops, cap_words: int):
             ).reshape(TW * 4, N)
     sops = ((_lanes(s_ops, TW)[:, None, :] >> shifts[None, :, None]) & 0xFF
             ).reshape(TW * 4, N)
-    coder = _Coder(N, cap_words, dev)
+    coder = _Coder(N, cap_words, dev, seed, fresh_block)
     for t in range(TW * 4):
         coder.code(mops[t], sops[t])
     return coder.result(G, B)
@@ -398,12 +431,15 @@ class _Stream:
         self.rng = torch.where(full, zero, self.rng << sh)
 
 
-def decode_ref(payload, meta, t_max: int, lw: int, tw: int, mw: int):
+def decode_ref(payload, meta, t_max: int, lw: int, tw: int, mw: int,
+               seed=None):
     """payload: uint32 [G, Pw, B] (big-endian bytes); meta: int32 [G, 8, B]
-    (row 1 sizes, row 2 dictionary length). Returns (lit uint32 [G, lw, B],
-    tok uint32 [G, tw, B], mrec uint32 [G, mw, B], counts int32 [G, 8, B])
-    with the kernel's step grammar: op 1 flag | bits | distance bit, op 2
-    byte | size | distance bit | nothing."""
+    (row 1 sizes, row 2 dictionary length); ``seed``: None (cold) or the
+    seed column, int32 [SEED_WORDS], every block starting warm from it.
+    Returns (lit uint32 [G, lw, B], tok uint32 [G, tw, B], mrec uint32
+    [G, mw, B], counts int32 [G, 8, B]) with the kernel's step grammar:
+    op 1 flag | bits | distance bit, op 2 byte | size | distance bit |
+    nothing."""
     G, _, B = payload.shape
     dev = payload.device
     N = G * B
@@ -412,13 +448,8 @@ def decode_ref(payload, meta, t_max: int, lw: int, tw: int, mw: int):
     dlen = _lanes(meta[:, 2:3], 1)[0]
     iota256 = torch.arange(256, dtype=I64, device=dev)[None, :]
     iota32 = torch.arange(32, dtype=I64, device=dev)[None, :]
-    cb = (iota256 + 1).repeat(N, 1)
-    cs = cb.clone()
-    bits = (iota32 + 1).repeat(N, 1)
-    d0 = torch.ones(N, 32, dtype=I64, device=dev)
-    d1 = torch.ones_like(d0)
+    cb, cs, bits, d0, d1, lit0, lit1 = _models(_start_counts(N, dev, seed))
     zero = torch.zeros(N, dtype=I64, device=dev)
-    lit0, lit1 = zero + 1, zero + 1
     state = zero + ST_FLAG
     psize, pbits, pdist, bitpos = zero, zero, zero, zero
     optr, nlit, ntok, nmatch, err, steps = zero, zero, zero, zero, zero, zero

@@ -1,7 +1,7 @@
 """The port's own copies of the reference's JAX-free modules give the
 reference's results: the native runtime (a verbatim copy of the C++,
-built by the port), the sqzt container framing and the input
-generators."""
+built by the port), the sqzt container framing, the anchored warm-start
+planner and the input generators."""
 
 from pathlib import Path
 
@@ -13,7 +13,7 @@ from sqz_tpu.formats import constants as ref_constants
 from sqz_tpu.formats import container as ref_container
 from sqz_tpu.utils import corpus as ref_corpus
 from sqz_tpu_torch import native
-from sqz_tpu_torch.formats import constants, container
+from sqz_tpu_torch.formats import anchors, constants, container
 from sqz_tpu_torch.utils import corpus
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -97,6 +97,84 @@ def test_squeeze_seeded_payloads_and_states_equal_reference():
         native.squeeze_compress_payload(blk0, 10, seed=seed[:-1])
 
 
+def test_sqz4_seeded_payloads_and_states_equal_reference():
+    data = INPUTS["texty"]
+    blk0, rest = data[:1024], data[1024:4096]
+    pay, seed = native.sqz4_compress_payload(blk0, 1 << 10,
+                                             return_state=True)
+    rpay, rseed = ref_native.sqz4_compress_payload(blk0, 1 << 10,
+                                                   return_state=True)
+    assert pay == rpay and seed.dtype == np.uint32
+    assert seed.tolist() == rseed.flat
+    dec, dseed = native.sqz4_decompress_payload(pay, 1024, return_state=True)
+    assert dec == blk0 and dseed.tolist() == seed.tolist()
+    for parse in ("exact", "fast"):
+        for lz in (True, False):
+            w = native.sqz4_compress_payload(rest, 1 << 10, lz=lz, seed=seed,
+                                             dictionary=blk0, parse=parse)
+            assert w == ref_native.sqz4_compress_payload(
+                rest, 1 << 10, lz=lz, seed=rseed, dictionary=blk0,
+                parse=parse)
+            out, st = native.sqz4_decompress_payload(
+                w, len(rest), seed=seed, dictionary=blk0, return_state=True)
+            rout, rst = ref_native.sqz4_decompress_payload(
+                w, len(rest), seed=rseed, dictionary=blk0, return_state=True)
+            assert out == rout == rest and st.tolist() == rst.flat
+    assert native.sqz4_compress_payload(rest, 1 << 10) == \
+        ref_native.sqz4_compress_payload(rest, 1 << 10)
+    with pytest.raises(ValueError):
+        native.sqz4_compress_payload(blk0, 1 << 10, seed=seed[:-1])
+    with pytest.raises(OSError):
+        native.sqz4_decompress_payload(pay[:len(pay) // 2], 1024, seed=seed)
+
+
+@pytest.mark.parametrize("kind", sorted(INPUTS))
+def test_warm_plans_equal_reference(kind):
+    data = INPUTS[kind]
+    got = native.sqz4_plan_pack(data, 1 << 10, 10, True, 4, 2624, warm=True)
+    want = ref_native.sqz4_plan_pack(data, 1 << 10, 10, True, 4, 2624,
+                                     warm=True)
+    _equal(got[:3], want[:3])
+    assert got[3].tolist() == want[3].flat
+    got = native.sqz4_fast_plan(data, 1 << 10, 10, True, 2624, warm=True)
+    want = ref_native.sqz4_fast_plan(data, 1 << 10, 10, True, 2624,
+                                     warm=True)
+    _equal(got[:3], want[:3])
+    assert got[3].tolist() == want[3].flat
+
+
+def test_assemble_blocks_with_dictionary_equals_reference():
+    # decoder records of blocks that match into a dictionary (the plain
+    # decoder's, seeded), assembled by both copies
+    import torch
+    from sqz_tpu_torch import convert
+    from sqz_tpu_torch.ops import sqz4_cuda, sqz4_host as host
+    data = INPUTS["texty"]
+    blk0, parts = data[:1024], [data[1024:1536], data[1536:2000]]
+    _, seed = native.sqz4_decompress_payload(
+        native.sqz4_compress_payload(blk0, 1 << 10), 1024, return_state=True)
+    payloads = [native.sqz4_compress_payload(p, 1 << 10, seed=seed,
+                                             dictionary=blk0) for p in parts]
+    sizes = [len(p) for p in parts]
+    plan = host.plan_decode_dispatch(2, 9, lanes=2)
+    buf, meta = host.pack_decode_chunk(payloads, sizes, 2, 1, plan["Pw"],
+                                       len(blk0))
+    pt, mt = convert.decoder_inputs(buf, meta, "cpu")
+    torch.set_num_threads(1)
+    lit, tok, mrec, cnt = (convert.to_numpy(x) for x in sqz4_cuda.decode(
+        pt, mt, plan["t_max"], plan["lw"], plan["tw"], plan["mw"],
+        seed=convert.to_device(host.seed_column(seed), "cpu")))
+    assert cnt[0, 3].min() > 0   # matches in both blocks
+    args = (np.ascontiguousarray(tok[0].T),
+            np.ascontiguousarray(lit[0].T).astype(">u4").view(np.uint8),
+            np.ascontiguousarray(mrec[0].T), cnt[0, 2].astype(np.int64),
+            np.asarray(sizes, np.int64), 512)
+    got = native.assemble_blocks(*args, dictionary=blk0)
+    np.testing.assert_array_equal(
+        got, ref_native.assemble_blocks(*args, dictionary=blk0))
+    assert [got[i, :n].tobytes() for i, n in enumerate(sizes)] == parts
+
+
 def test_model_stats_equal_reference():
     data = INPUTS["mixed"]
     mw, sw, _mx = native.sqz4_plan_pack(data, 1 << 10, 10, True, 4, 2624)
@@ -168,3 +246,21 @@ def test_corpus_copy_equals_reference(n, seed):
     assert corpus.rle4(n) == ref_corpus.rle4(n)
     assert corpus.zeros(n) == ref_corpus.zeros(n)
     assert corpus.hello() == ref_corpus.hello()
+
+
+def test_anchor_planner_copy_is_the_references():
+    assert ((ROOT / "sqz_tpu_torch" / "formats" / "anchors.py").read_bytes()
+            == (ROOT / "sqz_tpu" / "formats" / "anchors.py").read_bytes())
+    assert anchors.plan_anchored.__module__ == \
+        "sqz_tpu_torch.formats.anchors"
+
+
+@pytest.mark.parametrize("fresh,anch", [
+    ([True], None), ([True, False, False], None),
+    ([True, False, True, False, False], [False, False, False, True, False]),
+    ([True, True, False, True, False, False, True, False],
+     [False, False, True, False, True, False, False, True]),
+])
+def test_resolve_anchors_copy_equals_reference(fresh, anch):
+    assert (container.resolve_anchors(fresh, anch)
+            == ref_container.resolve_anchors(fresh, anch))

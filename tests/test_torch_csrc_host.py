@@ -53,26 +53,27 @@ HARNESS = r"""
 #include "probe.cu"
 
 extern "C" void host_encode(const uint32_t* m, const uint32_t* s, int G,
-                            int TW, int B, uint32_t* words, int cw,
-                            int32_t* lens) {
+                            int TW, int B, const int32_t* seed, int fresh,
+                            uint32_t* words, int cw, int32_t* lens) {
     std::unique_ptr<sqz4::OpSmem> sm(new sqz4::OpSmem);
     for (long long g = 0; g < G; ++g)
         for (long long b = 0; b < B; ++b)
             sqz4::encode_lane(m + g * TW * B + b, s + g * TW * B + b, TW, B,
+                              g * B + b == fresh ? nullptr : seed,
                               words + g * cw * B + b, cw,
                               lens + g * 8 * B + b, sm.get(),
                               sqz4::kRoleBoth, 0);
 }
 
 extern "C" void host_decode(const uint32_t* p, const int32_t* meta, int G,
-                            int pw, int B, int t_max, uint32_t* lit, int lw,
-                            uint32_t* tok, int tw, uint32_t* mrec, int mw,
-                            int32_t* counts) {
+                            int pw, int B, int t_max, const int32_t* seed,
+                            uint32_t* lit, int lw, uint32_t* tok, int tw,
+                            uint32_t* mrec, int mw, int32_t* counts) {
     std::unique_ptr<sqz4::DecSmem> sm(new sqz4::DecSmem);
     for (long long g = 0; g < G; ++g)
         for (long long b = 0; b < B; ++b)
             sqz4::decode_lane(p + g * pw * B + b, pw, meta + g * 8 * B + b,
-                              B, t_max, lit + g * lw * B + b, lw,
+                              B, t_max, seed, lit + g * lw * B + b, lw,
                               tok + g * tw * B + b, tw,
                               mrec + g * mw * B + b, mw,
                               counts + g * 8 * B + b, sm.get());
@@ -224,14 +225,15 @@ static void on_warp(F body) {
 }
 
 extern "C" void host_encode(const uint32_t* m, const uint32_t* s, int G,
-                            int TW, int B, uint32_t* words, int cw,
-                            int32_t* lens) {
+                            int TW, int B, const int32_t* seed, int fresh,
+                            uint32_t* words, int cw, int32_t* lens) {
     std::unique_ptr<sqz4::OpSmem> sm(new sqz4::OpSmem);
     for (long long g = 0; g < G; ++g)
         for (long long b = 0; b < B; ++b)
             on_warp([&] {
                 sqz4::encode_lane(m + g * TW * B + b, s + g * TW * B + b, TW,
-                                  B, words + g * cw * B + b, cw,
+                                  B, g * B + b == fresh ? nullptr : seed,
+                                  words + g * cw * B + b, cw,
                                   lens + g * 8 * B + b, sm.get(),
                                   sqz4::kRoleBoth, 0);
             });
@@ -269,15 +271,15 @@ extern "C" void host_encode_tok(const uint32_t* toks, int TT,
 }
 
 extern "C" void host_decode(const uint32_t* p, const int32_t* meta, int G,
-                            int pw, int B, int t_max, uint32_t* lit, int lw,
-                            uint32_t* tok, int tw, uint32_t* mrec, int mw,
-                            int32_t* counts) {
+                            int pw, int B, int t_max, const int32_t* seed,
+                            uint32_t* lit, int lw, uint32_t* tok, int tw,
+                            uint32_t* mrec, int mw, int32_t* counts) {
     std::unique_ptr<sqz4::DecSmem> sm(new sqz4::DecSmem);
     for (long long g = 0; g < G; ++g)
         for (long long b = 0; b < B; ++b)
             on_warp([&] {
                 sqz4::decode_lane(p + g * pw * B + b, pw,
-                                  meta + g * 8 * B + b, B, t_max,
+                                  meta + g * 8 * B + b, B, t_max, seed,
                                   lit + g * lw * B + b, lw,
                                   tok + g * tw * B + b, tw,
                                   mrec + g * mw * B + b, mw,
@@ -303,8 +305,8 @@ def _build(tmp_path_factory, name, source, std):
 
 def _coder_argtypes(lib):
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.host_encode.argtypes = [p, p, i, i, i, p, i, p]
-    lib.host_decode.argtypes = [p, p, i, i, i, i, p, i, p, i, p, i, p]
+    lib.host_encode.argtypes = [p, p, i, i, i, p, i, p, i, p]
+    lib.host_decode.argtypes = [p, p, i, i, i, i, p, p, i, p, i, p, i, p]
     lib.host_encode_tok.argtypes = [p, i, p, i, i, i, i, p, i, p]
     lib.host_encode_stats.argtypes = [p, p, p, i, i, i, p, i, p]
     return lib
@@ -354,8 +356,8 @@ def test_encoder_lanes_equal_plain_version(lanes_lib, paired):
     G = m.shape[0]
     words = np.zeros((G, cw, lanes), np.uint32)
     lens = np.zeros((G, 8, lanes), np.int32)
-    lanes_lib.host_encode(_ptr(m), _ptr(s), G, rows, lanes, _ptr(words), cw,
-                          _ptr(lens))
+    lanes_lib.host_encode(_ptr(m), _ptr(s), G, rows, lanes, None, -1,
+                          _ptr(words), cw, _ptr(lens))
     want = sqz4_ref.encode_full_ref(torch.from_numpy(m.view(np.int32)).view(
         torch.uint32), torch.from_numpy(s.view(np.int32)).view(torch.uint32),
         cw)
@@ -365,20 +367,25 @@ def test_encoder_lanes_equal_plain_version(lanes_lib, paired):
             == native.blocks_compress(data, 1, 10, blk))
 
 
-def _decode_both(lib, payloads, sizes, blk, lanes):
+def _decode_both(lib, payloads, sizes, blk, lanes, seed=None, dlen=0):
+    """The decoder's lane bodies and its plain version on the same inputs
+    (``seed``: the seed column, int32 [610], for the seeded mode; ``dlen``
+    the dictionary length in the meta rows)."""
     plan = host.plan_decode_dispatch(len(payloads), blk, lanes=lanes)
     buf, meta = host.pack_decode_chunk(payloads, sizes, lanes, plan["G"],
-                                       plan["Pw"])
+                                       plan["Pw"], dlen)
     G, pw = plan["G"], plan["Pw"]
     lw, tw, mw, t_max = plan["lw"], plan["tw"], plan["mw"], plan["t_max"]
     got = [np.zeros((G, n, lanes), np.uint32) for n in (lw, tw, mw)]
     got.append(np.zeros((G, 8, lanes), np.int32))
     lib.host_decode(_ptr(buf), _ptr(meta), G, pw, lanes, t_max,
+                    None if seed is None else _ptr(seed),
                     _ptr(got[0]), lw, _ptr(got[1]), tw, _ptr(got[2]), mw,
                     _ptr(got[3]))
     pt, mt = convert.decoder_inputs(buf, meta, "cpu")
     want = [convert.to_numpy(a) for a in sqz4_ref.decode_ref(
-        pt, mt, t_max, lw, tw, mw)]
+        pt, mt, t_max, lw, tw, mw,
+        None if seed is None else torch.from_numpy(seed))]
     return got, want
 
 
@@ -695,13 +702,19 @@ def coder_lib(request):
                                    else "warp_lib")
 
 
-def _encode_ops_both(lib, m, s, cw):
+def _encode_ops_both(lib, m, s, cw, seed=None, fresh=-1):
+    """The op-stream encoder's lane bodies and its plain version on the
+    same inputs (``seed``: the seed column, int32 [610], for the seeded
+    mode, every block but ``fresh`` warm)."""
     G, TW, B = m.shape
     words = np.zeros((G, cw, B), np.uint32)
     lens = np.zeros((G, 8, B), np.int32)
-    lib.host_encode(_ptr(m), _ptr(s), G, TW, B, _ptr(words), cw, _ptr(lens))
-    want = sqz4_ref.encode_full_ref(convert.to_device(m, "cpu"),
-                                    convert.to_device(s, "cpu"), cw)
+    lib.host_encode(_ptr(m), _ptr(s), G, TW, B,
+                    None if seed is None else _ptr(seed), fresh,
+                    _ptr(words), cw, _ptr(lens))
+    want = sqz4_ref.encode_full_ref(
+        convert.to_device(m, "cpu"), convert.to_device(s, "cpu"), cw,
+        None if seed is None else torch.from_numpy(seed), fresh)
     return (words, lens), [convert.to_numpy(x) for x in want]
 
 
@@ -834,3 +847,91 @@ def test_decoder_warp_equals_plain_version(warp_lib, corrupt):
     if not corrupt:
         assert b"".join(host.postprocess_decode(*got, payloads,
                                                 [bs] * lanes, bs)) == data
+
+
+def _warm_seed(kind: str):
+    """(seed u32[610], dictionary) of a warm start: the final state and
+    the tail of a block coded cold, 16 KiB of pseudo-text (totals at the
+    2^14 rescale limit) or 1 KiB of random bytes (byte-model heavy)."""
+    block = (corpus.texty(1 << 14, seed=31) if kind == "texty"
+             else corpus.random_bytes(1 << 10, seed=32))
+    payload = port_native.sqz4_compress_payload(block, 1 << 10)
+    _, seed = port_native.sqz4_decompress_payload(payload, len(block),
+                                                  return_state=True)
+    return seed, block[-(1 << 10):]
+
+
+@pytest.mark.parametrize("parse", ["exact", "fast"])
+def test_seeded_encoder_lanes_equal_plain_version(coder_lib, parse):
+    # the device pass of a warm container: blocks 1+ planned against block
+    # 0's tail and coded from its final state, block 0 cold; the payloads
+    # are the native seeded codec's
+    blk, lanes = 10, 4
+    bs = 1 << blk
+    data = _data(bs)
+    nb = -(-len(data) // bs)
+    cap = host.op_stream_cap(blk)
+    if parse == "exact":
+        mw, sw, mx, seed = port_native.sqz4_plan_pack(
+            data, 1 << 10, blk, True, lanes, cap, warm=True)
+        rows = -(-int(mx) // 4)
+        m, s = (np.ascontiguousarray(a[:, :rows]) for a in (mw, sw))
+    else:
+        m8, s8, mx, seed = port_native.sqz4_fast_plan(
+            data, 1 << 10, blk, True, cap, warm=True)
+        rows = -(-int(mx) // 4)
+        m, s = (convert.to_numpy(sqz4_cuda.pack_ops_words(x)) for x in
+                convert.fast_plan_inputs(m8, s8, lanes, rows, "cpu"))
+    got, want = _encode_ops_both(coder_lib, m, s,
+                                 host.cap_words_for(bs + 2048 + bs // 4),
+                                 host.seed_column(seed), 0)
+    _assert_equal(got, want)
+    payloads = host.unpack_group_payloads(*got, nb)
+    assert payloads[0] == port_native.sqz4_compress_payload(
+        data[:bs], 1 << 10, parse=parse)
+    for b in range(1, nb):
+        assert payloads[b] == port_native.sqz4_compress_payload(
+            data[b * bs:(b + 1) * bs], 1 << 10, seed=seed,
+            dictionary=data[:bs], parse=parse), b
+
+
+@pytest.mark.parametrize("kind", ["texty", "random"])
+def test_seeded_decoder_lanes_equal_plain_version(coder_lib, kind):
+    # blocks coded from a foreign seed whose totals are anything up to
+    # 2^14 (each model's reciprocal window starts there) and matching into
+    # the dictionary: records equal the plain version's, and the assembly
+    # restores the blocks
+    blk, lanes = 10, 4
+    bs = 1 << blk
+    seed, dictionary = _warm_seed(kind)
+    data = _data(bs)[:lanes * bs - 300]
+    parts = [data[o:o + bs] for o in range(0, len(data), bs)]
+    payloads = [port_native.sqz4_compress_payload(
+        p, 1 << 10, seed=seed, dictionary=dictionary) for p in parts]
+    sizes = [len(p) for p in parts]
+    got, want = _decode_both(coder_lib, payloads, sizes, blk, lanes,
+                             host.seed_column(seed), len(dictionary))
+    _assert_equal(got, want)
+    outs = host.postprocess_decode(*got, payloads, sizes, bs, seed=seed,
+                                   dictionary=dictionary)
+    assert b"".join(outs) == data
+
+
+def test_seeded_decoder_lanes_flag_corrupt_streams_like_plain_version(
+        coder_lib):
+    blk, lanes = 9, 4
+    bs = 1 << blk
+    seed, dictionary = _warm_seed("texty")
+    data = corpus.texty(lanes * bs, seed=33)
+    rng = np.random.default_rng(34)
+    payloads = []
+    for b in range(lanes):
+        p = bytearray(port_native.sqz4_compress_payload(
+            data[b * bs:(b + 1) * bs], 1 << 10, seed=seed,
+            dictionary=dictionary))
+        p[int(rng.integers(0, len(p)))] ^= int(rng.integers(1, 256))
+        payloads.append(bytes(p))
+    got, want = _decode_both(coder_lib, payloads, [bs] * lanes, blk, lanes,
+                             host.seed_column(seed), len(dictionary))
+    _assert_equal(got, want)
+    assert got[3][0, 4].any()

@@ -1,6 +1,7 @@
-"""The CUDA kernels on a card: each equals its plain version, and the
-slice round-trips through them, the pipeline and the squeeze format
-included. Marked ``gpu``; skips without a CUDA device. On a machine with
+"""The CUDA kernels on a card: each equals its plain version (the seeded
+modes too), and the slice round-trips through them, the pipeline, warm
+start, anchored containers and the squeeze format included. Marked
+``gpu``; skips without a CUDA device. On a machine with
 one (and without JAX), run:
 
     python -m pytest --noconftest -o addopts="" -m gpu tests/test_torch_cuda.py
@@ -191,4 +192,67 @@ def test_squeeze_round_trips_on_the_card(cuda):
         assert blob == container.pack(0, 15, 12, len(data), payloads,
                                       container.fnv1a64(data), warm=warm,
                                       fresh_mask=fresh)
+        assert sqz_tpu_torch.decompress(blob) == data
+
+
+@pytest.mark.parametrize("parse", ["exact", "fast"])
+def test_seeded_kernels_equal_plain_versions(cuda, parse):
+    # the warm device pass (blocks 1+ from block 0's state, block 0 cold),
+    # then blocks 1+ through the seeded decoder, matching into block 0
+    bs = 1 << BLK
+    data = corpus.texty(NB * bs, seed=13)
+    cap = host.op_stream_cap(BLK)
+    if parse == "exact":
+        mw, sw, mx, seed = native.sqz4_plan_pack(data, 1 << 10, BLK, True,
+                                                 NB, cap, warm=True)
+        m, s = convert.encoder_inputs(mw, sw, -(-int(mx) // 4), cuda)
+    else:
+        m8, s8, mx, seed = native.sqz4_fast_plan(data, 1 << 10, BLK, True,
+                                                 cap, warm=True)
+        m, s = (sqz4_cuda.pack_ops_words(x) for x in convert.fast_plan_inputs(
+            m8, s8, NB, -(-int(mx) // 4), cuda))
+    col = convert.to_device(host.seed_column(seed), cuda)
+    cw = host.cap_words_for(bs + 2048 + bs // 4)
+    before = sqz4_cuda.encode_full.seeded_launches
+    got = sqz4_cuda.encode_full(m, s, cw, col, 0)
+    assert sqz4_cuda.encode_full.seeded_launches == before + 1
+    want = sqz4_ref.encode_full_ref(m, s, cw, col, 0)
+    for a, b in zip(got, want):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    payloads = host.unpack_group_payloads(convert.to_numpy(got[0]),
+                                          convert.to_numpy(got[1]), NB)
+    assert payloads[1] == native.sqz4_compress_payload(
+        data[bs:2 * bs], 1 << 10, seed=seed, dictionary=data[:bs],
+        parse=parse)
+    plan = host.plan_decode_dispatch(NB - 1, BLK, lanes=NB)
+    buf, meta = host.pack_decode_chunk(payloads[1:], [bs] * (NB - 1), NB,
+                                       plan["G"], plan["Pw"], bs)
+    pt, mt = convert.decoder_inputs(buf, meta, cuda)
+    args = (plan["t_max"], plan["lw"], plan["tw"], plan["mw"])
+    before = sqz4_cuda.decode.seeded_launches
+    got = sqz4_cuda.decode(pt, mt, *args, seed=col)
+    assert sqz4_cuda.decode.seeded_launches == before + 1
+    want = sqz4_ref.decode_ref(pt, mt, *args, seed=col)
+    for a, b in zip(got, want):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    outs = host.postprocess_decode(
+        *[convert.to_numpy(x) for x in got], payloads[1:], [bs] * (NB - 1),
+        bs, seed=seed, dictionary=data[:bs])
+    assert b"".join(outs) == data[bs:]
+
+
+def test_warm_and_anchored_containers_round_trip_on_the_card(cuda):
+    data = (corpus.texty(24000, seed=14) + corpus.random_bytes(6000, seed=15)
+            + corpus.texty(8000, seed=16))
+    kw = dict(blk_bits=12, win_bits=12, parse="exact")
+    blob = sqz_tpu_torch.compress(data, warm=True, **kw)
+    payloads, fresh = native.blocks_compress(data, 1, 12, 12, warm=True)
+    assert blob == container.pack(1, 12, 12, len(data), payloads,
+                                  container.fnv1a64(data), warm=True,
+                                  fresh_mask=fresh)
+    before = sqz4_cuda.decode.seeded_launches
+    assert sqz_tpu_torch.decompress(blob) == data
+    assert sqz4_cuda.decode.seeded_launches == before + 1
+    for fmt in ("sqz4", "squeeze"):
+        blob = sqz_tpu_torch.compress(data, fmt=fmt, warm="anchors", **kw)
         assert sqz_tpu_torch.decompress(blob) == data

@@ -40,8 +40,9 @@ def _foreign(name: str) -> bool:
 
 
 def test_import_leaves_jax_out():
-    """Importing the port and a small compress / decompress on the CPU load
-    neither jax nor any module of the JAX package."""
+    """Importing the port and small compress / decompress round trips on
+    the CPU (cold, warm and anchored) load neither jax nor any module of
+    the JAX package."""
     native.build()    # the round trip needs the runtime: build it here
     code = (
         "import sys\n"
@@ -51,11 +52,16 @@ def test_import_leaves_jax_out():
         "from sqz_tpu_torch import convert, native\n"
         "from sqz_tpu_torch.ops import _build, engine, pipeline, sqz4_cuda, "
         "sqz4_host, sqz4_ref\n"
+        "from sqz_tpu_torch.formats import anchors, container\n"
         "from sqz_tpu_torch.utils import corpus\n"
         "data = corpus.texty(1500, seed=1)\n"
         "blob = sqz_tpu_torch.compress(data, blk_bits=10, win_bits=10, "
         "device='cpu')\n"
         "assert sqz_tpu_torch.decompress(blob, device='cpu') == data\n"
+        "for warm in (True, 'anchors'):\n"
+        "    blob = sqz_tpu_torch.compress(data, blk_bits=9, win_bits=10, "
+        "warm=warm, device='cpu')\n"
+        "    assert sqz_tpu_torch.decompress(blob, device='cpu') == data\n"
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'sqz_tpu')]\n"
         "assert not bad, bad\n")

@@ -79,19 +79,6 @@ def test_cuda_device_without_a_card_raises():
 
 def test_unported_requests_raise_not_implemented():
     data = _data()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        sqz_tpu_torch.compress(data, warm=True, device="cpu",
-                               **_sqz4("torch"))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        sqz_tpu_torch.compress(data, fmt="squeeze", engine="torch",
-                               blocks=True, blk_bits=10, warm="anchors",
-                               device="cpu")
-    warm_blob = sqz_tpu.compress(corpus.texty(4096, seed=9), warm=True,
-                                 **_sqz4("native"))
-    _c, _w, _b, _o, _p, _cs, fresh, _a = sqzt.unpack(warm_blob)
-    assert not all(fresh)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        sqz_tpu_torch.decompress(warm_blob, **TORCH_CPU)
     sq_blob = sqz_tpu.compress(data, fmt="squeeze", engine="native",
                                blocks=True, blk_bits=10)
     with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
@@ -103,7 +90,7 @@ def test_unported_requests_raise_not_implemented():
 def test_invalid_requests_raise_value_error():
     with pytest.raises(ValueError):
         sqz_tpu_torch.compress(b"x" * 10, fmt="sqz4", engine="torch",
-                               blocks=True, blk_bits=17, device="cpu")
+                               blocks=True, blk_bits=41, device="cpu")
     with pytest.raises(ValueError):
         sqz_tpu_torch.compress(b"x" * 10, fmt="sqz4", engine="torch",
                                blocks=False, device="cpu")

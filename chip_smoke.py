@@ -69,7 +69,23 @@ Phases (any failure exits non-zero):
      anchors, through ``compress(warm="anchors")`` / ``decompress``: round
      trip, and (sqz4) one seeded decoder launch per anchor;
  11. sqz4 at ``blk_bits`` 17 (the host route): 4 MiB, exact parse, equal to
-     the native copy's container, round trip, the host-route count > 0.
+     the native copy's container, round trip, the host-route count > 0;
+ 12. the resident paths: 32 MiB of ``synthetic.resident_mix`` (512 blocks
+     of 64 KiB: sparse float32 weights, periodic content, repeated cells,
+     pseudo-text, random bytes, a short last block), uploaded once as a
+     CUDA tensor, through ``compress_resident`` in modes lit, rle and lz
+     and ``decompress_resident`` of each container and of phase 4's
+     fast-parse container. Every container must round-trip through
+     ``decompress`` and the native copy; each restore must return a CUDA
+     tensor equal to its input, lit and rle by the cell assembly in every
+     lane, lz by the general assembly in every lane with a match (in
+     every lane under ``assembly="general"``), the fast-parse container
+     by the general assembly in every lane, no lane on the host; a
+     corrupt payload byte must raise; the cold token kernel's and its
+     lit_skip mode's launch counts over the run must be > 0. The lit_skip
+     kernel is held against its plain version (in a worker) at the rle
+     path's shape, and, on the rle and the lz tokens, against the cold
+     kernel on the same tokens with the literals compacted on the host.
 
 The second-to-last line is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
@@ -271,11 +287,12 @@ def coded_symbols(m_words):
     return int(((ops < 36) | (ops == 254)).sum())
 
 
-def tok_symbols(grp):
-    """Coded symbols of a token group: 2 a literal, 2 + nbits a match
-    (flag, size, bits, nbits - 1 distance bits), 10 for the EOS token."""
+def tok_symbols(toks):
+    """Coded symbols of token rows (uint32 numpy): 2 a literal, 2 + nbits
+    a match (flag, size, bits, nbits - 1 distance bits), 10 for the EOS
+    token."""
     import numpy as np
-    t = grp.toks.numpy().view(np.uint32).astype(np.int64)
+    t = toks.astype(np.int64)
     live = t != 0
     match = live & ((t >> 8) & 1 == 1)
     eos = match & ((t & 0xFF) == 255)
@@ -283,6 +300,13 @@ def tok_symbols(grp):
     return int((2 * (t & 0xFF) * lit).sum()
                + (2 + ((t >> 9) & 0x1F))[match & ~eos].sum()
                + 10 * eos.sum())
+
+
+def tok_literal_bytes(toks):
+    """Bytes the literal tokens of token rows (uint32 numpy) cover."""
+    import numpy as np
+    t = toks.astype(np.int64)
+    return int((t & 0xFF)[(t != 0) & ((t >> 8) & 1 == 0)].sum())
 
 
 def kernels_vs_plain(data, blk_bits, win_bits, lanes, reps, stats_bits,
@@ -295,6 +319,7 @@ def kernels_vs_plain(data, blk_bits, win_bits, lanes, reps, stats_bits,
     the native engine's, the blocks restore. Returns per kernel
     (max_abs_err, kernel ms, plain ms, bound ms, bound_by, library ms or
     None)."""
+    import numpy as np
     import torch
     from sqz_tpu_torch import convert, native
     from sqz_tpu_torch.ops import _build, sqz4_cuda, sqz4_host as host
@@ -361,7 +386,8 @@ def kernels_vs_plain(data, blk_bits, win_bits, lanes, reps, stats_bits,
                              "native fast parse")
     checks["sqz4_encode_tok"] = tok, bound(
         toks.numel() * 4 + lits.numel() + int(tlens_np[:, 0].sum())
-        + tlens_np.nbytes, tok_symbols(grp) * OPS_PER_SYMBOL) + (None,)
+        + tlens_np.nbytes, tok_symbols(grp.toks.numpy().view(np.uint32))
+        * OPS_PER_SYMBOL) + (None,)
 
     checks.update(seeded_vs_plain(data, blk_bits, win_bits, lanes, reps,
                                   pool, payloads[0]))
@@ -709,7 +735,7 @@ def chain_figures(inputs, blk_bits, win_bits, reps):
         lits = grp.lits.to(dev)
         fast = native.blocks_compress(data, 1, win_bits, blk_bits,
                                       parse="fast")
-        tok_sym = tok_symbols(grp) / nb
+        tok_sym = tok_symbols(grp.toks.numpy().view(np.uint32)) / nb
         tw, tl = sqz4_cuda.encode_tok(toks, lits, grp.t_max, cw)
         tpay = host.unpack_group_payloads(convert.to_numpy(tw),
                                           convert.to_numpy(tl), nb)
@@ -821,7 +847,7 @@ def main_path():
         f"({mb / fenc_s:.1f} MB/s) dec {fdec_s:.3f} s "
         f"({mb / fdec_s:.1f} MB/s) ratio {len(fblob) / len(data):.4f}")
     log(f"launches over the serial main path: {launches}")
-    return data, blob, launches, dict(
+    return data, blob, fblob, launches, dict(
         exact_enc_MBps=mb / enc_s, exact_dec_MBps=mb / dec_s,
         fast_enc_MBps=mb / fenc_s, fast_dec_MBps=mb / fdec_s,
         exact_ratio=len(blob) / len(data), fast_ratio=len(fblob) / len(data))
@@ -1219,6 +1245,181 @@ def host_route_path():
     return {"host_route_blocks": routed}
 
 
+def resident_input():
+    """resident-blk16-mix-32MiB: 512 blocks of 64 KiB (one group) of
+    ``synthetic.resident_mix`` (sparse float32 weights, periodic content
+    of periods 1..128, repeated cells, pseudo-text, random bytes; the last
+    block a third long), standing for checkpoint and activation buffers."""
+    from sqz_tpu_torch.utils import synthetic
+    return synthetic.resident_mix(RESIDENT_BLOCKS, MAIN_BITS, seed=1)
+
+
+def resident_path(card, texty, fblob, pool):
+    """Phase 12: the resident paths on the resident mix, uploaded once as
+    a CUDA tensor: ``compress_resident`` in modes lit, rle and lz, and
+    ``decompress_resident`` (auto) of each container and of phase 4's
+    fast-parse ``compress`` container of ``texty``, with the launches and
+    the restore routes counted over that run; then the checks. Returns
+    (launches, end-to-end figures, the lit_skip kernel's PlainCheck and
+    its bound and library entries): the plain version runs in a worker of
+    ``pool`` at the rle path's full shape."""
+    import numpy as np
+    import torch
+    import sqz_tpu_torch
+    from sqz_tpu_torch import convert, native
+    from sqz_tpu_torch.formats import container
+    from sqz_tpu_torch.ops import lzparse, resident, sqz4_cuda
+    from sqz_tpu_torch.ops import sqz4_host as host, sqz4_ref
+    dev = torch.device("cuda")
+    bs = 1 << MAIN_BITS
+    t = time.perf_counter()
+    data = resident_input()
+    x = torch.frombuffer(bytearray(data), dtype=torch.uint8).to(dev)
+    torch.cuda.synchronize()
+    log(f"resident input, {len(data) / 2**20:.2f} MiB: "
+        f"{time.perf_counter() - t:.1f} s")
+    counters = (sqz4_cuda.encode_tok, sqz4_cuda.decode,
+                sqz4_cuda.compact_words)
+    for c in counters:
+        c.launches = 0
+    sqz4_cuda.encode_tok.lit_skip_launches = 0
+    blobs, walls, routes, outs = {}, {}, {}, {}
+    for mode in ("lit", "rle", "lz"):
+        t = time.perf_counter()
+        blobs[mode] = sqz_tpu_torch.compress_resident(x, blk_bits=MAIN_BITS,
+                                                      mode=mode)
+        walls[f"enc_{mode}"] = time.perf_counter() - t
+    blobs["compress"] = fblob
+    for name, blob in blobs.items():
+        before = dict(resident.route_lanes)
+        t = time.perf_counter()
+        outs[name] = sqz_tpu_torch.decompress_resident(blob)
+        torch.cuda.synchronize()
+        walls[f"dec_{name}"] = time.perf_counter() - t
+        routes[name] = {k: resident.route_lanes[k] - before[k]
+                        for k in before}
+    launches = {"sqz4_encode_tok": sqz4_cuda.encode_tok.launches,
+                "sqz4_encode_tok_lit_skip":
+                    sqz4_cuda.encode_tok.lit_skip_launches,
+                "sqz4_decode": sqz4_cuda.decode.launches,
+                "sqz4_compact": sqz4_cuda.compact_words.launches}
+    log(f"launches over the resident paths: {launches}; restore routes "
+        f"(lanes): {json.dumps(routes)}")
+
+    # the checks: round trips, the restored tensors, the routes
+    nb = -(-len(data) // bs)
+    for name, blob in blobs.items():
+        want = texty if name == "compress" else data
+        if name != "compress" and (
+                sqz_tpu_torch.decompress(blob) != data
+                or native.blocks_decompress(container.unpack(blob)[4],
+                                            len(data), 1, MAIN_BITS) != data):
+            raise AssertionError(f"resident {name} container does not "
+                                 f"round-trip")
+        out = outs[name]
+        if not out.is_cuda or out.cpu().numpy().tobytes() != want:
+            raise AssertionError(f"decompress_resident of the {name} "
+                                 f"container differs from its input")
+    blocks_of = {"lit": nb, "rle": nb, "lz": nb, "compress": len(texty) // bs}
+    if any(r["host"] for r in routes.values()) or any(
+            sum(r.values()) != blocks_of[k] for k, r in routes.items()):
+        raise AssertionError(f"restore routes: {routes}")
+    if routes["lit"]["cell"] != nb or routes["rle"]["cell"] != nb \
+            or routes["compress"]["general"] != blocks_of["compress"] \
+            or routes["lz"]["general"] < 1:
+        raise AssertionError(f"restore routes: {routes}")
+    # lz lanes without a match are cell-parsed, which "auto" restores by
+    # the cell assembly; the general assembly restores every lane
+    before = dict(resident.route_lanes)
+    out = sqz_tpu_torch.decompress_resident(blobs["lz"], assembly="general")
+    if out.cpu().numpy().tobytes() != data or \
+            resident.route_lanes["general"] - before["general"] != nb:
+        raise AssertionError("general assembly of the lz container")
+    if min(launches["sqz4_encode_tok"],
+           launches["sqz4_encode_tok_lit_skip"]) < 1:
+        raise AssertionError(f"a token kernel mode was not launched: "
+                             f"{launches}")
+    code, wb, bb, osize, payloads, csum, _f, _a = container.unpack(
+        blobs["rle"])
+    p = bytearray(payloads[CORRUPT_BLOCK])
+    p[len(p) // 2] ^= 0xFF
+    payloads[CORRUPT_BLOCK] = bytes(p)
+    try:
+        sqz_tpu_torch.decompress_resident(container.pack(
+            code, wb, bb, osize, payloads, csum))
+    except (ValueError, OSError) as e:
+        log(f"resident restore rejects a corrupt block: {e}")
+    else:
+        raise AssertionError("decompress_resident took a corrupt payload")
+
+    # one more run of each for its stages
+    enc_st = {m: {} for m in ("lit", "rle", "lz")}
+    for mode, st in enc_st.items():
+        resident.encode_resident_blocks(x, MAIN_BITS, mode, stats=st)
+    dec_st = {k: {} for k in blobs}
+    for name, st in dec_st.items():
+        resident.decompress_resident(blobs[name], stats=st)
+
+    # the lit_skip kernel at the rle path's shape: against its plain
+    # version (in a worker), and against the cold kernel on the same
+    # tokens with the literals compacted on the host, rle and lz tokens
+    blocks, lengths, _nb = resident._prep_blocks(x, MAIN_BITS, host.LANES,
+                                                 dev)
+    cw = resident.rle_group_args(MAIN_BITS)["cap_words"]
+    toks, pairs = resident.rle_plan_device(
+        blocks, lengths, resident.rle_group_args(MAIN_BITS)["Tt"])
+    t_max = int(pairs.max())
+    chk = PlainCheck(pool, sqz4_cuda.encode_tok, sqz4_ref.encode_tok_ref,
+                     (toks, blocks[None], t_max, cw, True), REPS)
+    words, lens = chk.got
+    if host.unpack_group_payloads(convert.to_numpy(words),
+                                  convert.to_numpy(lens), nb) != \
+            container.unpack(blobs["rle"])[4]:
+        raise AssertionError("lit_skip payloads differ from the rle "
+                             "container's")
+    lz_toks, lz_pairs, _d = lzparse.lz_plan_device(
+        blocks, lengths, lzparse.lz_group_args(MAIN_BITS)["Tt"])
+    for tk, tm in ((toks, t_max), (lz_toks, int(lz_pairs.max()))):
+        skip = sqz4_cuda.encode_tok(tk, blocks[None], tm, cw, lit_skip=True)
+        cold = sqz4_cuda.encode_tok(
+            tk, sqz4_ref.skip_literal_rows(tk, blocks[None]).to(dev), tm, cw)
+        if max_abs_err(skip, cold):
+            raise AssertionError("lit_skip differs from the cold mode on "
+                                 "host-compacted literals")
+    lens_np, toks_np = convert.to_numpy(lens), convert.to_numpy(toks)
+    # the kernel reads only the bytes of the literal runs: matched spans
+    # of the raw rows are skipped, never loaded
+    extra = bound(toks.numel() * 4 + tok_literal_bytes(toks_np)
+                  + int(lens_np[:, 0].sum()) + lens_np.nbytes,
+                  tok_symbols(toks_np) * OPS_PER_SYMBOL) + (None,)
+    log(f"lit_skip kernel at {nb} blocks x {bs} B (cell-parse tokens, "
+        f"{t_max} pairs the longest lane; {card}): {chk.ms:.3f} ms, bound "
+        f"{extra[0]:.4f} ms by {extra[1]}")
+
+    mb = len(data) / 1e6
+    fig = {}
+    for name, blob in blobs.items():
+        size = len(texty) if name == "compress" else len(data)
+        if name != "compress":
+            fig[f"resident_{name}_enc_MBps"] = mb / walls[f"enc_{name}"]
+            fig[f"resident_{name}_ratio"] = len(blob) / size
+        fig[f"resident_{name}_dec_MBps"] = size / 1e6 / walls[f"dec_{name}"]
+    log(f"resident paths, {len(data) / 2**20:.2f} MiB in 64 KiB blocks "
+        f"({card}): " + "; ".join(
+            f"{m} enc {walls['enc_' + m]:.3f} s ({fig[f'resident_{m}_enc_MBps']:.1f}"
+            f" MB/s) dec {walls['dec_' + m]:.3f} s "
+            f"({fig[f'resident_{m}_dec_MBps']:.1f} MB/s) ratio "
+            f"{fig[f'resident_{m}_ratio']:.4f}" for m in ("lit", "rle", "lz"))
+        + f"; the texty compress() container dec {walls['dec_compress']:.3f}"
+        f" s ({fig['resident_compress_dec_MBps']:.1f} MB/s)")
+    log(f"resident stages (s, {card}): encode " + json.dumps(
+        {m: {k: round(v, 4) for k, v in st.items()}
+         for m, st in enc_st.items()}) + "; decode " + json.dumps(
+        {m: {k: round(v, 4) for k, v in st.items()}
+         for m, st in dec_st.items()}))
+    return launches, fig, (chk, extra)
+
+
 def corrupt_rejected(blob):
     """Phase 8: one flipped payload byte -> ValueError naming the block."""
     import sqz_tpu_torch
@@ -1240,12 +1441,16 @@ def corrupt_rejected(blob):
     raise AssertionError("corrupt payload was not rejected")
 
 
+RESIDENT_BLOCKS = 512   # phase 12: one group of 64 KiB blocks
+
 KERNELS = (   # name, source, the TPU kernel it replaces
     ("sqz4_encode", "sqz4_encode.cu", f"{PALLAS}:686"),
     ("sqz4_encode_seeded", "sqz4_encode.cu", f"{PALLAS}:686"),
     ("sqz4_decode", "sqz4_decode.cu", f"{PALLAS}:1705"),
     ("sqz4_decode_seeded", "sqz4_decode.cu", f"{PALLAS}:1705"),
     ("sqz4_encode_tok", "sqz4_encode_tok.cu", f"{PALLAS}:1127"),
+    ("sqz4_encode_tok_lit_skip", "sqz4_encode_tok.cu",
+     f"{PALLAS}:1127 (lit_skip=True)"),
     ("sqz4_compact", "sqz4_compact.cu", f"{PALLAS}:464"),
     ("squeeze_bitpack", "squeeze_bitpack.cu", f"{PALLAS}:1489"),
     ("sqz4_encode_stats", "sqz4_encode_stats.cu", f"{PALLAS}:281"),
@@ -1278,7 +1483,7 @@ def main() -> int:
     try:
         kernels_vs_plain(corpus.texty(SMALL_BLOCKS << SMALL_BITS, seed=7),
                          SMALL_BITS, 10, SMALL_BLOCKS, 10, SMALL_BITS, pool)
-        data, blob, launches, e2e = main_path()
+        data, blob, fblob, launches, e2e = main_path()
         _pblob, plaunches, pe2e = pipelined_path()
         launches.update({k: plaunches[k]
                          for k in ("sqz4_encode_tok", "sqz4_compact")})
@@ -1289,10 +1494,20 @@ def main() -> int:
         we2e.update(anchored_path())
         we2e.update(host_route_path())
         t = time.perf_counter()
+        rlaunches, re2e, (rchk, rextra) = resident_path(card, data, fblob,
+                                                        pool)
+        launches["sqz4_encode_tok_lit_skip"] = \
+            rlaunches["sqz4_encode_tok_lit_skip"]
+        we2e.update(re2e)
+        log(f"resident paths: {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
         full = kernels_vs_plain(data, MAIN_BITS, MAIN_WIN_BITS,
                                 sqz4_host.LANES, REPS, STATS_BITS, pool)
+        full["sqz4_encode_tok_lit_skip"] = rchk.result() + rextra
         log(f"kernels vs plain at the full shapes: "
-            f"{time.perf_counter() - t:.1f} s")
+            f"{time.perf_counter() - t:.1f} s; lit_skip "
+            f"{full['sqz4_encode_tok_lit_skip'][1]:.3f} ms (plain "
+            f"{full['sqz4_encode_tok_lit_skip'][2]:.1f} ms)")
     finally:
         pool.shutdown(wait=True, cancel_futures=True)
     chain_figures(chain_inputs(data), MAIN_BITS, MAIN_WIN_BITS, REPS)
@@ -1305,6 +1520,9 @@ def main() -> int:
               f"{sqz4_host.LANES} blocks x {1 << STATS_BITS} B",
               "sqz4_decode_seeded": f"{sqz4_host.LANES - 1} blocks x "
                                     f"{1 << MAIN_BITS} B (blocks 1+)",
+              "sqz4_encode_tok_lit_skip": f"{RESIDENT_BLOCKS} blocks x "
+                                          f"{1 << MAIN_BITS} B of the "
+                                          f"resident mix, cell parse",
               "probe": "the 8 of the 14 probes one torch call computes, "
                        "at the reference's inputs, [1, 128] and [256, 128]"}
     for name, src, replaces in KERNELS:

@@ -10,8 +10,13 @@ plain PyTorch versions on ``device="cpu"`` (for tests). sqz4 blocks above
 (``ops/engine.py``); the v3 planner runs on the host, and its containers
 decode on the card.
 
+The resident paths (``compress_resident`` / ``decompress_resident``) code
+data that already sits on the card (a uint8 CUDA tensor) with no host
+planning, and restore it into a tensor there.
+
 Not served yet (each raises NotImplementedError naming its ROADMAP item):
-the host engines ``native`` and ``oracle``, and the resident paths.
+the host engines ``native`` and ``oracle``, and the resident paths over a
+``mesh``.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ from sqz_tpu_torch.formats.anchors import plan_anchored
 from sqz_tpu_torch.formats.constants import (SQZT_FORMAT_SQUEEZE,
                                              SQZT_FORMAT_SQZ4,
                                              warm_dictionary, warm_gate_mask)
+from sqz_tpu_torch.ops.launch import resolve_device
 
 
 class Format(str, enum.Enum):
@@ -54,16 +60,6 @@ def _check_engine(engine):
             f"engine {engine.value!r} is not served by the port yet "
             f"(ROADMAP.md, Queue 1 item 14: host engines behind the port's "
             f"API)")
-
-
-def _device(device) -> torch.device:
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("device 'cuda' requested but no CUDA device is "
-                           "available")
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {dev}")
-    return dev
 
 
 def _block_encoder(fmt: Format, win_bits: int, lz: bool, parse: str):
@@ -134,7 +130,7 @@ def compress(data: bytes, fmt: Format | str = Format.SQZ4,
         raise ValueError(f"blk_bits {blk_bits} outside 1..40")
     parts = sqzt.split_blocks(data, blk_bits)
     warm = warm if len(parts) > 1 else False
-    dev = _device(device)
+    dev = resolve_device(device)
     code = SQZT_FORMAT_SQUEEZE if fmt is Format.SQUEEZE else SQZT_FORMAT_SQZ4
     anchor_mask = None
     if warm == "anchors":
@@ -164,7 +160,7 @@ def decompress(blob: bytes, fmt: Optional[Format | str] = None,
         raise ValueError("torch engine requires an sqzt container")
     code, win_bits, blk_bits, osize, payloads, csum, fresh, anch = \
         sqzt.unpack(blob)
-    dev = _device(device)
+    dev = resolve_device(device)
     from sqz_tpu_torch.ops import engine as torch_engine
     bs = 1 << blk_bits
     sizes = [max(0, min(bs, osize - i * bs)) for i in range(len(payloads))]
@@ -178,16 +174,51 @@ def decompress(blob: bytes, fmt: Optional[Format | str] = None,
 
 
 def compress_resident(data, blk_bits: int = 16, mode: str = "rle",
-                      checksum: bool = False, interpret: bool = False,
-                      mesh=None, lanes: int = None) -> bytes:
-    """Not ported yet: see ``sqz_tpu.api.compress_resident``."""
-    raise _todo("compress_resident", 8)
+                      checksum: bool = False, mesh=None, lanes: int = None,
+                      device="cuda") -> bytes:
+    """See ``sqz_tpu.api.compress_resident``: ``data`` (bytes, or a uint8
+    tensor, best one already on the card) -> a cold sqz4 ``sqzt``
+    container, parsed and coded on ``device`` with no host planning
+    (``ops/resident.py``): ``mode`` 'lit' (literals only), 'rle' (the
+    cell parse) or 'lz' (the device LZ matcher, ``ops/lzparse.py``).
+    Only the payload bytes come back from the card; ``checksum`` hashes
+    the input on the host (a download for a tensor), so it is off by
+    default. ``lanes``: blocks per kernel launch (default 512)."""
+    if mesh is not None:
+        raise _todo("compress_resident over a mesh", 11)
+    if not 1 <= blk_bits <= 16:
+        raise ValueError("resident paths support blk_bits 1..16 "
+                         "(the sqz4 device kernels' range)")
+    dev = resolve_device(device)
+    from sqz_tpu_torch.ops import resident
+    payloads = resident.encode_resident_blocks(data, blk_bits, mode,
+                                               lanes=lanes, device=dev)
+    if isinstance(data, torch.Tensor):
+        osize = int(data.numel())
+        raw = (data.reshape(-1).cpu().numpy().tobytes() if checksum
+               else None)
+    else:
+        raw = bytes(data)
+        osize = len(raw)
+    csum = sqzt.fnv1a64(raw) if checksum else None
+    return sqzt.pack(SQZT_FORMAT_SQZ4, 15, blk_bits, osize, payloads, csum)
 
 
-def decompress_resident(blob: bytes, interpret: bool = False, mesh=None,
-                        lanes: int = None, assembly: str = "auto"):
-    """Not ported yet: see ``sqz_tpu.api.decompress_resident``."""
-    raise _todo("decompress_resident", 8)
+def decompress_resident(blob: bytes, mesh=None, lanes: int = None,
+                        assembly: str = "auto", device="cuda"):
+    """See ``sqz_tpu.api.decompress_resident``: a cold sqz4 ``sqzt``
+    container -> a 1-D ``torch.uint8`` tensor on ``device``, decoded and
+    assembled there (``ops/resident.py``): ``assembly`` 'cell', 'general'
+    (``ops/lz_restore.py``) or 'auto' (cell, then general for the lanes
+    the cell model rejects); only kernel-flagged or oversized blocks
+    decode on the host. The container checksum is not verified (it would
+    download the bytes): use ``decompress`` for a verified read. Warm,
+    anchored and squeeze containers raise ValueError."""
+    if mesh is not None:
+        raise _todo("decompress_resident over a mesh", 11)
+    from sqz_tpu_torch.ops import resident
+    return resident.decompress_resident(blob, lanes=lanes,
+                                        assembly=assembly, device=device)
 
 
 __all__ = ["Engine", "Format", "compress", "decompress",

@@ -1,7 +1,8 @@
 // sqz4 token-input block encoder for Hopper (sm_90a).
 //
 // Replaces the TPU kernel sqz_tpu/ops/sqz4_pallas.py:_encode_tok_kernel
-// (launcher _encode_tok_pallas_call), cold mode without lit_skip.
+// (launcher _encode_tok_pallas_call), in both of its modes: the literal
+// stream compacted by the planner, and lit_skip (below).
 //
 // Input: the native token planner's rows as they come (sqz_native.cpp
 // sqz4_tok_plan): toks uint32 [G, B, tok_rows], one row per block, one
@@ -75,9 +76,17 @@
 // (scripts/chain_variants.py, PERF.md).
 // The reference's token kernel has no seeded mode: warm blocks take the
 // op-stream encoder's (sqz4_encode.cu), whose producer starts its models
-// from the seed (LaneModels::init(seed)), as this one's would. lit_skip
-// (the resident paths' raw literal stream) would change only the
-// expansion; the launcher refuses it.
+// from the seed (LaneModels::init(seed)), as this one's would.
+//
+// lit_skip (the resident paths, ops/resident.py and ops/lzparse.py): the
+// literal row is the raw block, so a match token (not EOS) also moves
+// the literal cursor past the `len` bytes it covers. The Pallas machine
+// drains those bytes at 32 a pair from the pair that fetches the token,
+// and a lane whose coding pairs end first waits (PAD pairs, which code
+// nothing) until the drain is done: the coded ops are the cold mode's,
+// and a match takes max(coding pairs, ceil(len / 32)) pairs of the
+// budget. So only TokProducer::match changes; the mode is a template
+// argument, and the cold instantiation compiles as before.
 
 #include "sqz4_pair.cuh"
 
@@ -95,6 +104,8 @@ struct TokSmem {
 
 // Expands a block's tokens into coder ops and their model statistics, a
 // token (or 32 literals) at a time, the warp's lanes side by side.
+// kLitSkip: the literal row is the raw block (see the top of the file).
+template <bool kLitSkip>
 struct TokProducer {
     LaneModels md;
     Stager<uint32_t> toks;
@@ -137,7 +148,9 @@ struct TokProducer {
     // A match or EOS token with `budget` pairs left: its ops from entry n
     // on; returns their count. Pairs: (flag 0, size), (bits, distance bit
     // 0), then distance bits two a pair; EOS (flag 0, size 255) and four
-    // pairs of flushes, after which the lane is done.
+    // pairs of flushes, after which the lane is done. kLitSkip: a match
+    // holds the lane for ceil(len / 32) pairs at least, and the lane
+    // stops inside them if the budget ends there.
     SQZ_DEVICE int match(Ring& r, int n, uint32_t tok, int budget) {
         const int len = tok & 0xFF, nb = (tok >> 9) & 0x1F;
         const int dist = (tok >> 16) & 0x7FFF;
@@ -159,7 +172,14 @@ struct TokProducer {
         // distance bits 0..nb-2 (the top one is implicit): bit k rides
         // pair 1 + (k + 1) / 2, and each has its own model, so every lane
         // codes the bits of its own models at once
-        const int nd = nb > 1 ? nb - 1 : 0, pairs = 2 + nd / 2;
+        const int nd = nb > 1 ? nb - 1 : 0, coding = 2 + nd / 2;
+        int pairs = coding;
+        if (kLitSkip) {
+            const int drain = (len + 31) >> 5;
+            pairs = drain > coding ? drain : coding;
+            lidx += len;   // a jump of at most 254: the literal chunk
+                           // window of Stager::ensure still holds it
+        }
         const int nok = nd < 2 * budget - 3 ? nd : 2 * budget - 3;
         constexpr int kPer = LaneBinary<32>::kPer;
         SQZ_UNROLL()
@@ -267,6 +287,7 @@ struct TokProducer {
 // role: kRoleBoth (one warp, or the host: produce a buffer, then code
 // it), or the producer or the coder warp of a pair that hands buffers
 // over through named barriers bar .. bar + 3 (sqz4_pair.cuh).
+template <bool kLitSkip>
 SQZ_DEVICE void encode_tok_lane(const uint32_t* toks, int tok_rows,
                                 const uint8_t* lits, int lit_bytes,
                                 int t_max, int lanes, uint32_t* words,
@@ -276,7 +297,7 @@ SQZ_DEVICE void encode_tok_lane(const uint32_t* toks, int tok_rows,
         code_buffers(&sm->pair, bar);
         return;
     }
-    TokProducer prod;
+    TokProducer<kLitSkip> prod;
     prod.init(sm, toks, tok_rows, lits, lit_bytes, t_max);
     produce_buffers(prod, &sm->pair, role, bar, words, lanes, cap_words,
                     len_out);
@@ -288,6 +309,7 @@ SQZ_DEVICE void encode_tok_lane(const uint32_t* toks, int tok_rows,
 
 // One block a pair of warps (or one warp at 32 threads a CTA), up to
 // four blocks a CTA: sqz4_pair.cuh.
+template <bool kLitSkip>
 __global__ void __launch_bounds__(64 * sqz4::kMaxBlocks)
 sqz4_encode_tok_kernel(const uint32_t* __restrict__ toks, int tok_rows,
                        const uint8_t* __restrict__ lits, int lit_bytes,
@@ -298,19 +320,19 @@ sqz4_encode_tok_kernel(const uint32_t* __restrict__ toks, int tok_rows,
     const sqz4::PairSlot at = sqz4::pair_slot();
     if (at.n >= n_lanes) return;
     const long long n = at.n, g = n / lanes, b = n % lanes;
-    sqz4::encode_tok_lane(toks + n * tok_rows, tok_rows,
-                          lits + n * lit_bytes, lit_bytes, t_max, lanes,
-                          words + g * cap_words * lanes + b, cap_words,
-                          lens + g * 8 * lanes + b,
-                          reinterpret_cast<sqz4::TokSmem*>(smem_raw) + at.j,
-                          at.role, 4 * at.j);
+    sqz4::encode_tok_lane<kLitSkip>(
+        toks + n * tok_rows, tok_rows, lits + n * lit_bytes, lit_bytes,
+        t_max, lanes, words + g * cap_words * lanes + b, cap_words,
+        lens + g * 8 * lanes + b,
+        reinterpret_cast<sqz4::TokSmem*>(smem_raw) + at.j, at.role,
+        4 * at.j);
 }
 
 // toks: [groups, lanes, tok_rows] u32; lits: [groups, lanes, lit_bytes]
 // u8; words: [groups, cap_words, lanes] u32, zero-filled; lens: [groups,
 // 8, lanes] i32, zero-filled. threads: 32, 64, 128, 192 or 256 a CTA (see
-// the kernel). lit_skip (the resident paths' raw literal stream) is not
-// implemented: a nonzero flag returns cudaErrorNotSupported. Launches on
+// the kernel). lit_skip nonzero: lits holds the raw blocks and match
+// tokens skip the bytes they cover (the resident paths). Launches on
 // `stream`; returns the cudaError_t of the launch.
 extern "C" int sqz4_encode_tok_launch(const void* toks, int tok_rows,
                                       const void* lits, int lit_bytes,
@@ -318,11 +340,12 @@ extern "C" int sqz4_encode_tok_launch(const void* toks, int tok_rows,
                                       void* words, int cap_words, void* lens,
                                       int threads, int lit_skip,
                                       void* stream) {
-    if (lit_skip) return static_cast<int>(cudaErrorNotSupported);
     const int n_lanes = groups * lanes;
     return sqz4::pair_launch(
-        sqz4_encode_tok_kernel, sizeof(sqz4::TokSmem), n_lanes, threads,
-        stream, static_cast<const uint32_t*>(toks), tok_rows,
+        lit_skip ? sqz4_encode_tok_kernel<true>
+                 : sqz4_encode_tok_kernel<false>,
+        sizeof(sqz4::TokSmem), n_lanes, threads, stream,
+        static_cast<const uint32_t*>(toks), tok_rows,
         static_cast<const uint8_t*>(lits), lit_bytes, n_lanes, lanes, t_max,
         static_cast<uint32_t*>(words), cap_words,
         static_cast<int32_t*>(lens));

@@ -1,13 +1,25 @@
 """Launch plumbing shared by the kernel wrappers (``sqz4_cuda``,
-``squeeze_cuda``): input checks, the device that picks kernel or plain
-version, zeroed outputs, the launch status check and per-stage host
-timing."""
+``squeeze_cuda``) and the entry points: the requested device, input
+checks, the device that picks kernel or plain version, zeroed outputs,
+the launch status check and per-stage host timing."""
 
 from __future__ import annotations
 
 import time
 
 import torch
+
+
+def resolve_device(device) -> torch.device:
+    """An entry point's ``device``: "cuda" (the card; RuntimeError without
+    one) or "cpu" (the plain versions)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device 'cuda' requested but no CUDA device is "
+                           "available")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
 
 
 def kernel_device(*tensors) -> torch.device:

@@ -5,7 +5,8 @@
 CUDA device and run the plain versions (``sqz4_ref``) for tensors on the
 CPU; any other device raises. Each counts its kernel launches in its
 ``launches`` attribute; ``encode_full`` and ``decode`` count their seeded
-(warm-start) launches apart, in ``seeded_launches``.
+(warm-start) launches apart, in ``seeded_launches``, and ``encode_tok``
+its lit_skip launches (the resident paths) in ``lit_skip_launches``.
 
 ``encode_data_full``, ``encode_data_tok`` and ``decode_groups`` are the
 main path around them: the native host planner -> op streams or tokens
@@ -156,19 +157,22 @@ decode.seeded_launches = 0
 
 
 def encode_tok(toks: torch.Tensor, lits: torch.Tensor, t_max: int,
-               cap_words: int):
+               cap_words: int, lit_skip: bool = False):
     """sqz4 token encoder: toks uint32 [G, B, Tt] (one token row per
     block, as ``native.sqz4_tok_plan`` emits them), lits uint8 [G, B, L]
     (each block's literal bytes), at most ``t_max`` op pairs a block ->
     (payload words uint32 [G, cap_words, B], lens int32 [G, 8, B]), the
-    op-stream encoder's outputs for the same parse."""
+    op-stream encoder's outputs for the same parse. ``lit_skip`` (the
+    resident paths): lits holds the raw blocks and each match token skips
+    the bytes it covers; its launches count in ``lit_skip_launches``."""
     launch.check_tensor(toks, "toks", torch.uint32)
     launch.check_tensor(lits, "lits", torch.uint8)
     if toks.shape[:2] != lits.shape[:2]:
         raise ValueError("toks and lits differ in groups or lanes")
     dev = launch.kernel_device(toks, lits)
     if dev.type == "cpu":
-        return sqz4_ref.encode_tok_ref(toks, lits, t_max, cap_words)
+        return sqz4_ref.encode_tok_ref(toks, lits, t_max, cap_words,
+                                       lit_skip)
     from sqz_tpu_torch.ops import _build
     G, B, TT = toks.shape
     words = launch.zeros((G, cap_words, B), torch.uint32, dev)
@@ -177,14 +181,18 @@ def encode_tok(toks: torch.Tensor, lits: torch.Tensor, t_max: int,
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = _build.library().sqz4_encode_tok_launch(
             toks.data_ptr(), TT, lits.data_ptr(), lits.shape[2], G, B, t_max,
-            words.data_ptr(), cap_words, lens.data_ptr(), TOK_THREADS, 0,
-            stream)
+            words.data_ptr(), cap_words, lens.data_ptr(), TOK_THREADS,
+            int(lit_skip), stream)
     launch.launched(rc, "sqz4_encode_tok")
-    encode_tok.launches += 1
+    if lit_skip:
+        encode_tok.lit_skip_launches += 1
+    else:
+        encode_tok.launches += 1
     return words, lens
 
 
 encode_tok.launches = 0
+encode_tok.lit_skip_launches = 0
 
 
 def encode_stats(start: torch.Tensor, size: torch.Tensor,

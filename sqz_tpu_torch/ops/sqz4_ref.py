@@ -263,13 +263,18 @@ TOK_DONE = M32   # a lane's token after its last pair
 MOP_PAD = 255
 
 
-def encode_tok_ref(toks, lits, t_max: int, cap_words: int):
+def encode_tok_ref(toks, lits, t_max: int, cap_words: int,
+                   lit_skip: bool = False):
     """toks: uint32 [G, B, Tt] (one token row per block, as
     ``native.sqz4_tok_plan`` emits them); lits: uint8 [G, B, L] (each
     block's literal bytes). Expands the tokens into coder op pairs with
     the kernels' (token, phase) machine, one pair a step for ``t_max``
-    steps (csrc/sqz4_encode_tok.cu). Returns (words uint32
-    [G, cap_words, B], lens int32 [G, 8, B])."""
+    steps (csrc/sqz4_encode_tok.cu). ``lit_skip``: lits holds the raw
+    blocks, and a match token (not EOS) drains the ``len`` bytes it
+    covers at 32 a pair from the pair that fetches it, the lane waiting
+    in phase 15 (PAD pairs) until the drain is done (sqz4_pallas.py
+    :1219-1290). Returns (words uint32 [G, cap_words, B], lens int32
+    [G, 8, B])."""
     G, B, TT = toks.shape
     L = lits.shape[2]
     dev = toks.device
@@ -280,7 +285,7 @@ def encode_tok_ref(toks, lits, t_max: int, cap_words: int):
                     torch.zeros(N, 1, dtype=I64, device=dev)], 1)
     rows = torch.arange(N, device=dev)
     zero = torch.zeros(N, dtype=I64, device=dev)
-    tok, phase, run, tidx, lidx = zero, zero, zero, zero, zero
+    tok, phase, run, tidx, lidx, skip = zero, zero, zero, zero, zero, zero
     coder = _Coder(N, cap_words, dev)
     pad = zero + MOP_PAD
     for _ in range(t_max):
@@ -301,12 +306,16 @@ def encode_tok_ref(toks, lits, t_max: int, cap_words: int):
         eos = ismatch & (cnt_len == 255)
         islit = ~done & ~isflush & ~ismatch
         run = torch.where(need & islit, cnt_len, run)
+        if lit_skip:   # a fetched match token owes cnt_len raw bytes
+            skip = torch.where(need & ismatch & ~eos, cnt_len, skip)
         lbyte = lt[rows, lidx.clamp(max=L)]
 
         # expand (token, phase) -> the pair (m1, s1), (m2, s2)
         p0 = ismatch & (phase == 0)
         p1 = ismatch & (phase == 1)
         pk = ismatch & (phase >= 2)
+        if lit_skip:
+            pk = pk & (phase < 15)
         k1 = (2 * phase - 3).clamp(min=0)
         k2 = (2 * phase - 2).clamp(min=0)
         flush = zero + MOP_FLUSH
@@ -330,13 +339,46 @@ def encode_tok_ref(toks, lits, t_max: int, cap_words: int):
         adv = (p1 & (nb <= 2)) | (pk & (k2 >= nb - 2))
         nxt = torch.where(p0, torch.where(eos, zero + 16, zero + 1), phase)
         nxt = torch.where(((p1 | pk) & ~adv) | isflush, phase + 1, nxt)
-        tok = torch.where(litlast | (adv & ~eos), zero, tok)
+        fin = adv & ~eos
+        if lit_skip:
+            drain = skip.clamp(max=32)
+            lidx = lidx + drain   # match lanes read no literal this pair
+            skip = skip - drain
+            wait = (adv | (ismatch & (phase == 15))) & (skip > 0)
+            nxt = torch.where(wait, zero + 15, nxt)
+            fin = (adv | (ismatch & (phase == 15))) & ~wait & ~eos
+        tok = torch.where(litlast | fin, zero, tok)
         tok = torch.where(isflush & (nxt >= 20), zero + TOK_DONE, tok)
         phase = nxt
 
         coder.code(m1, s1)
         coder.code(m2, s2)
     return coder.result(G, B)
+
+
+def skip_literal_rows(toks, lits):
+    """The literal rows the cold token encoder takes for lit_skip's
+    tokens: toks uint32 [G, B, Tt] over the raw blocks lits uint8 [G, B,
+    L] -> uint8 [G, B, L'] (on the CPU), each row with the spans its match
+    tokens (up to EOS) cover cut out. The cold mode codes on these rows
+    what lit_skip codes on the raw ones."""
+    G, B, TT = toks.shape
+    tk = (toks.reshape(G * B, TT).view(torch.int32).to(I64) & M32).cpu()
+    raw = lits.reshape(G * B, -1).cpu()
+    rows = []
+    for t, blk in zip(tk, raw):
+        t = t[:int(torch.nonzero(t == 0)[0]) if (t == 0).any() else TT]
+        n, ism = t & 0xFF, (t >> 8) & 1
+        eos = torch.nonzero((ism == 1) & (n == 255))
+        if eos.numel():
+            n, ism = n[:int(eos[0])], ism[:int(eos[0])]
+        keep = torch.repeat_interleave(ism == 0, n)
+        rows.append(blk[:keep.numel()][keep])
+    out = torch.zeros((G * B, max([1] + [r.numel() for r in rows])),
+                      dtype=torch.uint8)
+    for i, r in enumerate(rows):
+        out[i, :r.numel()] = r
+    return out.reshape(G, B, -1)
 
 
 def compact_offsets(lens, nb: int, rows: int):

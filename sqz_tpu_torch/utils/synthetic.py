@@ -1,8 +1,10 @@
 """Seeded synthetic inputs of the sqz4 encoders that reach every input
 case, where a parse of real data reaches only some: every op code and
 symbol of an op stream, flushes and pads anywhere, blocks of mixed
-lengths. Used by the tests and ``chip_smoke.py`` to hold the encoder
-kernels against their plain versions.
+lengths; token rows over raw blocks for the token encoder's lit_skip
+mode (``skip_tokens``); and ``resident_mix``, buffers whose cell parse
+reaches every cell token kind. Used by the tests and ``chip_smoke.py`` to hold the
+encoder kernels against their plain versions.
 
 Blocks ride lanes of ``[groups, rows, lanes]`` uint32 arrays, as the
 encoders take them. A block codes at most ``max_ops`` ops (keep it at
@@ -116,3 +118,97 @@ def stats_stream(nb: int, max_rows: int, seed: int, lanes: int = None):
         out.append(np.ascontiguousarray(
             buf.reshape(g, lanes, t).transpose(0, 2, 1)))
     return out
+
+
+CELL = 128   # the resident cell parse's cell (ops/resident.py)
+
+
+def resident_mix(nb: int, blk_bits: int, seed: int, tail: int = None):
+    """``nb`` blocks of 2^blk_bits bytes (blk_bits >= 7) standing for
+    checkpoint and activation buffers, five kinds in turn: sparse float32
+    weights (about half their 128-byte cells zero, so isolated zero cells
+    sit among nonzero ones); periodic content (periods 1, 2, 4, ..., 128
+    in turn); cells that repeat earlier cells of the block within 255
+    cells; pseudo-text; random bytes. The last block is cut to ``tail``
+    bytes (default a third of a block). Returns bytes."""
+    from sqz_tpu_torch.utils import corpus
+    rng = np.random.default_rng(seed)
+    bs = 1 << blk_bits
+    nc = bs // CELL
+    out = []
+    for b in range(nb):
+        kind = b % 5
+        if kind == 0:
+            w = rng.standard_normal(bs // 4).astype(np.float32)
+            w.reshape(nc, CELL // 4)[rng.random(nc) < 0.5] = 0
+            out.append(w.tobytes())
+        elif kind == 1:
+            period = 1 << (b // 5 % 8)
+            pat = rng.integers(0, 256, period, dtype=np.uint8)
+            out.append(np.tile(pat, bs // period).tobytes())
+        elif kind == 2:
+            cells = rng.integers(0, 256, (nc, CELL), dtype=np.uint8)
+            for c in range(4, nc):
+                if rng.random() < 0.7:
+                    cells[c] = cells[c - int(rng.integers(1, min(c, 255)
+                                                          + 1))]
+            out.append(cells.tobytes())
+        elif kind == 3:
+            out.append(corpus.texty(bs, seed=seed + b))
+        else:
+            out.append(rng.integers(0, 256, bs, dtype=np.uint8).tobytes())
+    data = b"".join(out)
+    return data[:len(data) - bs + (bs // 3 if tail is None else tail)]
+
+
+# lane 0 of skip_tokens: (0, n) a literal run, (1, len, dist) a match. A
+# literal run, then a match whose drain outlasts its coding (a wait of six
+# pairs), literals up to byte 255, a jump across the 256-byte chunk edge
+# of the encoder's literal window, jumps over three more chunks with no
+# literal between, a match whose coding outlasts its drain, a short one
+_SKIP_LANE0 = ((0, 5), (1, 254, 1), (0, 250), (1, 200, 3), (1, 254, 7),
+               (1, 254, 100), (1, 254, 4), (0, 20), (1, 128, 128),
+               (1, 2, 3), (0, 1), (1, 33, 9000))
+
+
+def _match_token(length: int, dist: int) -> int:
+    return length | (1 << 8) | (dist.bit_length() << 9) | (dist << 16)
+
+
+def skip_tokens(nb: int, blk_bits: int, seed: int):
+    """Token rows over raw blocks for the token encoder's lit_skip mode:
+    (toks uint32 [nb, Tt], raw uint8 [nb, 2^blk_bits], pairs int64 [nb],
+    the op pairs each row takes). Lane 0 follows ``_SKIP_LANE0``, then
+    random tokens; every lane random literal runs (1..255) and matches
+    (len 2..254, distances up to the position), every fifth lane a block a
+    third of the full size, and EOS. A match takes max(coding pairs,
+    ceil(len / 32)) pairs, a literal one, EOS and its flushes five."""
+    rng = np.random.default_rng(seed)
+    bs = 1 << blk_bits
+    raw = rng.integers(0, 256, (nb, bs), dtype=np.uint8)
+    rows, pairs = [], np.zeros(nb, np.int64)
+    for lane in range(nb):
+        n = bs // 3 if lane % 5 == 4 else bs
+        fixed = list(_SKIP_LANE0) if lane == 0 else []
+        toks, pos = [], 0
+        while pos < n:
+            spec = fixed.pop(0) if fixed else (
+                (0, int(rng.integers(1, 256))) if rng.random() < 0.4 else
+                (1, int(rng.integers(2, 255)), int(rng.integers(1, 1 << 15))))
+            k = min(spec[1], n - pos)
+            if spec[0] == 0 or pos == 0 or k < 2:
+                toks.append(k)
+                pairs[lane] += k
+            else:
+                dist = min(spec[2], pos)
+                toks.append(_match_token(k, dist))
+                nd = max(dist.bit_length() - 1, 0)
+                pairs[lane] += max(2 + nd // 2, -(-k // 32))
+            pos += k
+        rows.append(toks + [0x1FF])
+        pairs[lane] += 5
+    tt = max(map(len, rows)) + 1
+    out = np.zeros((nb, tt), np.uint32)
+    for lane, toks in enumerate(rows):
+        out[lane, :len(toks)] = toks
+    return out, raw, pairs

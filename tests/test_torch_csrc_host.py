@@ -82,15 +82,15 @@ extern "C" void host_decode(const uint32_t* p, const int32_t* meta, int G,
 extern "C" void host_encode_tok(const uint32_t* toks, int TT,
                                 const uint8_t* lits, int L, int G, int B,
                                 int t_max, uint32_t* words, int cw,
-                                int32_t* lens) {
+                                int32_t* lens, int lit_skip) {
     std::unique_ptr<sqz4::TokSmem> sm(new sqz4::TokSmem);
+    auto lane = lit_skip ? sqz4::encode_tok_lane<true>
+                         : sqz4::encode_tok_lane<false>;
     for (long long g = 0; g < G; ++g)
         for (long long b = 0; b < B; ++b)
-            sqz4::encode_tok_lane(toks + (g * B + b) * TT, TT,
-                                  lits + (g * B + b) * L, L, t_max, B,
-                                  words + g * cw * B + b, cw,
-                                  lens + g * 8 * B + b, sm.get(),
-                                  sqz4::kRoleBoth, 0);
+            lane(toks + (g * B + b) * TT, TT, lits + (g * B + b) * L, L,
+                 t_max, B, words + g * cw * B + b, cw, lens + g * 8 * B + b,
+                 sm.get(), sqz4::kRoleBoth, 0);
 }
 
 extern "C" void host_recip(const uint32_t* d, long long n,
@@ -257,16 +257,16 @@ extern "C" void host_encode_stats(const uint32_t* st, const uint32_t* sz,
 extern "C" void host_encode_tok(const uint32_t* toks, int TT,
                                 const uint8_t* lits, int L, int G, int B,
                                 int t_max, uint32_t* words, int cw,
-                                int32_t* lens) {
+                                int32_t* lens, int lit_skip) {
     std::unique_ptr<sqz4::TokSmem> sm(new sqz4::TokSmem);
+    auto lane = lit_skip ? sqz4::encode_tok_lane<true>
+                         : sqz4::encode_tok_lane<false>;
     for (long long g = 0; g < G; ++g)
         for (long long b = 0; b < B; ++b)
             on_warp([&] {
-                sqz4::encode_tok_lane(toks + (g * B + b) * TT, TT,
-                                      lits + (g * B + b) * L, L, t_max, B,
-                                      words + g * cw * B + b, cw,
-                                      lens + g * 8 * B + b, sm.get(),
-                                      sqz4::kRoleBoth, 0);
+                lane(toks + (g * B + b) * TT, TT, lits + (g * B + b) * L, L,
+                     t_max, B, words + g * cw * B + b, cw,
+                     lens + g * 8 * B + b, sm.get(), sqz4::kRoleBoth, 0);
             });
 }
 
@@ -307,7 +307,7 @@ def _coder_argtypes(lib):
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.host_encode.argtypes = [p, p, i, i, i, p, i, p, i, p]
     lib.host_decode.argtypes = [p, p, i, i, i, i, p, p, i, p, i, p, i, p]
-    lib.host_encode_tok.argtypes = [p, i, p, i, i, i, i, p, i, p]
+    lib.host_encode_tok.argtypes = [p, i, p, i, i, i, i, p, i, p, i]
     lib.host_encode_stats.argtypes = [p, p, p, i, i, i, p, i, p]
     return lib
 
@@ -439,7 +439,8 @@ def test_token_encoder_lanes_equal_plain_version(lanes_lib, lz):
     words = np.zeros((G, cw, lanes), np.uint32)
     lens = np.zeros((G, 8, lanes), np.int32)
     lanes_lib.host_encode_tok(_ptr(tt), tt.shape[2], _ptr(lt), lt.shape[2],
-                              G, lanes, int(mx), _ptr(words), cw, _ptr(lens))
+                              G, lanes, int(mx), _ptr(words), cw, _ptr(lens),
+                              0)
     want = sqz4_ref.encode_tok_ref(
         torch.from_numpy(tt.view(np.int32)).view(torch.uint32),
         torch.from_numpy(lt), int(mx), cw)
@@ -467,15 +468,16 @@ def _tok_inputs(data, blk, lanes, lz=True):
     return tt.reshape(G, lanes, -1), lt.reshape(G, lanes, -1), int(mx), nb
 
 
-def _encode_tok_both(lib, tt, lt, t_max, cw):
+def _encode_tok_both(lib, tt, lt, t_max, cw, lit_skip=False):
     G, lanes = tt.shape[:2]
     words = np.zeros((G, cw, lanes), np.uint32)
     lens = np.zeros((G, 8, lanes), np.int32)
     lib.host_encode_tok(_ptr(tt), tt.shape[2], _ptr(lt), lt.shape[2], G,
-                        lanes, t_max, _ptr(words), cw, _ptr(lens))
+                        lanes, t_max, _ptr(words), cw, _ptr(lens),
+                        int(lit_skip))
     want = sqz4_ref.encode_tok_ref(
         torch.from_numpy(tt.view(np.int32)).view(torch.uint32),
-        torch.from_numpy(lt), t_max, cw)
+        torch.from_numpy(lt), t_max, cw, lit_skip)
     return (words, lens), [convert.to_numpy(x) for x in want]
 
 
@@ -508,6 +510,45 @@ def test_token_encoder_lanes_stop_at_the_pair_budget(lanes_lib, cut):
                                  host.cap_words_for((1 << blk) + 2048))
     for a, b in zip(got, want):
         np.testing.assert_array_equal(a, b)
+
+
+def _skip_inputs(nb, blk, lanes, seed):
+    """synthetic.skip_tokens' rows and raw blocks, padded to whole groups
+    of ``lanes`` blocks: (toks [G, lanes, Tt], raw [G, lanes, bs], the
+    longest row's pairs)."""
+    toks, raw, pairs = synthetic.skip_tokens(nb, blk, seed)
+    G = -(-nb // lanes)
+    tt = np.zeros((G * lanes, toks.shape[1]), np.uint32)
+    lt = np.zeros((G * lanes, raw.shape[1]), np.uint8)
+    tt[:nb], lt[:nb] = toks, raw
+    return (tt.reshape(G, lanes, -1), lt.reshape(G, lanes, -1),
+            int(pairs.max()))
+
+
+@pytest.mark.parametrize("cut", [0, 1, 5, 6, 7, 9, 12, 13, 270, 400, -3,
+                                 -1, 10 ** 6])
+def test_lit_skip_lanes_stop_at_the_pair_budget(lanes_lib, cut):
+    # the lit_skip mode's match tokens move the literal cursor (jumps
+    # across the literal window's 256-byte chunks, over several chunks at
+    # once) and hold the lane until the drain ends; a budget that ends
+    # inside such a wait stops the lane where the plain version's machine
+    # does (lane 0: pairs 7..12 wait on a len-254 dist-1 match; cut 0:
+    # the longest lane's pairs, < 0 below them, 10^6 above)
+    tt, lt, mx = _skip_inputs(10, 11, 4, seed=5)
+    t_max = mx + cut if cut <= 0 else cut
+    cw = host.cap_words_for((1 << 11) + 2048)
+    got, want = _encode_tok_both(lanes_lib, tt, lt, t_max, cw,
+                                 lit_skip=True)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+    if cut == 0:
+        # the cold mode codes the same ops from the compacted literals
+        lits = sqz4_ref.skip_literal_rows(
+            torch.from_numpy(tt.view(np.int32)).view(torch.uint32),
+            torch.from_numpy(lt)).numpy()
+        cold, _ = _encode_tok_both(lanes_lib, tt, lits, t_max, cw)
+        for a, b in zip(got, cold):
+            np.testing.assert_array_equal(a, b)
 
 
 def test_decoder_lanes_decode_literal_heavy_blocks(lanes_lib):
@@ -828,6 +869,19 @@ def test_token_encoder_warp_equals_plain_version(warp_lib, cut):
                                  host.cap_words_for((1 << blk) + 2048))
     _assert_equal(got, want)
 
+
+
+@pytest.mark.parametrize("cut", [0, 9, -2])
+def test_lit_skip_warp_equals_plain_version(warp_lib, cut):
+    # the lit_skip lanes on a warp of 32 host threads (the 32-literal
+    # windows split over the lanes after each jump)
+    tt, lt, mx = _skip_inputs(5, 11, 5, seed=6)
+    got, want = _encode_tok_both(warp_lib, tt, lt,
+                                 mx + cut if cut <= 0 else cut,
+                                 host.cap_words_for((1 << 11) + 2048),
+                                 lit_skip=True)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
 
 @pytest.mark.parametrize("corrupt", [False, True])
 def test_decoder_warp_equals_plain_version(warp_lib, corrupt):

@@ -1,6 +1,7 @@
 """The CUDA kernels on a card: each equals its plain version (the seeded
-modes too), and the slice round-trips through them, the pipeline, warm
-start, anchored containers and the squeeze format included. Marked
+and lit_skip modes too), and the slice round-trips through them, the
+pipeline, warm start, anchored containers, the squeeze format and the
+resident paths included. Marked
 ``gpu``; skips without a CUDA device. On a machine with
 one (and without JAX), run:
 
@@ -15,7 +16,8 @@ import sqz_tpu_torch
 from sqz_tpu_torch import convert, native
 from sqz_tpu_torch.formats import container
 from sqz_tpu_torch.ops import engine, sqz4_cuda, sqz4_host as host, sqz4_ref
-from sqz_tpu_torch.ops import probe, squeeze_cuda, squeeze_ref
+from sqz_tpu_torch.ops import lzparse, probe, resident, squeeze_cuda
+from sqz_tpu_torch.ops import squeeze_ref
 from sqz_tpu_torch.utils import corpus, synthetic
 
 pytestmark = pytest.mark.gpu
@@ -256,3 +258,68 @@ def test_warm_and_anchored_containers_round_trip_on_the_card(cuda):
     for fmt in ("sqz4", "squeeze"):
         blob = sqz_tpu_torch.compress(data, fmt=fmt, warm="anchors", **kw)
         assert sqz_tpu_torch.decompress(blob) == data
+
+
+@pytest.mark.parametrize("mode", ["rle", "lz"])
+def test_lit_skip_kernel_equals_plain_version(cuda, mode):
+    # the device parse's tokens over the raw blocks of 13 lanes (the last
+    # CTA of four holds one), every cell kind and a partial block: the
+    # kernel equals the plain version, and the cold kernel on the same
+    # tokens with the literals compacted gives the same payloads
+    bs = 1 << BLK
+    data = synthetic.resident_mix(13, BLK, seed=17)
+    blocks, lengths, nb = resident._prep_blocks(data, BLK, 13, cuda)
+    if mode == "rle":
+        toks, pairs = resident.rle_plan_device(
+            blocks, lengths, resident.rle_group_args(BLK)["Tt"])
+    else:
+        toks, pairs, _d = lzparse.lz_plan_device(
+            blocks, lengths, lzparse.lz_group_args(BLK)["Tt"])
+    cw = host.cap_words_for(bs + 2048)
+    t_max = int(pairs.max())
+    before = sqz4_cuda.encode_tok.lit_skip_launches
+    got = sqz4_cuda.encode_tok(toks, blocks[None], t_max, cw, lit_skip=True)
+    assert sqz4_cuda.encode_tok.lit_skip_launches == before + 1
+    want = sqz4_ref.encode_tok_ref(toks, blocks[None], t_max, cw,
+                                   lit_skip=True)
+    for a, b in zip(got, want):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    lits = sqz4_ref.skip_literal_rows(toks, blocks[None]).to(cuda)
+    cold = sqz4_cuda.encode_tok(toks, lits, t_max, cw)
+    for a, b in zip(got, cold):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    payloads = host.unpack_group_payloads(convert.to_numpy(got[0]),
+                                          convert.to_numpy(got[1]), nb)
+    for b, p in enumerate(payloads):
+        assert native.sqz4_decompress_payload(
+            p, len(data[b * bs:(b + 1) * bs])) == data[b * bs:(b + 1) * bs]
+
+
+def test_resident_paths_round_trip_on_the_card(cuda):
+    # a uint8 CUDA tensor in, the CPU plain versions' containers out, and
+    # restored into a CUDA tensor by the route each container takes
+    # (an LZ lane without matches is cell-parsed: under "auto" the cell
+    # assembly restores it)
+    data = synthetic.resident_mix(11, BLK, seed=18)
+    x = torch.frombuffer(bytearray(data), dtype=torch.uint8).to(cuda)
+    for mode, assembly, route in (("lit", "auto", "cell"),
+                                  ("rle", "auto", "cell"),
+                                  ("lz", "auto", None),
+                                  ("lz", "general", "general")):
+        blob = sqz_tpu_torch.compress_resident(x, blk_bits=BLK, mode=mode)
+        assert blob == sqz_tpu_torch.compress_resident(
+            data, blk_bits=BLK, mode=mode, device="cpu")
+        assert sqz_tpu_torch.decompress(blob) == data
+        before = dict(resident.route_lanes)
+        out = sqz_tpu_torch.decompress_resident(blob, assembly=assembly)
+        assert out.is_cuda and out.cpu().numpy().tobytes() == data
+        moved = {k: resident.route_lanes[k] - before[k] for k in before}
+        assert moved["host"] == 0 and sum(moved.values()) == 11
+        assert moved["general"] > 0 if route is None else moved[route] == 11
+    code, wb, bb, osize, payloads, csum, _f, _a = container.unpack(blob)
+    p = bytearray(payloads[3])
+    p[len(p) // 2] ^= 0xFF
+    payloads[3] = bytes(p)
+    with pytest.raises((ValueError, OSError)):
+        sqz_tpu_torch.decompress_resident(
+            container.pack(code, wb, bb, osize, payloads, csum))

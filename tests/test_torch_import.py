@@ -41,8 +41,8 @@ def _foreign(name: str) -> bool:
 
 def test_import_leaves_jax_out():
     """Importing the port and small compress / decompress round trips on
-    the CPU (cold, warm and anchored) load neither jax nor any module of
-    the JAX package."""
+    the CPU (cold, warm and anchored, and the resident paths) load neither
+    jax nor any module of the JAX package."""
     native.build()    # the round trip needs the runtime: build it here
     code = (
         "import sys\n"
@@ -62,6 +62,12 @@ def test_import_leaves_jax_out():
         "    blob = sqz_tpu_torch.compress(data, blk_bits=9, win_bits=10, "
         "warm=warm, device='cpu')\n"
         "    assert sqz_tpu_torch.decompress(blob, device='cpu') == data\n"
+        "for mode in ('lit', 'rle', 'lz'):\n"
+        "    blob = sqz_tpu_torch.compress_resident(data, blk_bits=8, "
+        "mode=mode, lanes=8, device='cpu')\n"
+        "    out = sqz_tpu_torch.decompress_resident(blob, lanes=8, "
+        "device='cpu')\n"
+        "    assert out.numpy().tobytes() == data\n"
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'sqz_tpu')]\n"
         "assert not bad, bad\n")

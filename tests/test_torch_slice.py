@@ -78,13 +78,35 @@ def test_cuda_device_without_a_card_raises():
 
 
 def test_unported_requests_raise_not_implemented():
+    # the resident paths are served; over a mesh they are not (multi-GPU,
+    # ROADMAP Queue 1 item 11), and a squeeze container is no input of
+    # the resident restore (a ValueError, as the reference's)
     data = _data()
     sq_blob = sqz_tpu.compress(data, fmt="squeeze", engine="native",
                                blocks=True, blk_bits=10)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        sqz_tpu_torch.compress_resident(data)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        sqz_tpu_torch.decompress_resident(sq_blob)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+        sqz_tpu_torch.compress_resident(data, mesh=object(), device="cpu")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+        sqz_tpu_torch.decompress_resident(sq_blob, mesh=object(),
+                                          device="cpu")
+    with pytest.raises(ValueError, match="cold sqz4"):
+        sqz_tpu_torch.decompress_resident(sq_blob, device="cpu")
+
+
+def test_resident_entry_points_run_on_the_card_by_default():
+    # compress_resident / decompress_resident default to "cuda": without
+    # a card they raise; on the CPU they round-trip
+    data = _data()
+    blob = sqz_tpu_torch.compress_resident(data, blk_bits=10, mode="lit",
+                                           device="cpu")
+    out = sqz_tpu_torch.decompress_resident(blob, device="cpu")
+    assert out.dtype == torch.uint8 and out.numpy().tobytes() == data
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device")
+    with pytest.raises(RuntimeError, match="cuda"):
+        sqz_tpu_torch.compress_resident(data, blk_bits=10)
+    with pytest.raises(RuntimeError, match="cuda"):
+        sqz_tpu_torch.decompress_resident(blob)
 
 
 def test_invalid_requests_raise_value_error():

@@ -1,6 +1,7 @@
-"""The port's token encoder and payload compaction (plain PyTorch versions,
-CPU) against the JAX package's Pallas kernels in interpret mode, and the
-token encoder against the port's op-stream encoder.
+"""The port's token encoder (both modes) and payload compaction (plain
+PyTorch versions, CPU) against the JAX package's Pallas kernels in
+interpret mode, and the token encoder against the port's op-stream
+encoder.
 
 Tolerance is zero throughout: payload bytes and lengths must be equal."""
 
@@ -13,7 +14,7 @@ from sqz_tpu import native as ref_native
 from sqz_tpu.ops import sqz4_pallas as sp
 from sqz_tpu_torch import convert, native
 from sqz_tpu_torch.ops import sqz4_cuda, sqz4_host as host, sqz4_ref
-from sqz_tpu_torch.utils import corpus
+from sqz_tpu_torch.utils import corpus, synthetic
 
 # the plain versions step over small tensors: one intra-op thread each,
 # so parallel test workers do not oversubscribe the cores
@@ -66,6 +67,32 @@ def test_plain_token_encoder_matches_pallas(lz):
                                       ref_words[0, :n, lane])
     want = ref_native.blocks_compress(data, 1, 10, BLK, lz=lz, parse="fast")
     assert host.unpack_group_payloads(words, lens, LANES) == want
+
+
+@pytest.mark.parametrize("cut", [0, 9, 300])
+def test_plain_lit_skip_encoder_matches_pallas(cut):
+    # the lit_skip mode: tokens over the raw blocks (2 KiB, 32 lanes: the
+    # Pallas launcher's [1, rows, lanes] layouts, literals as big-endian
+    # words); cut 0: the longest lane's pairs, 9: inside lane 0's first
+    # wait, 300: mid-block
+    toks, raw, pairs = synthetic.skip_tokens(32, 11, seed=8)
+    t_max = int(pairs.max()) if cut == 0 else cut
+    tt = _round_up(toks.shape[1], 32)
+    tarr = np.zeros((1, 32, tt), np.uint32)
+    tarr[0, :, :toks.shape[1]] = toks
+    cap_words = host.cap_words_for((1 << 11) + 2048)
+    ref_words, ref_lens = map(np.asarray, sp._encode_tok_pallas(
+        sp._transpose_tok(jnp.asarray(tarr)),
+        sp._pack_ops_words(jnp.asarray(raw[None])), t_max, cap_words,
+        interpret=True, lit_skip=True))
+    words, lens = map(convert.to_numpy, sqz4_cuda.encode_tok(
+        torch.from_numpy(tarr.view(np.int32)).view(torch.uint32),
+        torch.from_numpy(raw[None]), t_max, cap_words, lit_skip=True))
+    np.testing.assert_array_equal(lens[:, 0], ref_lens[:, 0])
+    for lane in range(32):
+        n = (int(lens[0, 0, lane]) + 3) // 4
+        np.testing.assert_array_equal(words[0, :n, lane],
+                                      ref_words[0, :n, lane])
 
 
 INPUTS = {
@@ -153,10 +180,13 @@ def test_token_encoder_inputs_are_checked():
         sqz4_cuda.encode_tok(toks.view(torch.int32), lits, 4, 32)
     with pytest.raises(ValueError):
         sqz4_cuda.encode_tok(toks, lits[:, :2], 4, 32)
-    before = sqz4_cuda.encode_tok.launches
-    words, lens = sqz4_cuda.encode_tok(toks, lits, 4, 32)
-    assert sqz4_cuda.encode_tok.launches == before
-    assert int(lens.sum()) == 0 and words.shape == (1, 32, 4)
+    before = (sqz4_cuda.encode_tok.launches,
+              sqz4_cuda.encode_tok.lit_skip_launches)
+    for skip in (False, True):
+        words, lens = sqz4_cuda.encode_tok(toks, lits, 4, 32, lit_skip=skip)
+        assert int(lens.sum()) == 0 and words.shape == (1, 32, 4)
+    assert (sqz4_cuda.encode_tok.launches,
+            sqz4_cuda.encode_tok.lit_skip_launches) == before
 
 
 @pytest.mark.parametrize("nb", [1, 600, 1500])

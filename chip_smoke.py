@@ -17,7 +17,9 @@ Phases (any failure exits non-zero):
      encoder at 512 blocks of 16 KiB, the largest blocks whose model
      totals stay below its 2^15 limit; the probes at their fixed inputs):
      outputs must be equal (tolerance 0, a lossless integer codec), and
-     the payloads equal the native engine's. At both sizes the op-stream
+     the payloads equal the native engine's; at the main shape the
+     bit-packer also packs the exact parse's records of 32 MiB of random
+     bytes (its longest record columns). At both sizes the op-stream
      and stats-fed encoders also code synthetic streams that reach every
      op code, flushes and pads anywhere and blocks of mixed lengths
      (``sqz_tpu_torch.utils.synthetic``), against their plain versions.
@@ -81,8 +83,10 @@ Phases (any failure exits non-zero):
      lane, lz by the general assembly in every lane with a match (in
      every lane under ``assembly="general"``), the fast-parse container
      by the general assembly in every lane, no lane on the host; a
-     corrupt payload byte must raise; the cold token kernel's and its
-     lit_skip mode's launch counts over the run must be > 0. The lit_skip
+     corrupt payload byte must raise; the cold token kernel's, its
+     lit_skip mode's and the compaction's launch counts over the run must
+     be > 0. The compaction is held against its plain version on the lit
+     encode's payloads (the largest it meets). The lit_skip
      kernel is held against its plain version (in a worker) at the rle
      path's shape, and, on the rle and the lz tokens, against the cold
      kernel on the same tokens with the literals compacted on the host.
@@ -309,6 +313,47 @@ def tok_literal_bytes(toks):
     return int((t & 0xFF)[(t != 0) & ((t >> 8) & 1 == 0)].sum())
 
 
+def compact_vs_plain(words, lens, n):
+    """The compaction kernel on the first ``n`` lanes of an encoder's
+    output (words [1, R, B], lens [1, 8, B] on the card) against its plain
+    version and one torch call for the same concatenation
+    (``torch.masked_select``): equal outputs, or AssertionError. Returns
+    (max_abs_err, kernel ms (mean of 20 launches), plain ms, bound ms,
+    bound_by, library ms)."""
+    import torch
+    from sqz_tpu_torch.ops import _build, sqz4_cuda, sqz4_ref
+    flat = sqz4_cuda.compact_words(words, lens, n)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    want = sqz4_ref.compact_ref(words, lens, n)
+    torch.cuda.synchronize()
+    cplain = (time.perf_counter() - t) * 1e3
+    cerr = max_abs_err([flat], [want])
+    if cerr:
+        raise AssertionError(f"compaction differs from its plain version "
+                             f"(max_abs_err {cerr})")
+    offsets = sqz4_ref.compact_offsets(lens, n, words.shape[1])
+    out = torch.empty_like(flat)
+    stream = torch.cuda.current_stream().cuda_stream
+    lib = _build.library()
+    kms = mean_events_ms(lambda: lib.sqz4_compact_launch(
+        words.data_ptr(), words.shape[2], offsets.data_ptr(), n,
+        out.data_ptr(), sqz4_cuda.COMPACT_ROWS, stream), 20)
+    if not torch.equal(out.view(torch.int32), flat.view(torch.int32)):
+        raise AssertionError("timed compaction launches differ")
+    # the library yardstick: one torch call for the same concatenation
+    wc = offsets[1:] - offsets[:-1]
+    mask = (torch.arange(words.shape[1], device=words.device)[None, :]
+            < wc[:, None])
+    cols = words[0].view(torch.int32).t()[:n]
+    lib_out = torch.masked_select(cols, mask)
+    if not torch.equal(lib_out.view(torch.int32), flat.view(torch.int32)):
+        raise AssertionError("masked_select differs from the compaction")
+    lms = mean_events_ms(lambda: torch.masked_select(cols, mask), 20)
+    return (cerr, kms, cplain) + bound(
+        2 * flat.numel() * 4 + offsets.numel() * 8, 0) + (lms,)
+
+
 def kernels_vs_plain(data, blk_bits, win_bits, lanes, reps, stats_bits,
                      pool):
     """Each kernel on the card against its plain PyTorch version on the
@@ -322,7 +367,7 @@ def kernels_vs_plain(data, blk_bits, win_bits, lanes, reps, stats_bits,
     import numpy as np
     import torch
     from sqz_tpu_torch import convert, native
-    from sqz_tpu_torch.ops import _build, sqz4_cuda, sqz4_host as host
+    from sqz_tpu_torch.ops import sqz4_cuda, sqz4_host as host
     from sqz_tpu_torch.ops import sqz4_ref
     dev = torch.device("cuda")
     bs = 1 << blk_bits
@@ -393,42 +438,17 @@ def kernels_vs_plain(data, blk_bits, win_bits, lanes, reps, stats_bits,
                                   pool, payloads[0]))
 
     # compaction of the token encoder's output (every lane)
-    n = len(grp.fit)
-    flat = sqz4_cuda.compact_words(twords, tlens, n)
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    want = sqz4_ref.compact_ref(twords, tlens, n)
-    torch.cuda.synchronize()
-    cplain = (time.perf_counter() - t) * 1e3
-    cerr = max_abs_err([flat], [want])
-    if cerr:
-        raise AssertionError(f"compaction differs from its plain version "
-                             f"(max_abs_err {cerr})")
-    offsets = sqz4_ref.compact_offsets(tlens, n, twords.shape[1])
-    out = torch.empty_like(flat)
-    stream = torch.cuda.current_stream().cuda_stream
-    lib = _build.library()
-    kms = mean_events_ms(lambda: lib.sqz4_compact_launch(
-        twords.data_ptr(), twords.shape[2], offsets.data_ptr(), n,
-        out.data_ptr(), sqz4_cuda.COMPACT_THREADS, stream), 20)
-    if not torch.equal(out.view(torch.int32), flat.view(torch.int32)):
-        raise AssertionError("timed compaction launches differ")
-    # the library yardstick: one torch call for the same concatenation
-    wc = offsets[1:] - offsets[:-1]
-    mask = (torch.arange(twords.shape[1], device=dev)[None, :]
-            < wc[:, None])
-    cols = twords[0].view(torch.int32).t()[:n]
-    lib_out = torch.masked_select(cols, mask)
-    if not torch.equal(lib_out.view(torch.int32), flat.view(torch.int32)):
-        raise AssertionError("masked_select differs from the compaction")
-    lms = mean_events_ms(lambda: torch.masked_select(cols, mask), 20)
-    compact = (cerr, kms, cplain) + bound(
-        2 * flat.numel() * 4 + offsets.numel() * 8, 0) + (lms,)
+    compact = compact_vs_plain(twords, tlens, len(grp.fit))
 
     checks.update(synthetic_vs_plain(lanes, SYNTH_OPS[blk_bits], reps,
                                      pool))
     checks["squeeze_bitpack"] = bitpack_vs_plain(data, blk_bits, win_bits,
                                                  lanes, reps, pool)
+    if blk_bits == MAIN_BITS:   # the longest record columns
+        from sqz_tpu_torch.utils import corpus
+        checks["squeeze_bitpack_random"] = bitpack_vs_plain(
+            corpus.random_bytes(len(data), seed=1), blk_bits, win_bits,
+            lanes, reps, pool)
     checks["sqz4_encode_stats"] = stats_vs_plain(
         data[:lanes << stats_bits], stats_bits, win_bits, lanes, reps, pool)
     probes = probes_vs_plain()
@@ -1336,9 +1356,10 @@ def resident_path(card, texty, fblob, pool):
             resident.route_lanes["general"] - before["general"] != nb:
         raise AssertionError("general assembly of the lz container")
     if min(launches["sqz4_encode_tok"],
-           launches["sqz4_encode_tok_lit_skip"]) < 1:
-        raise AssertionError(f"a token kernel mode was not launched: "
-                             f"{launches}")
+           launches["sqz4_encode_tok_lit_skip"],
+           launches["sqz4_compact"]) < 1:
+        raise AssertionError(f"a token kernel mode or the compaction was "
+                             f"not launched: {launches}")
     code, wb, bb, osize, payloads, csum, _f, _a = container.unpack(
         blobs["rle"])
     p = bytearray(payloads[CORRUPT_BLOCK])
@@ -1386,6 +1407,16 @@ def resident_path(card, texty, fblob, pool):
         if max_abs_err(skip, cold):
             raise AssertionError("lit_skip differs from the cold mode on "
                                  "host-compacted literals")
+    # the compaction on the lit encode's payloads (the largest it meets)
+    lwords, llens = resident.encode_literal_group(
+        blocks, lengths, **resident.encode_group_args(MAIN_BITS))
+    cerr, cms, cplain, cbound, cby, clib = compact_vs_plain(lwords, llens,
+                                                            nb)
+    log(f"compaction of the lit encode's payloads ({nb} lanes, "
+        f"{int(convert.to_numpy(llens)[0, 0, :nb].sum())} B; {card}): "
+        f"{cms:.4f} ms (plain {cplain:.1f} ms, bound {cbound:.4f} ms by "
+        f"{cby}, err {cerr}, library {clib:.4f} ms)")
+    del lwords, llens
     lens_np, toks_np = convert.to_numpy(lens), convert.to_numpy(toks)
     # the kernel reads only the bytes of the literal runs: matched spans
     # of the raw rows are skipped, never loaded

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Time variants of the coders' kernels (the token, op-stream and
 stats-fed encoders, the decoder) on one CUDA card, to see what their
-serial chains wait on.
+serial chains wait on, and the squeeze bit-packer's and the payload
+compaction's tile sizes.
 
 Run from the root of a checkout, on a machine with a card and nvcc:
 
@@ -11,23 +12,33 @@ Run from the root of a checkout, on a machine with a card and nvcc:
 
 ``--base DIR`` also builds each named variant from the sources of the
 checkout at DIR (for example the parent commit, unpacked with ``git
-archive``) and times it beside this checkout's as ``base:<name>``: for
-kernels whose launcher has the same signature and launch geometry there
-(the token encoder's; the decoder's in checkouts whose launcher takes the
-seed column, as this one's does; and variants whose substitutions name
-files that checkout has). Every variant runs cold (a null seed).
+archive``) and times it beside this checkout's as ``base:<name>``, in
+turns (base, this, this, base): for kernels whose launcher has the same
+signature and launch geometry there (the token encoder's; the decoder's
+in checkouts whose launcher takes the seed column, as this one's does;
+and variants whose substitutions name files that checkout has), and for
+the bit-packer and the compaction, whose first designs (one thread a
+lane, 32 a CTA; one CTA a lane, 256 threads) are launched with their own
+arguments. Every variant runs cold (a null seed).
 
 A variant is a kernel source from ``sqz_tpu_torch/csrc`` with a few text
 substitutions in it or its headers (some drop work the kernel must do, so
 their outputs differ: they are timing probes), compiled alone with nvcc into
 ``build/chain_variants/<name>/`` and launched through its C entry point on
-one group of 512 blocks of 64 KiB of ``corpus.texty`` and of
-``corpus.random_bytes`` (seed 1, window 2^15), the shapes chip_smoke.py
-times: the exact parse's op streams, the fast parse's tokens, the
-payloads; the stats-fed encoder on the statistics of the first 512
-blocks of 16 KiB. Prints one line per variant and input (best of three
-launches by CUDA events, and whether the outputs equal the package
-kernel's), then a JSON object of them all.
+one group of 512 blocks of 64 KiB of ``corpus.texty``, of
+``corpus.random_bytes`` (seed 1, window 2^15) and of the two with runs
+and zeros in turn (``mixed``), the shapes chip_smoke.py times: the exact
+parse's op streams, the fast parse's tokens, the payloads; the stats-fed
+encoder on the statistics of the first 512
+blocks of 16 KiB; the bit-packer on the squeeze exact parse's write
+records (``native.squeeze_plan_pack``); the compaction on the token
+encoder's output. Prints one line per variant, input and turn: ``ms``,
+the best of three calls that zero the outputs and launch (the wrapper's
+work), and ``kernel_ms``, the mean of 20 launches alone (events around
+each launch, after its zeroing; the compaction, which overwrites its
+whole output, as 20 launches back to back, as chip_smoke.py times it),
+by CUDA events, with whether the outputs equal the package kernel's;
+then a JSON object of them all.
 """
 
 import ctypes
@@ -42,15 +53,43 @@ CSRC = os.path.join(ROOT, "sqz_tpu_torch", "csrc")
 OUT = os.path.join(ROOT, "build", "chain_variants")
 TOK, DEC = "sqz4_encode_tok.cu", "sqz4_decode.cu"
 ENC, STATS = "sqz4_encode.cu", "sqz4_encode_stats.cu"
+PACK, COMPACT = "squeeze_bitpack.cu", "sqz4_compact.cu"
+# the first designs' geometry (threads a CTA), for a base checkout whose
+# launcher takes it in place of the tile rows
+FIRST_THREADS = {PACK: 32, COMPACT: 256}
 CHAIN, PAIR = "sqz4_chain.cuh", "sqz4_pair.cuh"
 STATS_BITS = 14
 # the coder warp codes no op and records no byte: the producers alone
 NOCODE = (PAIR, "c.code(total, start, size, m, r.pre + i, r.cnt + i);",
           "r.cnt[i] = 0;")
 
-# name: (source, threads a CTA, blocks of the group launched,
-#        [(file, old, new)])
+# name: (source, threads a CTA (the bit-packer and the compaction: rows
+#        a tile), blocks of the group launched, [(file, old, new)])
 VARIANTS = {
+    # the squeeze bit-packer: 32 lanes x 256 or 128 record rows a CTA
+    "pack": (PACK, 256, 512, []),
+    "pack@128": (PACK, 128, 512, []),
+    # no packing (the words stay zero)
+    "pack-nopack": (PACK, 256, 512, [(PACK, """    if (bits) pack_segment(rec, off, sm.words + l * Smem::kWords);
+""", "")]),
+    # no look-back (every tile at offset 0)
+    "pack-nolook": (PACK, 256, 512, [(PACK,
+                                      "look_back(st, lane_step, t, pending,"
+                                      " base);", "")]),
+    # no word stores
+    "pack-nostore": (PACK, 256, 512, [(PACK,
+                                       "    if (k >= n || w0 + k >= cap_words) "
+                                       "return;", "    return;")]),
+    # the words stored lane by lane: a store of a warp touches 32 rows
+    "pack-lanes": (PACK, 256, 512, [(PACK, """    for (uint32_t r = rmin + warp; r <= rmax; r += kPackWarps)
+        store_tile_word(sm.words + l * Smem::kWords, base_l, bits_l,
+                        r - first, out, lanes,""", """    for (int c = warp; c < kLanes; c += kPackWarps)
+    for (uint32_t k = l; k <= Smem::kWords; k += 32)
+        store_tile_word(sm.words + c * Smem::kWords, sm.base[c], sm.bits[c],
+                        k, out - l + c, lanes,""")]),
+    # the compaction: 32 lanes x 128 or 64 rows a tile
+    "compact": (COMPACT, 128, 512, []),
+    "compact@64": (COMPACT, 64, 512, []),
     "tok@256": (TOK, 256, 512, []),
     "tok@64": (TOK, 64, 512, []),
     "tok@32": (TOK, 32, 512, []),
@@ -113,6 +152,8 @@ def build(name, base=None):
     missing = {w for w, _, _ in subs} - set(os.listdir(csrc))
     if missing:
         raise ValueError(f"{name}: no {sorted(missing)} in {csrc}")
+    with open(os.path.join(csrc, src)) as fh:
+        tiled = "tile_rows" in fh.read()
     for f in os.listdir(csrc):
         with open(os.path.join(csrc, f)) as fh:
             text = fh.read()
@@ -140,29 +181,58 @@ def build(name, base=None):
     elif src == STATS:
         lib.sqz4_encode_stats_launch.argtypes = [p, p, p, i, i, i, p, i, p,
                                                  i, p]
+    elif src == PACK:
+        lib.squeeze_bitpack_launch.argtypes = (
+            [p, i, i, i, p, i, p, p, i, p] if tiled
+            else [p, i, i, i, p, i, p, i, p])
+    elif src == COMPACT:
+        lib.sqz4_compact_launch.argtypes = [p, i, p, i, p, i, p]
     else:
         lib.sqz4_decode_launch.argtypes = [p, p, i, i, i, i, p, i, p, i, p,
                                            i, p, p, i, p]
+    lib.tiled = tiled
     return name, lib
 
 
 def launcher(src, lib, inputs, threads, k, stream):
-    """(run, got, want): a function that zeroes the outputs ``got`` and
-    launches the variant on the first k blocks of ``inputs`` (returns the
-    launch's error code), and the package kernel's outputs there."""
+    """(zero, launch, got, want): a function that zeroes the outputs
+    ``got``, one that launches the variant on the first k blocks of
+    ``inputs`` (returns the launch's error code), and the package kernel's
+    outputs there."""
     import torch
     if src == TOK:
         toks, lits, t_max, cw, want = inputs
         args = (toks[:, :k].contiguous(), lits[:, :k].contiguous())
+    elif src == COMPACT:
+        words, offsets, want = inputs
+        want = [want]
     else:
         args = tuple(x[..., :k].contiguous() for x in inputs[0])
         want = inputs[-1]
-    want = [x[..., :k].contiguous() for x in want]
+    if src != COMPACT:
+        want = [x[..., :k].contiguous() for x in want]
     got = [torch.zeros_like(x) for x in want]
+    if src == PACK:   # the ticket and the status words (tiles >= 128 rows)
+        G, T, B = args[0].shape
+        got.append(torch.zeros(1 + G * -(-T // 128) * B, dtype=torch.int64,
+                               device=args[0].device))
+    geometry = threads if lib.tiled else FIRST_THREADS.get(src, threads)
 
-    def run():
+    def zero():
         for x in got:
             x.zero_()
+
+    def launch():
+        if src == PACK:
+            G, T, B = args[0].shape
+            extra = (got[2].data_ptr(),) if lib.tiled else ()
+            return lib.squeeze_bitpack_launch(
+                args[0].data_ptr(), G, T, B, got[0].data_ptr(), inputs[1],
+                got[1].data_ptr(), *extra, geometry, stream)
+        if src == COMPACT:
+            return lib.sqz4_compact_launch(
+                words.data_ptr(), words.shape[2], offsets.data_ptr(),
+                offsets.numel() - 1, got[0].data_ptr(), geometry, stream)
         if src == TOK:
             return lib.sqz4_encode_tok_launch(
                 args[0].data_ptr(), args[0].shape[2], args[1].data_ptr(),
@@ -184,7 +254,7 @@ def launcher(src, lib, inputs, threads, k, stream):
             got[0].data_ptr(), dims[0], got[1].data_ptr(), dims[1],
             got[2].data_ptr(), dims[2], got[3].data_ptr(), None, threads,
             stream)
-    return run, got, want
+    return zero, launch, got[:len(want)], want
 
 
 def kernel_inputs(src, data):
@@ -208,6 +278,23 @@ def kernel_inputs(src, data):
                                            host.op_stream_cap(16))
         m, s = convert.encoder_inputs(mw, sw, -(-int(mx) // 4), dev)
         return (m, s), cw, sqz4_cuda.encode_full(m, s, cw)
+    if src == PACK:
+        from sqz_tpu_torch.ops import squeeze_cuda
+        words, mx = native.squeeze_plan_pack(data, 15, 16, nb,
+                                             squeeze_cuda.record_cap(16))
+        rows = -(-int(mx) // squeeze_cuda.ROW_CHUNK) * squeeze_cuda.ROW_CHUNK
+        ops = squeeze_cuda.upload_rows(words, rows, dev)
+        pcw = host.cap_words_for(bs + 4096)
+        return (ops,), pcw, squeeze_cuda.bitpack(ops, pcw)
+    if src == COMPACT:
+        from sqz_tpu_torch.ops import sqz4_ref
+        grp = sqz4_cuda.plan_tok_group(data, 16, 1 << 15, True)
+        words, lens = sqz4_cuda.encode_tok(
+            grp.toks.to(dev).view(torch.uint32), grp.lits.to(dev),
+            grp.t_max, cw)
+        n = len(grp.fit)
+        return (words, sqz4_ref.compact_offsets(lens, n, words.shape[1]),
+                sqz4_cuda.compact_words(words, lens, n))
     if src == STATS:
         part = data[:host.LANES << STATS_BITS]
         st = host.op_stream_stats(part, 1 << 15, STATS_BITS)
@@ -226,6 +313,16 @@ def kernel_inputs(src, data):
             sqz4_cuda.decode(pt, mt, plan["t_max"], *dims))
 
 
+def mixed_blocks(corpus):
+    """512 blocks of 64 KiB: pseudo-text, runs, zeros and random bytes in
+    turn, so that the lanes' payloads differ in length by orders of
+    magnitude."""
+    bs = 1 << 16
+    return b"".join(
+        (corpus.texty(bs, seed=b), corpus.rle4(bs), corpus.zeros(bs),
+         corpus.random_bytes(bs, seed=b))[b % 4] for b in range(512))
+
+
 def main(argv):
     import torch
     sys.path.insert(0, ROOT)
@@ -240,19 +337,22 @@ def main(argv):
     jobs = [(n, None) for n in names] + [(n, base) for n in names if base]
     with ThreadPoolExecutor(len(jobs)) as pool:
         libs = dict(pool.map(lambda job: build(*job), jobs))
-    names = list(libs)
+    # in turns with the base: base, this, this, base
+    order = [m for n in names
+             for m in ((f"base:{n}", n, n, f"base:{n}") if base else (n,))]
     stream = torch.cuda.current_stream().cuda_stream
     res = {}
     for mix, data in (("texty", corpus.texty(32 << 20, seed=1)),
-                      ("random", corpus.random_bytes(32 << 20, seed=1))):
+                      ("random", corpus.random_bytes(32 << 20, seed=1)),
+                      ("mixed", mixed_blocks(corpus))):
         inputs = {src: kernel_inputs(src, data)
-                  for src in {VARIANTS[n.removeprefix("base:")][0]
-                              for n in names}}
-        for name in names:
+                  for src in {VARIANTS[n][0] for n in names}}
+        for name in order:
             src, threads, k, _ = VARIANTS[name.removeprefix("base:")]
-            run, got, want = launcher(src, libs[name], inputs[src], threads,
-                                      k, stream)
-            if run():
+            zero, launch, got, want = launcher(src, libs[name], inputs[src],
+                                               threads, k, stream)
+            zero()
+            if launch():
                 raise RuntimeError(f"{name}: launch failed")
             torch.cuda.synchronize()
             equal = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
@@ -262,13 +362,29 @@ def main(argv):
                 a = torch.cuda.Event(enable_timing=True)
                 b = torch.cuda.Event(enable_timing=True)
                 a.record()
-                run()
+                zero()
+                launch()
                 b.record()
                 b.synchronize()
                 ms = a.elapsed_time(b)
                 best = ms if best is None else min(best, ms)
-            res[f"{name}/{mix}"] = {"ms": best, "equal": equal}
-            print(f"{name} {mix} {best:.3f} ms "
+            kernel = 0.0
+            for _ in range(1 if src == COMPACT else 20):
+                zero()
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                a.record()
+                for _ in range(20 if src == COMPACT else 1):
+                    launch()
+                b.record()
+                b.synchronize()
+                kernel += a.elapsed_time(b) / 20
+            r = res.setdefault(f"{name}/{mix}", {"ms": [], "kernel_ms": [],
+                                                 "equal": True})
+            r["ms"].append(best)
+            r["kernel_ms"].append(kernel)
+            r["equal"] &= equal
+            print(f"{name} {mix} {best:.4f} ms, kernel {kernel:.4f} ms "
                   f"{'equal' if equal else 'differs'}", flush=True)
         del inputs
     print(json.dumps({"card": torch.cuda.get_device_name(0),

@@ -32,7 +32,7 @@ SOURCES = ("sqz4_encode.cu", "sqz4_decode.cu", "sqz4_encode_tok.cu",
            "sqz4_compact.cu", "squeeze_bitpack.cu", "sqz4_encode_stats.cu",
            "probe.cu")
 HEADERS = ("sqz4_coder.cuh", "sqz4_div.cuh", "sqz4_warp.cuh",
-           "sqz4_chain.cuh", "sqz4_pair.cuh")
+           "sqz4_chain.cuh", "sqz4_pair.cuh", "sqz_tile.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "sqz_tpu_torch"
 LIB = BUILD_DIR / "libsqz4cuda.so"
 ARCH = "arch=compute_90a,code=sm_90a"
@@ -117,7 +117,8 @@ def library() -> ctypes.CDLL:
             lib.sqz4_compact_launch.restype = i
             lib.sqz4_compact_launch.argtypes = [p, i, p, i, p, i, p]
             lib.squeeze_bitpack_launch.restype = i
-            lib.squeeze_bitpack_launch.argtypes = [p, i, i, i, p, i, p, i, p]
+            lib.squeeze_bitpack_launch.argtypes = [p, i, i, i, p, i, p, p, i,
+                                                  p]
             lib.sqz4_encode_stats_launch.restype = i
             lib.sqz4_encode_stats_launch.argtypes = [p, p, p, i, i, i, p, i,
                                                      p, i, p]

@@ -22,9 +22,10 @@ from sqz_tpu_torch.ops import sqz4_host as host
 from sqz_tpu_torch.ops import launch, squeeze_ref
 from sqz_tpu_torch.ops.sqz4_cuda import fast_depth
 
-# Lanes (one per thread) per CTA: a warp's record loads and word stores
-# then touch 32 adjacent columns.
-THREADS = 32
+# Record rows of a bit-packer tile (csrc/squeeze_bitpack.cu: 32 lanes x
+# this many rows a CTA; the launcher takes 128 or 256, and 256 measured
+# faster: scripts/chain_variants.py, PERF.md).
+TILE_ROWS = 256
 # Record rows are planned and uploaded in multiples of this (the
 # reference's row chunk).
 ROW_CHUNK = 512
@@ -43,11 +44,15 @@ def bitpack(ops: torch.Tensor, cap_words: int):
     G, T, B = ops.shape
     words = launch.zeros((G, cap_words, B), torch.uint32, dev)
     lens = launch.zeros((G, 8, B), torch.int32, dev)
+    # the tiles' ticket, then one look-back status word a (group, lane,
+    # tile)
+    scratch = torch.zeros(1 + G * B * -(-T // TILE_ROWS), dtype=torch.int64,
+                          device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = _build.library().squeeze_bitpack_launch(
             ops.data_ptr(), G, T, B, words.data_ptr(), cap_words,
-            lens.data_ptr(), THREADS, stream)
+            lens.data_ptr(), scratch.data_ptr(), TILE_ROWS, stream)
     launch.launched(rc, "squeeze_bitpack")
     bitpack.launches += 1
     return words, lens

@@ -47,8 +47,10 @@ DECODE_THREADS = 32
 # schedulers. It measured fastest of 256, 64 and 32 (one warp doing both
 # in turn); scripts/chain_variants.py times them (PERF.md).
 TOK_THREADS = 256
-# Threads per CTA of the compaction kernel (one CTA per payload column).
-COMPACT_THREADS = 256
+# Rows of a compaction tile (csrc/sqz4_compact.cu: 32 lanes x this many
+# rows staged in shared memory; the launcher takes 64 or 128, and 128
+# measured faster: scripts/chain_variants.py, PERF.md).
+COMPACT_ROWS = 128
 
 
 # the largest sqz4 blocks the kernels code: a model total (at most 2^14
@@ -289,7 +291,7 @@ def compact_words(words: torch.Tensor, lens: torch.Tensor, nb: int):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = _build.library().sqz4_compact_launch(
             words.data_ptr(), B, offsets.data_ptr(), nb, out.data_ptr(),
-            COMPACT_THREADS, stream)
+            COMPACT_ROWS, stream)
     launch.launched(rc, "sqz4_compact")
     compact_words.launches += 1
     return out

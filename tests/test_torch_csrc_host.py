@@ -27,11 +27,14 @@ import numpy as np
 import pytest
 import torch
 
+import jax.numpy as jnp
+
 from sqz_tpu import native
+from sqz_tpu.ops import sqz4_pallas as sp
 from sqz_tpu.utils import corpus
 from sqz_tpu_torch import convert, native as port_native
 from sqz_tpu_torch.ops import probe, sqz4_cuda, sqz4_host as host, sqz4_ref
-from sqz_tpu_torch.ops import squeeze_ref
+from sqz_tpu_torch.ops import squeeze_cuda, squeeze_ref
 from sqz_tpu_torch.utils import synthetic
 
 # the plain versions step over small tensors: one intra-op thread each,
@@ -39,6 +42,131 @@ from sqz_tpu_torch.utils import synthetic
 torch.set_num_threads(1)
 
 CSRC = Path(__file__).resolve().parents[1] / "sqz_tpu_torch" / "csrc"
+
+# The bit-packer and the compaction as their kernels' CTAs run them, tile
+# after tile in order: 32 lanes x tile_rows rows staged with the device's
+# pitch (rows and lanes outside the limits zero), then each lane's column
+# of the tile through the kernels' device functions on one warp
+# (``on_warp``: one host thread, or 32).
+TILE_HOSTS = r"""
+#include <algorithm>
+#include <vector>
+
+// ops [G, T, B] -> words [G, cw, B], lens [G, 8, B], both zero-filled;
+// tiles of eight segments of N rows (the kernel's eight warps), a thread
+// of the warp packing each of its lanes' segments in order
+template <int N>
+static void bitpack_tiles(const uint32_t* ops, int G, int T, int B,
+                          uint32_t* words, int cw, int32_t* lens) {
+    constexpr int kRows = 8 * N;
+    constexpr int kWords = (kRows * 25 + 31) / 32 + 1;
+    std::vector<uint32_t> tw(sqz_tile::kLanes * kWords);
+    std::vector<uint32_t> total(sqz_tile::kLanes);
+    for (long long g = 0; g < G; ++g)
+        for (int lane0 = 0; lane0 < B; lane0 += sqz_tile::kLanes) {
+            const int nl = std::min(sqz_tile::kLanes, B - lane0);
+            on_warp([&] {
+                std::vector<uint32_t> base(nl, 0u);
+                for (int r0 = 0; r0 < T; r0 += kRows) {
+                    for (int i = sqz4::lane_id(); i < nl * kWords;
+                         i += sqz4::kLanes)
+                        tw[i] = 0u;
+                    sqz4::warp_sync();
+                    for (int c = sqz4::lane_id(); c < nl; c += sqz4::kLanes) {
+                        uint32_t off = 0;
+                        for (int s = 0; s < 8; ++s) {
+                            uint32_t rec[N];
+                            uint32_t bits = 0;
+                            for (int k = 0; k < N; ++k) {
+                                const int r = r0 + s * N + k;
+                                rec[k] = r < T
+                                    ? ops[(g * T + r) * B + lane0 + c] : 0u;
+                                bits += squeeze::record_bits(rec[k]);
+                            }
+                            if (bits)
+                                squeeze::pack_segment(rec, off,
+                                                      tw.data() + c * kWords);
+                            off += bits;
+                        }
+                        total[c] = off;
+                    }
+                    sqz4::warp_sync();
+                    // row by row over the rows the lanes' words span
+                    uint32_t rmin = ~0u, rmax = 0;
+                    for (int c = 0; c < nl; ++c)
+                        if (total[c]) {
+                            rmin = std::min(rmin, base[c] >> 5);
+                            rmax = std::max(rmax,
+                                            (base[c] + total[c] - 1) >> 5);
+                        }
+                    uint32_t* out = words + g * cw * B + lane0;
+                    for (uint32_t r = rmin; r <= rmax && rmin <= rmax; ++r)
+                        for (int c = sqz4::lane_id(); c < nl;
+                             c += sqz4::kLanes)
+                            squeeze::store_tile_word(
+                                tw.data() + c * kWords, base[c], total[c],
+                                r - (base[c] >> 5), out + c, B, cw);
+                    sqz4::warp_sync();
+                    for (int c = 0; c < nl; ++c) base[c] += total[c];
+                }
+                if (sqz4::lane_id() == 0)
+                    for (int c = 0; c < nl; ++c)
+                        lens[g * 8 * B + lane0 + c] =
+                            squeeze::payload_bytes(base[c]);
+            });
+        }
+}
+
+extern "C" int host_bitpack(const uint32_t* ops, int G, int T, int B,
+                            uint32_t* words, int cw, int32_t* lens,
+                            int tile_rows) {
+    switch (tile_rows) {
+        case 32: bitpack_tiles<4>(ops, G, T, B, words, cw, lens); return 0;
+        case 64: bitpack_tiles<8>(ops, G, T, B, words, cw, lens); return 0;
+        case 128: bitpack_tiles<16>(ops, G, T, B, words, cw, lens); return 0;
+        case 256: bitpack_tiles<32>(ops, G, T, B, words, cw, lens); return 0;
+    }
+    return -1;
+}
+
+// words [1, R, B], offsets [nb + 1] -> out [offsets[nb]]
+extern "C" void host_compact(const uint32_t* words, int B,
+                             const long long* offsets, int nb,
+                             uint32_t* out, int tile_rows) {
+    using sqz_tile::kPitch;
+    std::vector<uint32_t> tile(tile_rows * kPitch);
+    for (int lane0 = 0; lane0 < nb; lane0 += sqz_tile::kLanes) {
+        const int nl = std::min(sqz_tile::kLanes, nb - lane0);
+        const long long* off = offsets + lane0;
+        long long longest = 0;
+        for (int c = 0; c < nl; ++c)
+            longest = std::max(longest, off[c + 1] - off[c]);
+        on_warp([&] {
+            for (int r0 = 0; r0 < longest; r0 += tile_rows) {
+                sqz4::warp_sync();
+                for (int i = sqz4::lane_id(); i < tile_rows * 32;
+                     i += sqz4::kLanes) {
+                    const int r = i / 32, l = i % 32;
+                    const long long wc = l < nl ? off[l + 1] - off[l] : 0;
+                    tile[r * kPitch + l] =
+                        r0 + r < wc ? words[(r0 + r) * (long long)B
+                                            + lane0 + l]
+                                    : 0u;
+                }
+                sqz4::warp_sync();
+                for (int c = 0; c < nl; ++c) {
+                    const long long n = off[c + 1] - off[c] - r0;
+                    sqz4::compact_tile_lane(
+                        tile.data() + c, kPitch,
+                        static_cast<int>(std::min<long long>(n, tile_rows)),
+                        out + off[c] + r0);
+                }
+            }
+        });
+    }
+}
+"""
+
 
 HARNESS = r"""
 #define SQZ_DEVICE inline
@@ -104,15 +232,6 @@ extern "C" void host_div(const unsigned long long* num, const uint32_t* d,
         q[i] = sqz4::div_by(num[i], d[i], sqz4::recip64(d[i]));
 }
 
-extern "C" void host_bitpack(const uint32_t* ops, int G, int T, int B,
-                             uint32_t* words, int cw, int32_t* lens) {
-    for (long long g = 0; g < G; ++g)
-        for (long long b = 0; b < B; ++b)
-            squeeze::bitpack_lane(ops + g * T * B + b, T, B,
-                                  words + g * cw * B + b, cw,
-                                  lens + g * 8 * B + b);
-}
-
 extern "C" void host_encode_stats(const uint32_t* st, const uint32_t* sz,
                                   const uint32_t* tt, int G, int T, int B,
                                   uint32_t* words, int cw, int32_t* lens) {
@@ -135,14 +254,10 @@ extern "C" int host_probe(int which, const void* a, const void* b,
     return 0;
 }
 
-extern "C" void host_compact(const uint32_t* words, int B,
-                             const long long* offsets, int nb,
-                             uint32_t* out) {
-    for (int b = 0; b < nb; ++b)
-        sqz4::compact_lane(words + b, B, offsets[b + 1] - offsets[b],
-                           out + offsets[b], 0, 1);
-}
-"""
+// the one-lane build: a warp's body runs once, in this thread
+template <class F>
+static void on_warp(F body) { body(); }
+""" + TILE_HOSTS
 
 
 WARP_HARNESS = r"""
@@ -200,6 +315,10 @@ inline void smem_add(int* p, int v) {
     std::lock_guard<std::mutex> lk(t_warp->mu);
     *p += v;
 }
+inline void smem_or(uint32_t* p, uint32_t v) {
+    std::lock_guard<std::mutex> lk(t_warp->mu);
+    *p |= v;
+}
 inline uint32_t bswap32(uint32_t x) { return __builtin_bswap32(x); }
 inline int popc(unsigned x) { return __builtin_popcount(x); }
 inline int lowest(unsigned x) { return x ? __builtin_ctz(x) : kLanes; }
@@ -209,6 +328,8 @@ inline int lowest(unsigned x) { return x ? __builtin_ctz(x) : kLanes; }
 #include "sqz4_encode_stats.cu"
 #include "sqz4_encode_tok.cu"
 #include "sqz4_decode.cu"
+#include "sqz4_compact.cu"
+#include "squeeze_bitpack.cu"
 
 // body() on a warp of 32 host threads, one lane each
 template <class F>
@@ -286,7 +407,7 @@ extern "C" void host_decode(const uint32_t* p, const int32_t* meta, int G,
                                   counts + g * 8 * B + b, sm.get());
             });
 }
-"""
+""" + TILE_HOSTS
 
 
 def _build(tmp_path_factory, name, source, std):
@@ -312,20 +433,27 @@ def _coder_argtypes(lib):
     return lib
 
 
+def _tile_argtypes(lib):
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.host_compact.argtypes = [p, i, p, i, p, i]
+    lib.host_bitpack.argtypes = [p, i, i, i, p, i, p, i]
+    lib.host_bitpack.restype = i
+    return lib
+
+
 @pytest.fixture(scope="module")
 def warp_lib(tmp_path_factory):
-    """The coders on a warp of 32 host threads (WARP_HARNESS)."""
-    return _coder_argtypes(_build(tmp_path_factory, "sqz4warp",
-                                  WARP_HARNESS, "c++20"))
+    """The coders, the bit-packer and the compaction on a warp of 32 host
+    threads (WARP_HARNESS)."""
+    return _tile_argtypes(_coder_argtypes(_build(
+        tmp_path_factory, "sqz4warp", WARP_HARNESS, "c++20")))
 
 
 @pytest.fixture(scope="module")
 def lanes_lib(tmp_path_factory):
-    lib = _coder_argtypes(_build(tmp_path_factory, "csrc_host", HARNESS,
-                                 "c++17"))
+    lib = _tile_argtypes(_coder_argtypes(_build(
+        tmp_path_factory, "csrc_host", HARNESS, "c++17")))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.host_compact.argtypes = [p, i, p, i, p]
-    lib.host_bitpack.argtypes = [p, i, i, i, p, i, p]
     lib.host_probe.argtypes = [i, p, p, p, i, i]
     lib.host_recip.argtypes = [p, ctypes.c_longlong, p]
     lib.host_div.argtypes = [p, p, ctypes.c_longlong, p]
@@ -654,9 +782,37 @@ def test_compaction_lanes_equal_plain_version(lanes_lib, nb):
     offsets = np.ascontiguousarray(
         sqz4_ref.compact_offsets(lt, nb, R).numpy())
     out = np.zeros(int(offsets[-1]), np.uint32)
-    lanes_lib.host_compact(_ptr(words), B, _ptr(offsets), nb, _ptr(out))
+    lanes_lib.host_compact(_ptr(words), B, _ptr(offsets), nb, _ptr(out),
+                           sqz4_cuda.COMPACT_ROWS)
     np.testing.assert_array_equal(
         out, convert.to_numpy(sqz4_ref.compact_ref(wt, lt, nb)))
+
+
+@pytest.mark.parametrize("tile_rows", [32, 64])
+def test_compaction_tiles_equal_plain_version(coder_lib, tile_rows):
+    # 40 lanes (a second lane group of 8), 37 active; word counts of 0,
+    # one word, exact multiples of the tile, the whole column and random
+    rng = np.random.default_rng(tile_rows)
+    B, R, nb = 40, 200, 37
+    wc = rng.integers(0, R + 1, B)
+    wc[[0, 1, 2, 3, 4, 33]] = (0, 1, tile_rows, 2 * tile_rows, R, R)
+    lens = np.zeros((1, 8, B), np.int32)
+    lens[0, 0] = np.maximum(4 * wc - rng.integers(0, 4, B), 0)
+    lens[0, 0, nb:] = 999999                 # inactive lanes: garbage
+    words = rng.integers(0, 1 << 32, (1, R, B), dtype=np.uint64).astype(
+        np.uint32)
+    wt, lt = convert.to_device(words, "cpu"), convert.to_device(lens, "cpu")
+    offsets = np.ascontiguousarray(
+        sqz4_ref.compact_offsets(lt, nb, R).numpy())
+    out = np.zeros(int(offsets[-1]), np.uint32)
+    coder_lib.host_compact(_ptr(words), B, _ptr(offsets), nb, _ptr(out),
+                           tile_rows)
+    np.testing.assert_array_equal(
+        out, convert.to_numpy(sqz4_ref.compact_ref(wt, lt, nb)))
+    buf = out.astype(">u4").tobytes()
+    assert [buf[a:a + n] for a, n in host.compact_byte_ranges(lens, nb)] \
+        == sp.fetch_payloads_compact(jnp.asarray(words), lens, nb,
+                                     interpret=True)
 
 
 @pytest.mark.parametrize("parse", ["exact", "fast"])
@@ -672,8 +828,8 @@ def test_bitpacker_lanes_equal_plain_version(lanes_lib, parse):
     cw = host.cap_words_for(bs + 4096)
     words = np.zeros((G, cw, lanes), np.uint32)
     lens = np.zeros((G, 8, lanes), np.int32)
-    lanes_lib.host_bitpack(_ptr(ops), G, T, lanes, _ptr(words), cw,
-                           _ptr(lens))
+    assert lanes_lib.host_bitpack(_ptr(ops), G, T, lanes, _ptr(words), cw,
+                                  _ptr(lens), squeeze_cuda.TILE_ROWS) == 0
     want = squeeze_ref.bitpack_ref(convert.to_device(ops, "cpu"), cw)
     np.testing.assert_array_equal(words, convert.to_numpy(want[0]))
     np.testing.assert_array_equal(lens, convert.to_numpy(want[1]))
@@ -689,12 +845,81 @@ def test_bitpacker_lanes_drop_words_past_the_capacity(lanes_lib):
     cw = 32
     words = np.zeros((1, cw, 4), np.uint32)
     lens = np.zeros((1, 8, 4), np.int32)
-    lanes_lib.host_bitpack(_ptr(ops), 1, 300, 4, _ptr(words), cw,
-                           _ptr(lens))
+    assert lanes_lib.host_bitpack(_ptr(ops), 1, 300, 4, _ptr(words), cw,
+                                  _ptr(lens), squeeze_cuda.TILE_ROWS) == 0
     want = squeeze_ref.bitpack_ref(convert.to_device(ops, "cpu"), cw)
     np.testing.assert_array_equal(words, convert.to_numpy(want[0]))
     np.testing.assert_array_equal(lens, convert.to_numpy(want[1]))
     assert (lens[0, 0] > 4 * cw).all()
+
+
+def _records(rng, nbs):
+    """Write records of the bit counts ``nbs`` (0: a zero pad record),
+    each with a random value below 2^count."""
+    nbs = nbs.astype(np.uint32)
+    vals = rng.integers(0, 1 << 25, nbs.shape).astype(np.uint32)
+    return (nbs << 25) | (vals & ((np.uint32(1) << nbs) - np.uint32(1)))
+
+
+def _bitpack_case(case, tile_rows):
+    """(records uint32 [2, 300, 40], cap_words) for one synthetic case:
+    two groups, a second lane group of 8 lanes, a last tile cut short."""
+    rng = np.random.default_rng([tile_rows, len(case)])
+    G, T, B = 2, 300, 40
+    nbs = rng.integers(1, 26, (G, T, B))
+    cw = 256                     # above the longest lane: 300 x 25 bits
+    if case == "mixed":          # pads mid-column; columns that end early
+        nbs[rng.random(nbs.shape) < 0.25] = 0
+        for g, b in zip(*np.nonzero(rng.random((G, B)) < 0.3)):
+            nbs[g, rng.integers(0, T):, b] = 0
+        nbs[:, :, 5] = 25        # every record straddles or fills words
+    elif case == "empty":        # most lanes hold no record
+        nbs[:, :, rng.random(B) < 0.7] = 0
+        nbs[:, :, [0, 39]] = 0
+        nbs[:, :, 1] = 0
+        nbs[:, T - 3:, 1] = 7    # only the last tile's last rows
+        nbs[:, :, 2] = 0
+        nbs[:, :2, 2] = 25       # only the first rows
+    elif case == "aligned":      # totals (and tile totals) at 32 and 64
+        nbs[:, :, 3] = 16        # every tile ends on a word
+        nbs[:, :, 4] = 8         # 2400 bits: a multiple of 32, not 64
+        for b in (6, 7):         # random counts, then fill to 32 or 64
+            nbs[:, T - 8:, b] = 0
+            for g in range(G):
+                m = 32 * (b - 5)
+                rest = -int(nbs[g, :, b].sum()) % m
+                for t in range(T - 8, T):
+                    k = min(rest, 25)
+                    nbs[g, t, b], rest = k, rest - k
+            assert (nbs[:, :, b].sum(1) % (32 * (b - 5)) == 0).all()
+    else:                        # "capacity": most lanes past it
+        cw = 96                  # 3072 bits
+        nbs[:, 123:, 8] = 0      # 123 x 24 bits: inside
+        nbs[:, :123, 8] = 24
+        nbs[:, 128:, 9] = 0      # 128 x 24 bits: the capacity exactly
+        nbs[:, :128, 9] = 24
+    return _records(rng, nbs), cw
+
+
+@pytest.mark.parametrize("case", ["mixed", "empty", "aligned", "capacity"])
+@pytest.mark.parametrize("tile_rows", [32, 64])
+def test_bitpacker_tiles_equal_plain_version(coder_lib, tile_rows, case):
+    # tiles small enough that records straddle tile and word boundaries
+    ops, cw = _bitpack_case(case, tile_rows)
+    G, T, B = ops.shape
+    words = np.zeros((G, cw, B), np.uint32)
+    lens = np.zeros((G, 8, B), np.int32)
+    assert coder_lib.host_bitpack(_ptr(ops), G, T, B, _ptr(words), cw,
+                                  _ptr(lens), tile_rows) == 0
+    want = squeeze_ref.bitpack_ref(convert.to_device(ops, "cpu"), cw)
+    np.testing.assert_array_equal(words, convert.to_numpy(want[0]))
+    np.testing.assert_array_equal(lens, convert.to_numpy(want[1]))
+    past = lens[:, 0] > 4 * cw
+    assert past.any() == (case == "capacity")
+    if case == "capacity":
+        assert not past[:, 8:10].any() and (lens[:, 0, 9] == 4 * cw).all()
+    if case == "empty":
+        assert (lens[:, 0, [0, 39]] == 0).all() and (lens[:, 0, 1:3] > 0).all()
 
 
 def test_stats_encoder_lanes_equal_plain_version(lanes_lib):
@@ -738,7 +963,8 @@ def test_probe_lanes_equal_plain_version(lanes_lib, name):
 
 @pytest.fixture(params=["lane", "warp"])
 def coder_lib(request):
-    """The coders built with one lane a warp, then with 32 host threads."""
+    """The kernels' device functions built with one lane a warp, then with
+    32 host threads."""
     return request.getfixturevalue("lanes_lib" if request.param == "lane"
                                    else "warp_lib")
 

@@ -8,6 +8,7 @@ one (and without JAX), run:
     python -m pytest --noconftest -o addopts="" -m gpu tests/test_torch_cuda.py
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -134,6 +135,60 @@ def test_bitpacker_equals_plain_version(cuda):
     assert (host.unpack_group_payloads(convert.to_numpy(got[0]),
                                        convert.to_numpy(got[1]), nb)
             == native.blocks_compress(data, 0, 10, BLK))
+
+
+@pytest.mark.parametrize("tile_rows", [128, 256])
+def test_bitpacker_tiles_equal_plain_version(cuda, monkeypatch, tile_rows):
+    # three groups, a last lane group of 8, a last tile cut short; pads
+    # mid-column, empty lanes, totals at multiples of 32 and 64, one lane
+    # filling the capacity exactly and some past it
+    monkeypatch.setattr(squeeze_cuda, "TILE_ROWS", tile_rows)
+    rng = np.random.default_rng(tile_rows)
+    G, T, B, cw = 3, 3 * 256 + 77, 72, 512
+    nbs = rng.integers(1, 26, (G, T, B)).astype(np.uint32)
+    nbs[rng.random(nbs.shape) < 0.25] = 0
+    nbs[:, :, [0, 40, 71]] = 0
+    nbs[:, :, 1:3] = 0
+    nbs[:, :768, 1] = 16                   # 12288 bits: 64 x 192
+    nbs[:, :772, 2] = 8                    # 6176 bits: 32 x 193
+    nbs[:, :, 3] = 0
+    nbs[:, :655, 3] = 25
+    nbs[:, 700, 3] = 9                     # 16384 bits: the capacity
+    nbs[:, :, 4] = 25                      # past it
+    vals = rng.integers(0, 1 << 25, nbs.shape).astype(np.uint32)
+    ops = convert.to_device((nbs << 25) | (vals & ((np.uint32(1) << nbs)
+                                                   - np.uint32(1))), cuda)
+    before = squeeze_cuda.bitpack.launches
+    got = squeeze_cuda.bitpack(ops, cw)
+    assert squeeze_cuda.bitpack.launches == before + 1
+    want = squeeze_ref.bitpack_ref(ops, cw)
+    for a, b in zip(got, want):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    lens = convert.to_numpy(got[1])[:, 0]
+    assert (lens[:, 3] == 4 * cw).all() and (lens[:, 4] > 4 * cw).all()
+    assert (lens[:, [0, 40, 71]] == 0).all()
+
+
+@pytest.mark.parametrize("tile_rows", [64, 128])
+def test_compaction_tiles_equal_plain_version(cuda, monkeypatch, tile_rows):
+    # 80 lanes, 70 active (the rest garbage lengths); word counts of 0,
+    # one word, tile multiples, the whole column and random
+    monkeypatch.setattr(sqz4_cuda, "COMPACT_ROWS", tile_rows)
+    rng = np.random.default_rng(tile_rows)
+    B, R, nb = 80, 600, 70
+    wc = rng.integers(0, R + 1, B)
+    wc[:6] = (0, 1, tile_rows, 3 * tile_rows, R, R - 1)
+    lens = np.zeros((1, 8, B), np.int32)
+    lens[0, 0] = np.maximum(4 * wc - rng.integers(0, 4, B), 0)
+    lens[0, 0, nb:] = 999999
+    words = rng.integers(0, 1 << 32, (1, R, B), dtype=np.uint64).astype(
+        np.uint32)
+    wt, lt = convert.to_device(words, cuda), convert.to_device(lens, cuda)
+    before = sqz4_cuda.compact_words.launches
+    flat = sqz4_cuda.compact_words(wt, lt, nb)
+    assert sqz4_cuda.compact_words.launches == before + 1
+    assert torch.equal(flat.view(torch.int32), sqz4_ref.compact_ref(
+        wt, lt, nb).view(torch.int32))
 
 
 def test_stats_encoder_equals_plain_version(cuda):

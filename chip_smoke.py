@@ -89,7 +89,22 @@ Phases (any failure exits non-zero):
      encode's payloads (the largest it meets). The lit_skip
      kernel is held against its plain version (in a worker) at the rle
      path's shape, and, on the rle and the lz tokens, against the cold
-     kernel on the same tokens with the literals compacted on the host.
+     kernel on the same tokens with the literals compacted on the host;
+ 13. the checkpoint path: the AdamW training state of GPT-2 small (124M,
+     its published shapes; 1.49 GB of fp32 parameters and moments made on
+     the card from a seed) through ``utils.checkpoint.save_pytree``
+     (mode rle) and ``load_pytree``. Every leaf must come back a CUDA
+     tensor equal to the saved one; the native copy must decode the
+     file's container to the stream the save built; the lit_skip token
+     kernel's, the compaction's and the decoder's launch counts over the
+     run must be > 0. Then ``params`` alone in mode lit (the cold token
+     kernel) must round-trip, a corrupt payload byte in that file must
+     raise, and the CLI must agree on the card: ``ckpt-save`` /
+     ``ckpt-load`` of a small .npz, ``compress`` / ``decompress`` /
+     ``roundtrip`` (``python -m sqz_tpu_torch``) with the torch engine on
+     1 MiB of texty, its exact-parse container equal to the native
+     engine's, and ``range`` equal to slicing. Save and load MB/s, ratio
+     and stages are printed.
 
 The second-to-last line is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
@@ -1451,6 +1466,271 @@ def resident_path(card, texty, fblob, pool):
     return launches, fig, (chk, extra)
 
 
+# phase 13: the training state of GPT-2 small (124M) at its published
+# shapes (Radford et al. 2019; the Hugging Face ``gpt2`` config), and the
+# AdamW settings of its usual reproductions
+GPT2_SMALL = dict(n_layer=12, n_embd=768, n_head=12, n_positions=1024,
+                  vocab_size=50257)
+GPT2_PARAMS, GPT2_TENSORS = 124_439_808, 148
+ADAMW = dict(lr=6e-4, betas=(0.9, 0.95), weight_decay=0.1)
+ADAMW_STEPS = 3
+CLI_BYTES = 1 << 20
+
+
+def gpt2_small_state(dev):
+    """ckpt-gpt2s-adamw-1.49GB: a dict of ``params`` (148 fp32 tensors in
+    GPT-2's naming, an OrderedDict as ``state_dict()`` gives it; weights
+    N(0, 0.02), LayerNorm weights 1 and biases 0 at initialisation),
+    ``exp_avg`` and ``exp_avg_sq`` (AdamW's moments) and ``step`` (int64),
+    after 3 AdamW steps on N(0, 1e-2) gradients; every value made on the
+    card from ``torch.Generator`` seed 1."""
+    from collections import OrderedDict
+    import torch
+    c = GPT2_SMALL
+    E = c["n_embd"]
+    g = torch.Generator(device=dev).manual_seed(1)
+
+    def normal(*shape):
+        return torch.randn(shape, generator=g, device=dev) * 0.02
+
+    def const(v, n):
+        return torch.full((n,), float(v), device=dev)
+
+    init = OrderedDict([("wte.weight", normal(c["vocab_size"], E)),
+                        ("wpe.weight", normal(c["n_positions"], E))])
+    for i in range(c["n_layer"]):
+        for name, shape in (("ln_1", None), ("attn.c_attn", (E, 3 * E)),
+                            ("attn.c_proj", (E, E)), ("ln_2", None),
+                            ("mlp.c_fc", (E, 4 * E)),
+                            ("mlp.c_proj", (4 * E, E))):
+            w = const(1, E) if shape is None else normal(*shape)
+            init[f"h.{i}.{name}.weight"] = w
+            init[f"h.{i}.{name}.bias"] = const(0, w.shape[-1])
+    init["ln_f.weight"], init["ln_f.bias"] = const(1, E), const(0, E)
+    params = OrderedDict((k, torch.nn.Parameter(v)) for k, v in init.items())
+    del init
+    if len(params) != GPT2_TENSORS or sum(
+            p.numel() for p in params.values()) != GPT2_PARAMS:
+        raise AssertionError("GPT-2 small's parameter count")
+    opt = torch.optim.AdamW(params.values(), **ADAMW)
+    for _ in range(ADAMW_STEPS):
+        for p in params.values():
+            p.grad = torch.randn(p.shape, generator=g, device=dev) * 1e-2
+        opt.step()
+    for p in params.values():
+        p.grad = None
+    moments = [opt.state[p] for p in params.values()]
+    return {"params": OrderedDict((k, p.detach())
+                                  for k, p in params.items()),
+            "exp_avg": OrderedDict((k, m["exp_avg"])
+                                   for k, m in zip(params, moments)),
+            "exp_avg_sq": OrderedDict((k, m["exp_avg_sq"])
+                                      for k, m in zip(params, moments)),
+            "step": torch.tensor(ADAMW_STEPS, dtype=torch.int64,
+                                 device=dev)}
+
+
+def leaves_equal(got, want):
+    """Every leaf of ``got`` is a CUDA tensor equal to ``want``'s, in
+    dtype, shape and bits, in the same tree structure."""
+    import torch
+    from sqz_tpu_torch.utils import checkpoint
+    a, b = [], []
+    if checkpoint._flatten(got, a) != checkpoint._flatten(want, b):
+        return False
+    return all(x.is_cuda and x.dtype == y.dtype and x.shape == y.shape
+               and torch.equal(x, y) for x, y in zip(a, b))
+
+
+def read(path) -> bytes:
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def cli_on_the_card(work):
+    """Phase 13's CLI checks, on the card: ckpt-save / ckpt-load of a
+    small .npz, compress / decompress / roundtrip with the torch engine
+    of 1 MiB of texty (its exact-parse container equal to the native
+    engine's), and range equal to slicing."""
+    import numpy as np
+    from sqz_tpu_torch.__main__ import main as cli
+    from sqz_tpu_torch.utils import corpus
+    rng = np.random.default_rng(13)
+    arrays = {"w": (rng.normal(size=(256, 64)) * 0.02).astype(np.float32),
+              "b": np.zeros(64, np.float32),
+              "ids": np.arange(1000, dtype=np.int32)}
+    f = {k: os.path.join(work, k) for k in (
+        "in.npz", "state.ckpt", "out.npz", "in.bin", "torch.sqzt",
+        "native.sqzt", "back.bin", "span.bin")}
+    np.savez(f["in.npz"], **arrays)
+    if cli(["ckpt-save", f["in.npz"], f["state.ckpt"]]) or \
+            cli(["ckpt-load", f["state.ckpt"], f["out.npz"]]):
+        raise AssertionError("ckpt-save / ckpt-load failed")
+    back = np.load(f["out.npz"])
+    if sorted(back.files) != sorted(arrays) or not all(
+            back[k].dtype == v.dtype and np.array_equal(back[k], v)
+            for k, v in arrays.items()):
+        raise AssertionError("ckpt-load does not restore the .npz")
+    data = corpus.texty(CLI_BYTES, seed=3)
+    with open(f["in.bin"], "wb") as fh:
+        fh.write(data)
+    os.environ["SQZ_PARSE"] = "exact"
+    try:
+        rc = (cli(["compress", f["in.bin"], f["torch.sqzt"], "--engine",
+                   "torch"])
+              or cli(["compress", f["in.bin"], f["native.sqzt"],
+                      "--engine", "native", "--blocks"]))
+    finally:
+        del os.environ["SQZ_PARSE"]
+    if rc or read(f["torch.sqzt"]) != read(f["native.sqzt"]):
+        raise AssertionError("the torch engine's exact container differs "
+                             "from the native engine's")
+    if cli(["decompress", f["torch.sqzt"], f["back.bin"]]) or \
+            read(f["back.bin"]) != data:
+        raise AssertionError("decompress does not round-trip")
+    res = subprocess.run([sys.executable, "-m", "sqz_tpu_torch",
+                          "roundtrip", f["in.bin"], "--engine", "torch"],
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=300)
+    log(res.stdout.strip())
+    if res.returncode or "VERIFY FAILED" in res.stdout:
+        raise AssertionError(f"python -m sqz_tpu_torch roundtrip: "
+                             f"{res.stderr[-2000:]}")
+    # one byte, a span over a block edge, a span of many blocks
+    for start, length in ((0, 1), ((1 << MAIN_BITS) - 6, 12),
+                          (CLI_BYTES // 4, CLI_BYTES // 2)):
+        if cli(["range", f["torch.sqzt"], f"{start}:{length}", "--out",
+                f["span.bin"]]) or \
+                read(f["span.bin"]) != data[start:start + length]:
+            raise AssertionError(f"range {start}:{length} differs")
+    log("CLI on the card: ckpt-save, ckpt-load, compress, decompress, "
+        "roundtrip and range agree")
+
+
+def checkpoint_path(card):
+    """Phase 13: ``save_pytree`` (mode rle) / ``load_pytree`` of GPT-2
+    small's AdamW training state (1.49 GB) on the card, with the
+    launches and the restore routes counted over that run; then the
+    checks: every leaf back bit for bit, the container decoded by the
+    native copy to the saved stream, mode lit on ``params`` (the cold
+    token kernel), a corrupt payload byte rejected, and the CLI. Returns
+    the end-to-end figures."""
+    import tempfile
+    import torch
+    import sqz_tpu_torch
+    from sqz_tpu_torch import native
+    from sqz_tpu_torch.formats import container
+    from sqz_tpu_torch.ops import resident, sqz4_cuda
+    from sqz_tpu_torch.utils import checkpoint
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    state = gpt2_small_state(dev)
+    torch.cuda.synchronize()
+    log(f"GPT-2 small AdamW state on the card: "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    with tempfile.TemporaryDirectory(prefix="sqz_ckpt_") as work:
+        path = os.path.join(work, "gpt2s.sqzckpt")
+        counters = (sqz4_cuda.encode_tok, sqz4_cuda.decode,
+                    sqz4_cuda.compact_words)
+        for c in counters:
+            c.launches = 0
+        sqz4_cuda.encode_tok.lit_skip_launches = 0
+        before = dict(resident.route_lanes)
+        enc_st, dec_st = {}, {}
+        t = time.perf_counter()
+        info = checkpoint.save_pytree(state, path, mode="rle",
+                                      stats=enc_st)
+        save_s = time.perf_counter() - t
+        t = time.perf_counter()
+        back = checkpoint.load_pytree(path, stats=dec_st)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t
+        launches = {"sqz4_encode_tok_lit_skip":
+                        sqz4_cuda.encode_tok.lit_skip_launches,
+                    "sqz4_compact": sqz4_cuda.compact_words.launches,
+                    "sqz4_decode": sqz4_cuda.decode.launches}
+        routes = {k: resident.route_lanes[k] - before[k] for k in before}
+        raw = info["raw_bytes"]
+        log(f"launches over the checkpoint path: {launches}; restore "
+            f"routes (lanes): {routes}")
+        if min(launches.values()) < 1:
+            raise AssertionError(f"a kernel of the checkpoint path was not "
+                                 f"launched: {launches}")
+        if not leaves_equal(back, state):
+            raise AssertionError("load_pytree differs from the saved state")
+        del back
+        # the container decodes on the native copy to the saved stream
+        stream = checkpoint.filtered_stream(state, device=dev)[0]
+        want = stream.cpu().numpy().tobytes()
+        del stream
+        _meta, blob = checkpoint.read_checkpoint(path)
+        t = time.perf_counter()
+        host = sqz_tpu_torch.decompress(blob, engine="native")
+        native_s = time.perf_counter() - t
+        if len(want) != raw or native.fnv1a64(host) != \
+                native.fnv1a64(want) or host != want:
+            raise AssertionError("the native copy decodes the container "
+                                 "to another stream")
+        del host, want, blob
+        # mode lit on params: the cold token kernel
+        cold = sqz4_cuda.encode_tok.launches
+        lpath = os.path.join(work, "params.sqzckpt")
+        t = time.perf_counter()
+        linfo = checkpoint.save_pytree(state["params"], lpath, mode="lit")
+        lsave_s = time.perf_counter() - t
+        t = time.perf_counter()
+        lback = checkpoint.load_pytree(lpath)
+        torch.cuda.synchronize()
+        lload_s = time.perf_counter() - t
+        if sqz4_cuda.encode_tok.launches == cold or \
+                not leaves_equal(lback, state["params"]):
+            raise AssertionError("mode lit on params")
+        del lback
+        # a corrupt payload byte in the lit file's container
+        _meta, blob = checkpoint.read_checkpoint(lpath)
+        code, wb, bb, osize, payloads, csum, _f, _a = container.unpack(blob)
+        p = bytearray(payloads[CORRUPT_BLOCK])
+        p[len(p) // 2] ^= 0xFF
+        payloads[CORRUPT_BLOCK] = bytes(p)
+        with open(lpath, "rb") as fh:     # magic and metadata
+            head = fh.read(os.path.getsize(lpath) - len(blob))
+        with open(lpath, "wb") as fh:
+            fh.write(head)
+            fh.write(container.pack(code, wb, bb, osize, payloads, csum))
+        del blob, payloads
+        try:
+            checkpoint.load_pytree(lpath)
+        except (ValueError, OSError) as e:
+            log(f"load_pytree rejects a corrupt block: {e}")
+        else:
+            raise AssertionError("load_pytree took a corrupt payload")
+        cli_on_the_card(work)
+    del state
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - t_phase
+    fig = {"ckpt_save_MBps": raw / 1e6 / save_s,
+           "ckpt_load_MBps": raw / 1e6 / load_s,
+           "ckpt_ratio": info["ratio"],
+           "ckpt_native_dec_MBps": raw / 1e6 / native_s,
+           "ckpt_lit_params_save_MBps": linfo["raw_bytes"] / 1e6 / lsave_s,
+           "ckpt_lit_params_load_MBps": linfo["raw_bytes"] / 1e6 / lload_s,
+           "ckpt_lit_params_ratio": linfo["ratio"],
+           "ckpt_phase_s": wall}
+    log(f"checkpoint, GPT-2 small AdamW state, {raw} B in "
+        f"{-(-raw >> MAIN_BITS)} blocks of 64 KiB ({card}): save "
+        f"{save_s:.3f} s ({fig['ckpt_save_MBps']:.1f} MB/s), load "
+        f"{load_s:.3f} s ({fig['ckpt_load_MBps']:.1f} MB/s), ratio "
+        f"{info['ratio']:.4f}; native decode of the container "
+        f"{native_s:.3f} s; params in mode lit: save "
+        f"{fig['ckpt_lit_params_save_MBps']:.1f} MB/s, load "
+        f"{fig['ckpt_lit_params_load_MBps']:.1f} MB/s, ratio "
+        f"{linfo['ratio']:.4f}; phase {wall:.1f} s")
+    log(f"checkpoint stages (s, {card}): save " + json.dumps(
+        {k: round(v, 4) for k, v in enc_st.items()}) + "; load "
+        + json.dumps({k: round(v, 4) for k, v in dec_st.items()}))
+    return fig
+
+
 def corrupt_rejected(blob):
     """Phase 8: one flipped payload byte -> ValueError naming the block."""
     import sqz_tpu_torch
@@ -1544,6 +1824,8 @@ def main() -> int:
     chain_figures(chain_inputs(data), MAIN_BITS, MAIN_WIN_BITS, REPS)
     stage_times(data)
     corrupt_rejected(blob)
+    del data, blob, fblob
+    we2e.update(checkpoint_path(card))
     if any(m.split(".")[0] in ("jax", "sqz_tpu") for m in sys.modules):
         raise AssertionError("the port imported jax or the JAX package")
     kernels = []

@@ -1,22 +1,31 @@
-"""Public API of the port: compress / decompress with the reference's
-signatures (``sqz_tpu.api``) plus an explicit ``device``.
+"""Public API of the port: compress / decompress / decompress_range with
+the reference's signatures (``sqz_tpu.api``) plus an explicit ``device``.
 
-The one engine served is ``torch``, the default, on ``sqzt`` containers
-of both formats, cold, warm (``warm=True``, sqzt v2) and anchored
-(``warm="anchors"``, sqzt v3), coded by the CUDA kernels on
-``device="cuda"`` (the default; without a card it raises) or by their
-plain PyTorch versions on ``device="cpu"`` (for tests). sqz4 blocks above
-64 KiB (``blk_bits`` 17..40) take the native host codec
-(``ops/engine.py``); the v3 planner runs on the host, and its containers
-decode on the card.
+Engines:
+  * ``torch`` (the default): ``sqzt`` containers of both formats, cold,
+    warm (``warm=True``, sqzt v2) and anchored (``warm="anchors"``, sqzt
+    v3), coded by the CUDA kernels on ``device="cuda"`` (the default;
+    without a card it raises) or by their plain PyTorch versions on
+    ``device="cpu"`` (for tests). sqz4 blocks above 64 KiB (``blk_bits``
+    17..40) take the native host codec (``ops/engine.py``); the v3
+    planner runs on the host, and its containers decode on the card.
+  * ``native``: the port's copy of the C++ host runtime (``native/``),
+    block-parallel on the host's cores.
+  * ``oracle``: the port's copy of the scalar pure-Python codecs
+    (``oracle/``), slow, the ground truth.
+
+The host engines also code the raw single-stream reference formats
+(``blocks=False``) and serve ``decompress_range``; ``device`` does not
+apply to them. Their ``parse="auto"`` is the exact parse (the oracle's
+is always exact), the torch engine's the fast one; ``SQZ_PARSE``
+overrides both.
 
 The resident paths (``compress_resident`` / ``decompress_resident``) code
 data that already sits on the card (a uint8 CUDA tensor) with no host
 planning, and restore it into a tensor there.
 
-Not served yet (each raises NotImplementedError naming its ROADMAP item):
-the host engines ``native`` and ``oracle``, and the resident paths over a
-``mesh``.
+Not served yet: the resident paths over a ``mesh`` (NotImplementedError
+naming ROADMAP.md Queue 1 item 11).
 """
 
 from __future__ import annotations
@@ -52,19 +61,41 @@ def _todo(what: str, item: int):
         f"(ROADMAP.md, Queue 1 item {item})")
 
 
-def _check_engine(engine):
-    """Only the device engine is served; the host engines raise."""
-    engine = Engine(engine)
-    if engine is not Engine.TORCH:
-        raise NotImplementedError(
-            f"engine {engine.value!r} is not served by the port yet "
-            f"(ROADMAP.md, Queue 1 item 14: host engines behind the port's "
-            f"API)")
+def _host_parse(parse: str, engine: Engine) -> str:
+    """The parse of the host planners and codecs (``sqz_tpu/api.py``'s
+    ``_host_parse``): 'auto' is fast on the torch engine (its sqzt
+    contract is round trip and ratio), exact on the host engines (their
+    containers equal across engines); SQZ_PARSE overrides."""
+    env = os.environ.get("SQZ_PARSE")
+    if env in ("fast", "exact"):
+        return env
+    if parse == "auto":
+        return "fast" if engine is Engine.TORCH else "exact"
+    return parse
 
 
-def _block_encoder(fmt: Format, win_bits: int, lz: bool, parse: str):
+def _block_encoder(fmt: Format, engine: Engine, win_bits: int, lz: bool,
+                   parse: str):
     """Per-block payload encoder ``(part, seed, dictionary, want_state) ->
-    payload | (payload, state)`` on the port's native host codec."""
+    payload | (payload, state)`` on a host engine (the native copy's
+    states are flat arrays, the oracle's its own state objects)."""
+    if engine is Engine.ORACLE:
+        from sqz_tpu_torch.oracle.bitstream import BitWriter
+        from sqz_tpu_torch.oracle.squeeze import squeeze_encode_payload
+        from sqz_tpu_torch.oracle.sqz4 import sqz4_encode_payload
+
+        def encode_one(part, seed, dictionary, want_state):
+            if fmt is Format.SQZ4:
+                return sqz4_encode_payload(part, 1 << win_bits, lz=lz,
+                                           seed=seed,
+                                           return_state=want_state,
+                                           dictionary=dictionary)
+            bw = BitWriter()
+            st = squeeze_encode_payload(part, win_bits, bw, seed=seed,
+                                        return_state=want_state,
+                                        dictionary=dictionary)
+            return (bw.getvalue(), st) if want_state else bw.getvalue()
+        return encode_one
     from sqz_tpu_torch import native
 
     def encode_one(part, seed, dictionary, want_state):
@@ -79,20 +110,21 @@ def _block_encoder(fmt: Format, win_bits: int, lz: bool, parse: str):
 
 
 def _compress_anchored(parts, fmt: Format, win_bits: int, lz: bool,
-                       beam: int, parse: str):
+                       beam: int, parse: str, engine: Engine = Engine.TORCH):
     """sqzt v3 (FORMAT.md §3.2): (payloads, fresh_mask, anchor_mask) from
     the anchor planner (``formats/anchors.plan_anchored``, a beam of
-    ``beam``) on the native per-block encoder, as the reference's device
-    engine plans them (sqz_tpu/api.py _compress_anchored): 'auto' parses
-    fast (SQZ_PARSE overrides; sqz4 without LZ exact); beams are priced
-    by encoding each block's first SQZ_ANCHOR_PRICE_PREFIX bytes (default
+    ``beam``) on a host engine's per-block encoder, as the reference plans
+    them (sqz_tpu/api.py _compress_anchored): the torch engine's plan runs
+    on the native copy, the host engines' on themselves; the fast parse
+    is native-only (sqz4 without LZ is exact). Beams are priced by
+    encoding each block's first SQZ_ANCHOR_PRICE_PREFIX bytes (default
     4096; 0 prices whole blocks), and only the chosen variant of each
     block is coded in full."""
-    from sqz_tpu_torch.ops.sqz4_host import parse_mode
-    use_parse = parse_mode(parse)
-    if fmt is Format.SQZ4 and not lz:
-        use_parse = "exact"   # the fast matcher codes LZ parses only
-    encode_one = _block_encoder(fmt, win_bits, lz, use_parse)
+    enc_engine = Engine.NATIVE if engine is Engine.TORCH else engine
+    use_parse = _host_parse(parse, engine)
+    if enc_engine is Engine.ORACLE or (fmt is Format.SQZ4 and not lz):
+        use_parse = "exact"
+    encode_one = _block_encoder(fmt, enc_engine, win_bits, lz, use_parse)
     pfx = int(os.environ.get("SQZ_ANCHOR_PRICE_PREFIX", str(4096)))
     price_one = None
     if pfx > 0 and max(len(p) for p in parts) > pfx:
@@ -105,6 +137,44 @@ def _compress_anchored(parts, fmt: Format, win_bits: int, lz: bool,
                          price_one=price_one)
 
 
+def _compress_host_blocks(parts, fmt: Format, engine: Engine, win_bits: int,
+                          lz: bool, warm: bool, blk_bits: int, parse: str):
+    """A host engine's cold payloads, or warm (payloads, fresh_mask) (sqzt
+    v2: each gate candidate block 1+ coded fresh and seeded from block 0's
+    final state, the smaller kept). The native copy's threaded executor
+    runs the whole schedule; the oracle runs it block by block."""
+    host_parse = _host_parse(parse, engine)
+    if engine is Engine.ORACLE or (fmt is Format.SQZ4 and not lz):
+        host_parse = "exact"   # the fast matcher is native-only
+    if engine is Engine.NATIVE:
+        from sqz_tpu_torch import native
+        code = SQZT_FORMAT_SQUEEZE if fmt is Format.SQUEEZE \
+            else SQZT_FORMAT_SQZ4
+        return native.blocks_compress(b"".join(parts), code, win_bits,
+                                      blk_bits, lz=lz, warm=warm,
+                                      parse=host_parse)
+    encode_one = _block_encoder(fmt, engine, win_bits, lz, host_parse)
+    gate = [False] * len(parts)
+    if warm:
+        gate = warm_gate_mask(parts, warm_dictionary(parts[0], win_bits))
+    fresh_mask = [True] + [False] * (len(parts) - 1)
+    seed, dictionary, out = None, b"", []
+    for i, p in enumerate(parts):
+        want_state = warm and i == 0
+        r = encode_one(p, None, b"", want_state)
+        if want_state:
+            r, seed = r
+            dictionary = warm_dictionary(p, win_bits)
+        if warm and i > 0:
+            w = encode_one(p, seed, dictionary, False) if gate[i] else None
+            if w is not None and len(w) < len(r):
+                r = w
+            else:
+                fresh_mask[i] = True
+        out.append(r)
+    return (out, fresh_mask) if warm else out
+
+
 def compress(data: bytes, fmt: Format | str = Format.SQZ4,
              engine: Engine | str = Engine.TORCH,
              win_bits: int = 15, lz: bool = True,
@@ -112,35 +182,50 @@ def compress(data: bytes, fmt: Format | str = Format.SQZ4,
              checksum: bool = True, warm: "bool | str" = False,
              parse: str = "auto", anchor_beam: int = 4,
              device="cuda") -> bytes:
-    """See ``sqz_tpu.api.compress``. Codes an sqzt container
-    (``blocks=True``) on ``device``, cold, ``warm=True`` (sqzt v2) or
-    ``warm="anchors"`` (sqzt v3, planned on the host with a beam of
-    ``anchor_beam``). sqz4 at ``blk_bits`` above 16 takes the native host
-    codec with the exact parse. ``parse`` 'exact' gives the reference
-    native engine's bytes."""
-    fmt = Format(fmt)
-    _check_engine(engine)
+    """See ``sqz_tpu.api.compress``. ``blocks=True`` codes an sqzt
+    container, cold, ``warm=True`` (sqzt v2) or ``warm="anchors"`` (sqzt
+    v3, planned on the host with a beam of ``anchor_beam``): on
+    ``device`` with the torch engine (sqz4 at ``blk_bits`` above 16 takes
+    the native host codec with the exact parse), on the host with
+    ``native`` or ``oracle``. ``blocks=False`` (host engines only) codes a
+    raw reference stream, always with the exact parse. ``parse`` 'exact'
+    gives the reference native engine's bytes on every engine."""
+    fmt, engine = Format(fmt), Engine(engine)
     if not 10 <= win_bits <= 15:
         raise ValueError(f"win_bits {win_bits} outside 10..15")
     if warm not in (False, True, "anchors"):
         raise ValueError(f"warm must be bool or 'anchors', got {warm!r}")
-    if not blocks:
-        raise ValueError("torch engine requires blocks=True (sqzt container)")
-    if not 1 <= blk_bits <= 40:
+    if blocks and not 1 <= blk_bits <= 40:
         raise ValueError(f"blk_bits {blk_bits} outside 1..40")
+    if not blocks and parse not in (None, "auto"):
+        raise ValueError("parse applies to sqzt containers (blocks=True); "
+                         "raw reference streams are always exact-parse "
+                         "(FORMAT.md §1.5)")
+    if not blocks:
+        if warm:
+            raise ValueError("warm start requires blocks=True (sqzt "
+                             "container)")
+        if engine is Engine.TORCH:
+            raise ValueError("torch engine requires blocks=True (sqzt "
+                             "container)")
+        return _compress_raw(data, fmt, engine, win_bits, lz)
     parts = sqzt.split_blocks(data, blk_bits)
     warm = warm if len(parts) > 1 else False
-    dev = resolve_device(device)
     code = SQZT_FORMAT_SQUEEZE if fmt is Format.SQUEEZE else SQZT_FORMAT_SQZ4
+    dev = resolve_device(device) if engine is Engine.TORCH else None
     anchor_mask = None
     if warm == "anchors":
         payloads, fresh_mask, anchor_mask = _compress_anchored(
-            parts, fmt, win_bits, lz, anchor_beam, parse)
+            parts, fmt, win_bits, lz, anchor_beam, parse, engine)
     else:
-        from sqz_tpu_torch.ops import engine as torch_engine
-        res = torch_engine.compress_blocks(parts, code, win_bits, lz,
-                                           blk_bits, warm=warm, parse=parse,
-                                           device=dev)
+        if engine is Engine.TORCH:
+            from sqz_tpu_torch.ops import engine as torch_engine
+            res = torch_engine.compress_blocks(parts, code, win_bits, lz,
+                                               blk_bits, warm=warm,
+                                               parse=parse, device=dev)
+        else:
+            res = _compress_host_blocks(parts, fmt, engine, win_bits, lz,
+                                        bool(warm), blk_bits, parse)
         payloads, fresh_mask = res if warm else (res, None)
     csum = sqzt.fnv1a64(data) if checksum else None
     return sqzt.pack(code, win_bits, blk_bits, len(data), payloads, csum,
@@ -148,29 +233,183 @@ def compress(data: bytes, fmt: Format | str = Format.SQZ4,
                      anchor_mask=anchor_mask)
 
 
+def _compress_raw(data: bytes, fmt: Format, engine: Engine, win_bits: int,
+                  lz: bool) -> bytes:
+    """A raw single-stream reference container on a host engine."""
+    if engine is Engine.ORACLE:
+        from sqz_tpu_torch import oracle
+        if fmt is Format.SQUEEZE:
+            return oracle.squeeze_compress(data, win_bits)
+        return oracle.sqz4_compress(data, window=1 << win_bits, lz=lz)
+    from sqz_tpu_torch import native
+    if fmt is Format.SQUEEZE:
+        return native.squeeze_compress(data, win_bits)
+    return native.sqz4_compress(data, window=1 << win_bits, lz=lz)
+
+
+def _block_sizes(osize: int, blk_bits: int, nblocks: int):
+    bs = 1 << blk_bits
+    return [max(0, min(bs, osize - i * bs)) for i in range(nblocks)]
+
+
+def _decode_one(payload: bytes, size: int, fmt: Format, engine: Engine,
+                seed=None, return_state: bool = False,
+                dictionary: bytes = b""):
+    """One block payload on a host engine -> its bytes (and, with
+    ``return_state``, the final state the blocks anchored on it start
+    from)."""
+    if engine is Engine.ORACLE:
+        if fmt is Format.SQUEEZE:
+            from sqz_tpu_torch.oracle.bitstream import BitReader
+            from sqz_tpu_torch.oracle.squeeze import squeeze_decode_payload
+            return squeeze_decode_payload(BitReader(payload), size,
+                                          seed=seed,
+                                          return_state=return_state,
+                                          dictionary=dictionary)
+        from sqz_tpu_torch.oracle.sqz4 import sqz4_decode_payload
+        return sqz4_decode_payload(payload, size, seed=seed,
+                                   return_state=return_state,
+                                   dictionary=dictionary)
+    from sqz_tpu_torch import native
+    decode = (native.squeeze_decompress_payload if fmt is Format.SQUEEZE
+              else native.sqz4_decompress_payload)
+    return decode(payload, size, seed=seed, return_state=return_state,
+                  dictionary=dictionary)
+
+
+def _decompress_anchored(payloads, sizes, fmt: Format, engine: Engine,
+                         win_bits: int, fresh, anch) -> bytes:
+    """Warm-container decode on a host engine, v2 and v3 alike (FORMAT.md
+    §3.1-3.2): fresh blocks decode cold first (keeping the state of every
+    block used as an anchor), then warm blocks decode off their
+    anchors."""
+    anchors = sqzt.resolve_anchors(fresh, anch)
+    needed = {a for a in anchors if a is not None}
+    outs = [None] * len(payloads)
+    states = {}
+    for b in range(len(payloads)):                 # pass 1: fresh blocks
+        if fresh[b]:
+            if b in needed:
+                outs[b], seed = _decode_one(payloads[b], sizes[b], fmt,
+                                            engine, return_state=True)
+                states[b] = (seed, warm_dictionary(outs[b], win_bits))
+            else:
+                outs[b] = _decode_one(payloads[b], sizes[b], fmt, engine)
+    for b, a in enumerate(anchors):                # pass 2: warm blocks
+        if a is not None:
+            seed, dictionary = states[a]
+            outs[b] = _decode_one(payloads[b], sizes[b], fmt, engine,
+                                  seed=seed, dictionary=dictionary)
+    return b"".join(outs)
+
+
 def decompress(blob: bytes, fmt: Optional[Format | str] = None,
                engine: Engine | str = Engine.TORCH,
                device="cuda") -> bytes:
-    """See ``sqz_tpu.api.decompress``. Decodes an sqzt container on
-    ``device``, cold, warm (sqzt v2) or anchored (sqzt v3); a corrupt sqz4
-    block raises ValueError naming it (one whose decode seeds others, on
-    the host codec, OSError)."""
-    _check_engine(engine)
+    """See ``sqz_tpu.api.decompress``. An sqzt container, cold, warm (sqzt
+    v2) or anchored (sqzt v3), decodes on ``device`` with the torch engine
+    (a corrupt sqz4 block raises ValueError naming it; one whose decode
+    seeds others, on the host codec, OSError) or on the host with
+    ``native`` / ``oracle``; a raw reference stream (``fmt`` taken from
+    its magic when None) only on a host engine."""
+    engine = Engine(engine)
     if blob[:8] != sqzt.SQZT_MAGIC:
-        raise ValueError("torch engine requires an sqzt container")
+        if engine is Engine.TORCH:
+            raise ValueError("torch engine requires an sqzt container")
+        return _decompress_raw(blob, fmt, engine)
     code, win_bits, blk_bits, osize, payloads, csum, fresh, anch = \
         sqzt.unpack(blob)
-    dev = resolve_device(device)
-    from sqz_tpu_torch.ops import engine as torch_engine
-    bs = 1 << blk_bits
-    sizes = [max(0, min(bs, osize - i * bs)) for i in range(len(payloads))]
-    data = torch_engine.decompress_blocks(payloads, sizes, code, blk_bits,
-                                          fresh_mask=fresh,
-                                          win_bits=win_bits,
-                                          anchor_mask=anch, device=dev)
+    fmt = Format.SQUEEZE if code == SQZT_FORMAT_SQUEEZE else Format.SQZ4
+    sizes = _block_sizes(osize, blk_bits, len(payloads))
+    if engine is Engine.TORCH:
+        dev = resolve_device(device)
+        from sqz_tpu_torch.ops import engine as torch_engine
+        data = torch_engine.decompress_blocks(payloads, sizes, code,
+                                              blk_bits, fresh_mask=fresh,
+                                              win_bits=win_bits,
+                                              anchor_mask=anch, device=dev)
+    elif engine is Engine.NATIVE and anch is None:
+        # the threaded executor runs the cold batch and the v2 (block-0
+        # anchor) schedule itself; v3 takes the anchored schedule below
+        from sqz_tpu_torch import native
+        data = native.blocks_decompress(list(payloads), osize, code,
+                                        blk_bits, fresh_mask=fresh,
+                                        win_bits=win_bits)
+    elif fresh is not None:
+        data = _decompress_anchored(payloads, sizes, fmt, engine, win_bits,
+                                    fresh, anch)
+    else:
+        data = b"".join(_decode_one(p, n, fmt, engine)
+                        for p, n in zip(payloads, sizes))
     if csum is not None and sqzt.fnv1a64(data) != csum:
         raise ValueError("sqzt checksum mismatch (EILSEQ)")
     return data
+
+
+def _decompress_raw(blob: bytes, fmt, engine: Engine) -> bytes:
+    """A raw single-stream reference container on a host engine."""
+    if fmt is None:
+        fmt = Format.SQZ4 if blob[:8] == b"squeeze4" else Format.SQUEEZE
+    fmt = Format(fmt)
+    if engine is Engine.ORACLE:
+        from sqz_tpu_torch import oracle
+        if fmt is Format.SQUEEZE:
+            return oracle.squeeze_decompress(blob)
+        return oracle.sqz4_decompress(blob)
+    from sqz_tpu_torch import native
+    if fmt is Format.SQUEEZE:
+        return native.squeeze_decompress(blob)
+    return native.sqz4_decompress(blob)
+
+
+def decompress_range(blob: bytes, start: int, length: int,
+                     engine: Engine | str = Engine.NATIVE) -> bytes:
+    """See ``sqz_tpu.api.decompress_range``: random-access decode of
+    ``[start, start + length)`` from an ``sqzt`` container on a host
+    engine. Only the covering blocks decode, plus once each anchor a warm
+    block among them starts from (block 0 in v2). The container checksum
+    covers the whole payload and is not verified here: an undetected
+    corruption of an anchor's payload can change the bytes of the warm
+    blocks read off it, so verify the container once with
+    ``decompress`` where that matters."""
+    engine = Engine(engine)
+    if engine is Engine.TORCH:
+        raise ValueError("decompress_range is a host feature; "
+                         "use engine='native' or 'oracle'")
+    if blob[:8] != sqzt.SQZT_MAGIC:
+        raise ValueError("decompress_range requires an sqzt container")
+    code, win_bits, blk_bits, osize, payloads, _csum, fresh, anch = \
+        sqzt.unpack(blob)
+    fmt = Format.SQUEEZE if code == SQZT_FORMAT_SQUEEZE else Format.SQZ4
+    if start < 0 or length < 0 or start + length > osize:
+        raise ValueError(f"range [{start}, {start + length}) outside "
+                         f"[0, {osize})")
+    if length == 0:
+        return b""
+    sizes = _block_sizes(osize, blk_bits, len(payloads))
+    b_lo = start >> blk_bits
+    b_hi = (start + length - 1) >> blk_bits
+    anchors = (sqzt.resolve_anchors(fresh, anch) if fresh is not None
+               else [None] * len(payloads))
+    needed = {anchors[b] for b in range(b_lo, b_hi + 1)
+              if anchors[b] is not None}
+    states, decoded = {}, {}
+    for a in sorted(needed):
+        decoded[a], seed = _decode_one(payloads[a], sizes[a], fmt, engine,
+                                       return_state=True)
+        states[a] = (seed, warm_dictionary(decoded[a], win_bits))
+    out = bytearray()
+    for b in range(b_lo, b_hi + 1):
+        if b in decoded:
+            out += decoded[b]
+        elif anchors[b] is not None:
+            seed, dictionary = states[anchors[b]]
+            out += _decode_one(payloads[b], sizes[b], fmt, engine,
+                               seed=seed, dictionary=dictionary)
+        else:
+            out += _decode_one(payloads[b], sizes[b], fmt, engine)
+    off = start - (b_lo << blk_bits)
+    return bytes(out[off:off + length])
 
 
 def compress_resident(data, blk_bits: int = 16, mode: str = "rle",
@@ -222,4 +461,4 @@ def decompress_resident(blob: bytes, mesh=None, lanes: int = None,
 
 
 __all__ = ["Engine", "Format", "compress", "decompress",
-           "compress_resident", "decompress_resident"]
+           "decompress_range", "compress_resident", "decompress_resident"]

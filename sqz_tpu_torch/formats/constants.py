@@ -1,9 +1,142 @@
-"""The wire-format constants the port uses: the sqz4, warm-gate and sqzt
-sections of ``sqz_tpu/formats/constants.py`` (FORMAT.md §2-§3), copied."""
+"""The wire-format constants the port uses, copied from
+``sqz_tpu/formats/constants.py`` (FORMAT.md §1-§3): the squeeze tables
+and limits, the sqz4 parse limits and short-far rule, the warm gate and
+the sqzt framing.
+
+The DEFLATE-like base/extra-bit tables reproduce the reference values
+(reference attic/map_experiment/squeeze.h:29-79); the inverse index maps are
+built with the same boundary recurrence (squeeze.h:151-172).
+"""
+
+from __future__ import annotations
 
 import numpy as np
 
+# ---------------------------------------------------------------- squeeze --
+
+SQUEEZE_MIN_WIN_BITS = 10
+SQUEEZE_MAX_WIN_BITS = 15
+
+SQUEEZE_LEN_MIN = 3
+SQUEEZE_LEN_MAX = 257          # encoder match cap (squeeze.h:15, :347)
+
+SQUEEZE_SYM_MIN = 257          # first length symbol in the lit tree
+SQUEEZE_SYM_MAX = 284          # last length symbol
+SQUEEZE_LIT_NYT = 285          # lit-tree escape symbol
+SQUEEZE_POS_MAX = 29           # last distance code
+SQUEEZE_POS_NYT = 30           # pos-tree escape symbol
+
+SQUEEZE_LIT_TERMINALS = 512    # lit tree leaf count (power of two)
+SQUEEZE_POS_TERMINALS = 32     # pos tree leaf count
+
+# Length codes 0..28 <-> lit-tree symbols 257..285; lengths 3..258.
+LEN_BASE = np.array(
+    [3, 4, 5, 6, 7, 8, 9, 10,
+     11, 13, 15, 17,
+     19, 23, 27, 31,
+     35, 43, 51, 59,
+     67, 83, 99, 115,
+     131, 163, 195, 227, 258], dtype=np.int32)
+
+LEN_XB = np.array(
+    [0, 0, 0, 0, 0, 0, 0, 0,
+     1, 1, 1, 1,
+     2, 2, 2, 2,
+     3, 3, 3, 3,
+     4, 4, 4, 4,
+     5, 5, 5, 5, 0], dtype=np.int32)
+
+# Distance codes 0..29; distances 1..32768.
+POS_BASE = np.array(
+    [1, 2, 3, 4,
+     5, 7,
+     9, 13,
+     17, 25,
+     33, 49,
+     65, 97,
+     129, 193,
+     257, 385,
+     513, 769,
+     1025, 1537,
+     2049, 3073,
+     4097, 6145,
+     8193, 12289,
+     16385, 24577], dtype=np.int32)
+
+POS_XB = np.array(
+    [0, 0, 0, 0,
+     1, 1,
+     2, 2,
+     3, 3,
+     4, 4,
+     5, 5,
+     6, 6,
+     7, 7,
+     8, 8,
+     9, 9,
+     10, 10,
+     11, 11,
+     12, 12,
+     13, 13], dtype=np.int32)
+
+
+def build_len_index() -> np.ndarray:
+    """len -> length code, for len in 0..284 (valid from 3).
+
+    Boundary recurrence per reference squeeze.h:151-161: the code index
+    advances when ``len == base[j] + (1 << xb[j])``. Length 258 therefore
+    maps to code 27 (base 227 + 31 extra), and code 28 is unreachable —
+    the encoder caps matches at 257 anyway.
+    """
+    idx = np.zeros(SQUEEZE_SYM_MAX + 1, dtype=np.int32)
+    j = 0
+    boundary = int(LEN_BASE[j]) + (1 << int(LEN_XB[j]))
+    for length in range(SQUEEZE_LEN_MIN, SQUEEZE_SYM_MAX + 1):
+        if length == boundary:
+            j += 1
+            boundary = int(LEN_BASE[j]) + (1 << int(LEN_XB[j]))
+        idx[length] = j
+    return idx
+
+
+def build_pos_index() -> np.ndarray:
+    """dist -> distance code, for dist in 0..32767 (valid from 1)."""
+    idx = np.zeros(1 << 15, dtype=np.int32)
+    j = 0
+    boundary = int(POS_BASE[j]) + (1 << int(POS_XB[j]))
+    for dist in range(1 << 15):
+        if dist == boundary:
+            j += 1
+            boundary = int(POS_BASE[j]) + (1 << int(POS_XB[j]))
+        idx[dist] = j
+    return idx
+
+
+# ------------------------------------------------------------------- sqz4 --
+
+SQZ4_MIN_LEN = 2               # reference src/sqz.c:29
+SQZ4_MAX_LEN = 254             # reference src/sqz.c:30
+
+# Short-far reject rule (reference src/sqz.c:678-685): a candidate match is
+# demoted to a literal when it is short AND far — the coded cost of the
+# distance bits would exceed the literal cost. SINGLE SOURCE OF TRUTH:
+# engine tokenizers, stats counters, and the native C++ tokenizer all follow
+# this rule; tests/test_matcher_differential.py asserts the native tokenizer
+# agrees with it symbol-for-symbol.
+SQZ4_REJECT_MAX_LEN = 3        # reject only matches of length <= 3 ...
+SQZ4_REJECT_MAX_BITS = 3       # ... whose distance needs > 3 bits
+
+
+def sqz4_reject_short_far(length: int, dist: int) -> bool:
+    """True when the sqz4 parse demotes this (length, dist) match to a
+    literal (src/sqz.c:678-685)."""
+    return (length <= SQZ4_REJECT_MAX_LEN
+            and dist.bit_length() > SQZ4_REJECT_MAX_BITS)
+
+
+SQZ4_EOS = 0xFF                # pm_size end-of-stream marker
 SQZ4_MAGIC = b"squeeze4"       # container magic (reference test.c:41)
+SQZ4_FREQ_CAP = 1 << 56        # pm_update total cap (src/sqz.c:467)
 
 # Warm-start gate (sqzt v2 encoder policy): the per-block fresh/warm pick
 # costs a second encode pass, so the seeded pass only runs for blocks the

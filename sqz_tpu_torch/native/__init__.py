@@ -4,10 +4,12 @@
 runtime (``sqz_tpu/native/sqz_native.cpp``), so the planners, packers and
 host codec here give the reference's bytes. The bindings below are the
 reference's (``sqz_tpu/native/__init__.py``) trimmed to the functions
-the port calls. The warm states of sqzt v2 stay the flat arrays the
-native code reads and writes: a squeeze tree seed ``TREE_SEED_WORDS``
-int64 words, an sqz4 model seed ``SEED4_WORDS`` uint32 words (the
-reference's ``ModelSeed.flat``).
+the port calls: the raw single-stream codecs and the tokenizer of the
+host engine and the CLI, the payload and block codecs, the planners and
+packers of the device engine. The warm states of sqzt v2 stay the flat
+arrays the native code reads and writes: a squeeze tree seed
+``TREE_SEED_WORDS`` int64 words, an sqz4 model seed ``SEED4_WORDS``
+uint32 words (the reference's ``ModelSeed.flat``).
 
 The library is built with g++ on first use into
 ``build/sqz_tpu_torch/libsqznative.so`` at the root of the checkout
@@ -27,6 +29,7 @@ from typing import List
 
 import numpy as np
 
+from sqz_tpu_torch.formats.constants import SQZ4_MAGIC
 from sqz_tpu_torch.ops._build import BUILD_DIR, is_fresh
 
 SRC = Path(__file__).resolve().parent / "sqz_native.cpp"
@@ -126,6 +129,15 @@ def library() -> ctypes.CDLL:
             lib.squeeze_plan_pack.restype = i64
             lib.squeeze_plan_pack.argtypes = [u8p, u64, i32, i32, u64, u64,
                                               i32, i32, i32, u32p]
+            lib.sqz_squeeze_compress.restype = i64
+            lib.sqz_squeeze_compress.argtypes = [u8p, u64, i32, i32, u8p,
+                                                 u64]
+            lib.sqz_squeeze_decompress.restype = i64
+            lib.sqz_squeeze_decompress.argtypes = [u8p, u64, i32, u64, u8p,
+                                                   u64]
+            lib.sqz_tokenize.restype = i64
+            lib.sqz_tokenize.argtypes = [u8p, u64, u32, i32, i32, i32, i32p,
+                                         u64]
             _lib = lib
         return _lib
 
@@ -156,6 +168,79 @@ def _check(rc: int) -> int:
 def _cap_for(n: int) -> int:
     return 2 * n + 4096
 
+
+# ------------------------------------------------------------- single block
+
+def squeeze_compress(data: bytes, win_bits: int = 15) -> bytes:
+    """A raw squeeze stream (the reference container, FORMAT.md §1)."""
+    out = np.empty(_cap_for(len(data)), dtype=np.uint8)
+    rc = _check(library().sqz_squeeze_compress(
+        _u8(_src(data)), len(data), win_bits, 1, _u8(out), out.size))
+    return out[:rc].tobytes()
+
+
+def squeeze_decompress(blob: bytes) -> bytes:
+    src = np.frombuffer(blob, dtype=np.uint8)
+    size = _peek_squeeze_size(blob)
+    # the claimed size is untrusted: every decoded byte costs >= 2 bits
+    # per <= 258-byte match token, so a valid stream cannot expand past
+    # ~1032x — reject instead of np.empty()ing an attacker-chosen size
+    if size > max(len(blob), 16) * 1032:
+        raise ValueError("squeeze header size exceeds the provable "
+                         "expansion bound (EILSEQ)")
+    out = np.empty(max(size, 1), dtype=np.uint8)
+    rc = _check(library().sqz_squeeze_decompress(
+        _u8(src), len(blob), 1, 0, _u8(out), out.size))
+    return out[:rc].tobytes()
+
+
+def _peek_squeeze_size(blob: bytes) -> int:
+    # header = 64 size bits + 8 win bits through the bitstream; the first
+    # word is flushed big-endian so bit k of the stream is bit 63-k of word 0,
+    # and write_bits emits the LSB of size first.
+    word = int.from_bytes(blob[:8], "big")
+    size = 0
+    for k in range(64):
+        size |= ((word >> (63 - k)) & 1) << k
+    return size
+
+
+def sqz4_compress(data: bytes, window: int = 1 << 15,
+                  lz: bool = True) -> bytes:
+    """A raw sqz4 stream: magic, little-endian size, payload (FORMAT.md
+    §2)."""
+    payload = sqz4_compress_payload(data, window, lz=lz)
+    return SQZ4_MAGIC + len(data).to_bytes(8, "little") + payload
+
+
+def sqz4_decompress(blob: bytes) -> bytes:
+    if blob[:8] != SQZ4_MAGIC:
+        raise ValueError("bad squeeze4 magic")
+    size = int.from_bytes(blob[8:16], "little")
+    # no provable expansion bound exists for the range coder (adaptive
+    # models make token cost sub-bit asymptotically), so cap the
+    # untrusted header size at an operational limit instead of
+    # allocating whatever a crafted container claims
+    limit = int(os.environ.get("SQZ_MAX_DECODE_BYTES", 1 << 40))
+    if size > limit:
+        raise ValueError(f"claimed size {size} exceeds the decode limit "
+                         f"({limit}; raise SQZ_MAX_DECODE_BYTES)")
+    return sqz4_decompress_payload(blob[16:], size)
+
+
+def tokenize(data: bytes, window: int, min_len: int, max_len: int,
+             reject_short_far: bool = False) -> np.ndarray:
+    """Greedy token triples (kind, a, b): 0 = literal (byte), 1 = match
+    (len, dist)."""
+    toks = np.empty((max(len(data), 1), 3), dtype=np.int32)
+    rc = _check(library().sqz_tokenize(
+        _u8(_src(data)), len(data), window, min_len, max_len,
+        int(reject_short_far),
+        toks.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)), toks.shape[0]))
+    return toks[:rc]
+
+
+# --------------------------------------------------------- payload variants
 
 SEED4_WORDS = 610        # sqz4 ModelSeed flat u32 words (FORMAT.md §3.1)
 TREE_SEED_WORDS = (3 + 6 * 1023) + (3 + 6 * 63)   # squeeze TreeSeed i64 words

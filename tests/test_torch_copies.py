@@ -1,7 +1,8 @@
 """The port's own copies of the reference's JAX-free modules give the
 reference's results: the native runtime (a verbatim copy of the C++,
 built by the port), the sqzt container framing, the anchored warm-start
-planner and the input generators."""
+planner, the input generators, the format constants, the pure-Python
+oracle and the telemetry."""
 
 from pathlib import Path
 
@@ -12,9 +13,11 @@ from sqz_tpu import native as ref_native
 from sqz_tpu.formats import constants as ref_constants
 from sqz_tpu.formats import container as ref_container
 from sqz_tpu.utils import corpus as ref_corpus
-from sqz_tpu_torch import native
+from sqz_tpu import oracle as ref_oracle
+from sqz_tpu.utils import stats as ref_stats
+from sqz_tpu_torch import native, oracle
 from sqz_tpu_torch.formats import anchors, constants, container
-from sqz_tpu_torch.utils import corpus
+from sqz_tpu_torch.utils import corpus, stats
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -264,3 +267,90 @@ def test_anchor_planner_copy_is_the_references():
 def test_resolve_anchors_copy_equals_reference(fresh, anch):
     assert (container.resolve_anchors(fresh, anch)
             == ref_container.resolve_anchors(fresh, anch))
+
+
+def _code(text: str, drop_docstring: bool) -> str:
+    """The module's syntax tree (comments aside), without its docstring
+    if asked."""
+    import ast
+    tree = ast.parse(text)
+    if drop_docstring and ast.get_docstring(tree) is not None:
+        tree.body = tree.body[1:]
+    return ast.dump(tree)
+
+
+@pytest.mark.parametrize("path", [
+    "oracle/bitstream.py", "oracle/huffman.py", "oracle/match.py",
+    "oracle/rangecoder.py", "oracle/squeeze.py", "oracle/sqz4.py",
+    "oracle/__init__.py", "utils/stats.py"])
+def test_oracle_and_stats_copies_are_the_references(path):
+    """The copies are the reference's code with its import paths
+    rewritten (comments may differ, and the package docstring of
+    ``oracle``)."""
+    want = (ROOT / "sqz_tpu" / path).read_text().replace(
+        "sqz_tpu.", "sqz_tpu_torch.")
+    got = (ROOT / "sqz_tpu_torch" / path).read_text()
+    init = path.endswith("__init__.py")
+    assert _code(got, init) == _code(want, init)
+
+
+def test_constants_copy_equals_reference():
+    for name in dir(ref_constants):
+        if name.startswith("_") or not hasattr(constants, name):
+            continue
+        a, b = getattr(constants, name), getattr(ref_constants, name)
+        if not callable(a):
+            np.testing.assert_array_equal(a, b, err_msg=name)
+    for name in ("LEN_BASE", "LEN_XB", "POS_BASE", "POS_XB",
+                 "SQUEEZE_MIN_WIN_BITS", "SQUEEZE_MAX_WIN_BITS",
+                 "SQUEEZE_LEN_MIN", "SQUEEZE_LEN_MAX", "SQUEEZE_SYM_MIN",
+                 "SQUEEZE_SYM_MAX", "SQUEEZE_LIT_NYT", "SQUEEZE_POS_MAX",
+                 "SQUEEZE_POS_NYT", "SQUEEZE_LIT_TERMINALS",
+                 "SQUEEZE_POS_TERMINALS", "SQZ4_MIN_LEN", "SQZ4_MAX_LEN",
+                 "SQZ4_EOS", "SQZ4_MAGIC", "SQZ4_REJECT_MAX_LEN",
+                 "SQZ4_REJECT_MAX_BITS"):
+        assert hasattr(constants, name), name
+    np.testing.assert_array_equal(constants.build_len_index(),
+                                  ref_constants.build_len_index())
+    np.testing.assert_array_equal(constants.build_pos_index(),
+                                  ref_constants.build_pos_index())
+    for length in range(1, 8):
+        for dist in (1, 2, 7, 8, 9, 100, 1 << 14):
+            assert (constants.sqz4_reject_short_far(length, dist)
+                    == ref_constants.sqz4_reject_short_far(length, dist))
+
+
+@pytest.mark.parametrize("kind", sorted(INPUTS))
+def test_oracle_copy_equals_reference(kind):
+    data = INPUTS[kind][:2500]
+    for win_bits in (10, 15):
+        sq = oracle.squeeze_compress(data, win_bits)
+        assert sq == ref_oracle.squeeze_compress(data, win_bits)
+        assert oracle.squeeze_decompress(sq) == data
+    for lz in (True, False):
+        s4 = oracle.sqz4_compress(data, window=1 << 10, lz=lz)
+        assert s4 == ref_oracle.sqz4_compress(data, window=1 << 10, lz=lz)
+        assert s4 == native.sqz4_compress(data, window=1 << 10, lz=lz)
+        assert oracle.sqz4_decompress(s4) == data
+
+
+@pytest.mark.parametrize("kind", sorted(INPUTS))
+def test_stats_copy_equals_reference(kind):
+    data = INPUTS[kind][:4000]
+    for fmt, (lo, hi) in (("squeeze", (3, 257)), ("sqz4", (2, 254))):
+        toks = native.tokenize(data, 1 << 10, lo, hi,
+                               reject_short_far=fmt == "sqz4")
+        np.testing.assert_array_equal(
+            toks, ref_native.tokenize(data, 1 << 10, lo, hi,
+                                      reject_short_far=fmt == "sqz4"))
+        tokens = [("lit", int(a)) if k == 0 else ("match", int(a), int(b))
+                  for k, a, b in toks]
+        assert (stats.analyze_tokens(tokens).report()
+                == ref_stats.analyze_tokens(tokens).report())
+    # tokens of the sqz4 parse (lengths <= 254), as the CLI passes them
+    assert (stats.sqz4_model_report(tokens)
+            == ref_stats.sqz4_model_report(tokens))
+    assert (stats.count_rejections(data, 1 << 10)
+            == ref_stats.count_rejections(data, 1 << 10))
+    assert stats.shannon_entropy([3, 1, 5, 0]) == \
+        ref_stats.shannon_entropy([3, 1, 5, 0])

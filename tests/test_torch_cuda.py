@@ -1,7 +1,7 @@
 """The CUDA kernels on a card: each equals its plain version (the seeded
 and lit_skip modes too), and the slice round-trips through them, the
-pipeline, warm start, anchored containers, the squeeze format and the
-resident paths included. Marked
+pipeline, warm start, anchored containers, the squeeze format, the
+resident paths and the checkpoint included. Marked
 ``gpu``; skips without a CUDA device. On a machine with
 one (and without JAX), run:
 
@@ -378,3 +378,45 @@ def test_resident_paths_round_trip_on_the_card(cuda):
     with pytest.raises((ValueError, OSError)):
         sqz_tpu_torch.decompress_resident(
             container.pack(code, wb, bb, osize, payloads, csum))
+
+
+def test_checkpoint_round_trips_on_the_card(cuda, tmp_path):
+    # a mixed-dtype tree on the card: the same file as the plain versions
+    # write on the CPU, restored bit for bit into CUDA tensors through
+    # the lit_skip token kernel, the compaction and the decoder
+    from sqz_tpu_torch.utils import checkpoint
+    g = torch.Generator(device="cpu").manual_seed(4)
+    sparse = torch.zeros(3000)
+    sparse[::97] = torch.randn(sparse[::97].shape, generator=g)
+    tree = {"w": torch.randn(64, 48, generator=g) * 0.02, "m": sparse,
+            "emb": {"idx": torch.arange(500, dtype=torch.int32),
+                    "mask": torch.rand(640, generator=g) < 0.5,
+                    "bf": torch.randn(333, generator=g).to(torch.bfloat16)},
+            "step": torch.tensor(7, dtype=torch.int64),
+            "empty": torch.zeros(0, 4)}
+    on_card = {k: v.to(cuda) if isinstance(v, torch.Tensor)
+               else {kk: vv.to(cuda) for kk, vv in v.items()}
+               for k, v in tree.items()}
+    for c in (sqz4_cuda.encode_tok, sqz4_cuda.decode,
+              sqz4_cuda.compact_words):
+        c.launches = 0
+    sqz4_cuda.encode_tok.lit_skip_launches = 0
+    p, q = tmp_path / "card.ckpt", tmp_path / "cpu.ckpt"
+    checkpoint.save_pytree(on_card, p, blk_bits=BLK)
+    checkpoint.save_pytree(tree, q, blk_bits=BLK, device="cpu")
+    assert p.read_bytes() == q.read_bytes()
+    back = checkpoint.load_pytree(p)
+    assert sqz4_cuda.encode_tok.lit_skip_launches > 0
+    assert sqz4_cuda.compact_words.launches > 0
+    assert sqz4_cuda.decode.launches > 0
+    for k, v in tree.items():
+        got = back[k]
+        for kk, want in (v.items() if isinstance(v, dict) else [(k, v)]):
+            t = got[kk] if isinstance(v, dict) else got
+            assert t.is_cuda and t.dtype == want.dtype
+            assert t.shape == want.shape
+            assert torch.equal(t.cpu(), want), kk
+    checkpoint.save_pytree({"w": tree["w"].to(cuda)}, p, mode="lit",
+                           blk_bits=BLK)
+    assert sqz4_cuda.encode_tok.launches > 0
+    assert torch.equal(checkpoint.load_pytree(p)["w"].cpu(), tree["w"])

@@ -41,8 +41,9 @@ def _foreign(name: str) -> bool:
 
 def test_import_leaves_jax_out():
     """Importing the port and small compress / decompress round trips on
-    the CPU (cold, warm and anchored, and the resident paths) load neither
-    jax nor any module of the JAX package."""
+    the CPU (cold, warm and anchored, the host engines, ranges and the
+    resident paths) load neither jax nor any module of the JAX
+    package."""
     native.build()    # the round trip needs the runtime: build it here
     code = (
         "import sys\n"
@@ -62,6 +63,14 @@ def test_import_leaves_jax_out():
         "    blob = sqz_tpu_torch.compress(data, blk_bits=9, win_bits=10, "
         "warm=warm, device='cpu')\n"
         "    assert sqz_tpu_torch.decompress(blob, device='cpu') == data\n"
+        "from sqz_tpu_torch.utils import checkpoint, stats\n"
+        "from sqz_tpu_torch import oracle\n"
+        "for engine in ('native', 'oracle'):\n"
+        "    blob = sqz_tpu_torch.compress(data, blk_bits=10, win_bits=10, "
+        "engine=engine)\n"
+        "    assert sqz_tpu_torch.decompress(blob, engine=engine) == data\n"
+        "    assert sqz_tpu_torch.decompress_range(blob, 5, 9, "
+        "engine=engine) == data[5:14]\n"
         "for mode in ('lit', 'rle', 'lz'):\n"
         "    blob = sqz_tpu_torch.compress_resident(data, blk_bits=8, "
         "mode=mode, lanes=8, device='cpu')\n"
@@ -82,6 +91,28 @@ def test_port_sources_import_no_jax(path):
     the JAX package (docstrings may name the reference)."""
     bad = [m for m in _imported_modules(ROOT / path) if _foreign(m)]
     assert not bad, bad
+
+
+def test_cli_help_leaves_jax_out():
+    """``python -m sqz_tpu_torch --help`` (the CLI, with the modules each
+    subcommand loads) loads neither jax nor any module of the JAX
+    package."""
+    code = (
+        "import runpy, sys\n"
+        "sys.argv = ['sqz_tpu_torch', '--help']\n"
+        "try:\n"
+        "    runpy.run_module('sqz_tpu_torch', run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    assert e.code == 0, e.code\n"
+        "from sqz_tpu_torch.utils import checkpoint, stats\n"
+        "bad = [m for m in sys.modules\n"
+        "       if m.split('.')[0] in ('jax', 'sqz_tpu')]\n"
+        "assert not bad, bad\n")
+    res = _run(["-c", code], ROOT)
+    assert res.returncode == 0, res.stderr
+    assert "ckpt-save" in res.stdout and "range" in res.stdout
+    res = _run(["-m", "sqz_tpu_torch", "--help"], ROOT)
+    assert res.returncode == 0 and "roundtrip" in res.stdout
 
 
 def test_chip_smoke_fails_without_a_card():

@@ -104,7 +104,35 @@ Phases (any failure exits non-zero):
      ``roundtrip`` (``python -m sqz_tpu_torch``) with the torch engine on
      1 MiB of texty, its exact-parse container equal to the native
      engine's, and ``range`` equal to slicing. Save and load MB/s, ratio
-     and stages are printed.
+     and stages are printed. Between the load and mode lit, the
+     distributed checkpoint: ``save_pytree`` / ``load_pytree`` of the
+     same state over a mesh of 2 virtual shards of the card
+     (``parallel/mesh.make_mesh``): the file must equal the mesh-less
+     file byte for byte and every leaf come back bit for bit;
+ 14. the check tools (``sqz_tpu_torch.tools``) at their default sizes:
+     ``check_dec`` (every block of 2 MiB of texty in 16 KiB blocks against
+     the native decoder, then 100 seeded corrupt mutants through the
+     decoder kernel under the reference's contract), ``check_enc`` (the
+     op-stream and stats-fed encoders' payloads equal the native
+     engine's), ``check_resident`` (8 MiB of the resident mix: lit equal
+     to native, rle round trips, a restore with no error lane) and
+     ``check_lz`` (32 MiB of texty: every device-LZ block round-trips,
+     the ratio gap to the host fast parse at most 1.6 pp, the general
+     restore with no bad lane), with their launches, the mutants' counts,
+     the gap and each tool's MB/s printed;
+ 15. the mesh: phase 12's resident mix over meshes of 1, 2 and 4 virtual
+     shards of ``cuda:0`` (a host thread and a stream a shard), in turns
+     (1 2 4 4 2 1): ``compress_resident(mesh=)`` lit, rle and lz, each
+     container equal to the mesh-less one, and ``decompress_resident(
+     mesh=)`` (auto) of each, equal to the input; enc and dec MB/s and
+     the launches of each shard count are printed;
+ 16. two processes on the one card (``python -m
+     sqz_tpu_torch.parallel.dryrun``, gloo, a shard of ``cuda:0`` each):
+     ``compress_resident(mesh=)`` rle of the resident mix, rank 0's
+     container equal to the single-process one and rank 1's None, and
+     the restore over the group on both ranks; beside it, one NCCL rank
+     (world size 1: NCCL takes one rank a card) through the same run.
+     Both workers of a run must exit 0.
 
 The second-to-last line is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
@@ -1659,6 +1687,7 @@ def checkpoint_path(card):
         if not leaves_equal(back, state):
             raise AssertionError("load_pytree differs from the saved state")
         del back
+        mfig = mesh_checkpoint(card, state, path, work)
         # the container decodes on the native copy to the saved stream
         stream = checkpoint.filtered_stream(state, device=dev)[0]
         want = stream.cpu().numpy().tobytes()
@@ -1715,7 +1744,7 @@ def checkpoint_path(card):
            "ckpt_lit_params_save_MBps": linfo["raw_bytes"] / 1e6 / lsave_s,
            "ckpt_lit_params_load_MBps": linfo["raw_bytes"] / 1e6 / lload_s,
            "ckpt_lit_params_ratio": linfo["ratio"],
-           "ckpt_phase_s": wall}
+           "ckpt_phase_s": wall, **mfig}
     log(f"checkpoint, GPT-2 small AdamW state, {raw} B in "
         f"{-(-raw >> MAIN_BITS)} blocks of 64 KiB ({card}): save "
         f"{save_s:.3f} s ({fig['ckpt_save_MBps']:.1f} MB/s), load "
@@ -1753,6 +1782,223 @@ def corrupt_rejected(blob):
 
 
 RESIDENT_BLOCKS = 512   # phase 12: one group of 64 KiB blocks
+RESIDENT_MODES = ("lit", "rle", "lz")
+CKPT_SHARDS = 2          # phase 13's distributed checkpoint
+TOOLS = ("check_dec", "check_enc", "check_resident", "check_lz")
+MESH_TURNS = (1, 2, 4, 4, 2, 1)   # phase 15: virtual shards, in turns
+PROCS_TIMEOUT = 600      # phase 16's workers
+
+# the launch counters of the sliced phases: name -> (wrapper, attribute)
+COUNTERS = {"sqz4_encode": ("encode_full", "launches"),
+            "sqz4_encode_seeded": ("encode_full", "seeded_launches"),
+            "sqz4_encode_stats": ("encode_stats", "launches"),
+            "sqz4_encode_tok": ("encode_tok", "launches"),
+            "sqz4_encode_tok_lit_skip": ("encode_tok", "lit_skip_launches"),
+            "sqz4_decode": ("decode", "launches"),
+            "sqz4_compact": ("compact_words", "launches")}
+
+
+def reset_launches():
+    from sqz_tpu_torch.ops import sqz4_cuda
+    for fn, attr in COUNTERS.values():
+        setattr(getattr(sqz4_cuda, fn), attr, 0)
+
+
+def read_launches() -> dict:
+    """The launches since ``reset_launches`` of every kernel that ran."""
+    from sqz_tpu_torch.ops import sqz4_cuda
+    got = {k: getattr(getattr(sqz4_cuda, fn), attr)
+           for k, (fn, attr) in COUNTERS.items()}
+    return {k: v for k, v in got.items() if v}
+
+
+def mesh_checkpoint(card, state, path, work):
+    """Phase 13's distributed leg: ``save_pytree`` / ``load_pytree`` of
+    ``state`` over CKPT_SHARDS virtual shards of the card; the file must
+    equal the mesh-less ``path`` and every leaf come back bit for bit."""
+    import filecmp
+    import torch
+    from sqz_tpu_torch.parallel.mesh import make_mesh
+    from sqz_tpu_torch.utils import checkpoint
+    dev = torch.device("cuda", 0)
+    mesh = make_mesh(CKPT_SHARDS, devices=[dev] * CKPT_SHARDS)
+    mpath = os.path.join(work, "gpt2s_mesh.sqzckpt")
+    reset_launches()
+    t = time.perf_counter()
+    info = checkpoint.save_pytree(state, mpath, mode="rle", mesh=mesh)
+    save_s = time.perf_counter() - t
+    if not filecmp.cmp(path, mpath, shallow=False):
+        raise AssertionError("the mesh checkpoint file differs from the "
+                             "mesh-less one")
+    t = time.perf_counter()
+    back = checkpoint.load_pytree(mpath, mesh=mesh)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t
+    launches = read_launches()
+    if not leaves_equal(back, state):
+        raise AssertionError("load_pytree over the mesh differs from the "
+                             "saved state")
+    del back
+    os.remove(mpath)
+    raw = info["raw_bytes"]
+    fig = {f"ckpt_mesh{CKPT_SHARDS}_save_MBps": raw / 1e6 / save_s,
+           f"ckpt_mesh{CKPT_SHARDS}_load_MBps": raw / 1e6 / load_s}
+    log(f"distributed checkpoint over {CKPT_SHARDS} virtual shards "
+        f"({card}): save {save_s:.3f} s "
+        f"({fig[f'ckpt_mesh{CKPT_SHARDS}_save_MBps']:.1f} MB/s), file equal"
+        f" to the mesh-less one; load {load_s:.3f} s "
+        f"({fig[f'ckpt_mesh{CKPT_SHARDS}_load_MBps']:.1f} MB/s), every "
+        f"leaf bit for bit; launches {launches}")
+    if min(launches.get(k, 0) for k in ("sqz4_encode_tok_lit_skip",
+                                        "sqz4_decode")) < CKPT_SHARDS:
+        raise AssertionError(f"the mesh checkpoint's launches: {launches}")
+    return fig
+
+
+def tools_path(card):
+    """Phase 14: the check tools at their default sizes, each with its
+    kernels' launches counted over its run; the decoder must run at least
+    once a mutant."""
+    import importlib
+    fig, launches, walls = {}, {}, {}
+    for name in TOOLS:
+        tool = importlib.import_module(f"sqz_tpu_torch.tools.{name}")
+        reset_launches()
+        rep = {}
+        t = time.perf_counter()
+        if tool.main([], rep):
+            raise AssertionError(f"sqz_tpu_torch.tools.{name} failed")
+        walls[name] = time.perf_counter() - t
+        launches[name] = read_launches()
+        fig.update(rep)
+    if launches["check_dec"].get("sqz4_decode", 0) < fig["mutants"] + 1:
+        raise AssertionError(f"the mutants did not all reach the decoder: "
+                             f"{launches['check_dec']}")
+    log(f"check tools ({card}): {fig['mutants']} mutants through the "
+        f"decoder kernel: {fig['mutants_rejected']} rejected, "
+        f"{fig['mutants_produced']} produced; LZ ratio gap "
+        f"{fig['lz_gap_pp']:+.3f} pp (device {fig['lz_ratio']:.4f}, fast "
+        f"parse {fig['lz_fast_ratio']:.4f}); MB/s: decode "
+        f"{fig['dec_MBps']:.1f}, op-stream encode {fig['enc_MBps']:.1f}, "
+        f"stats-fed {fig['enc_stats_MBps']:.1f}, resident lit "
+        f"{fig['resident_lit_MBps']:.1f} rle {fig['resident_rle_MBps']:.1f} "
+        f"restore {fig['resident_dec_MBps']:.1f}, device LZ "
+        f"{fig['lz_MBps']:.1f}, general restore "
+        f"{fig['lz_general_dec_MBps']:.1f}; walls (s) "
+        + json.dumps({k: round(v, 2) for k, v in walls.items()})
+        + f"; launches {json.dumps(launches)}")
+    return {f"tool_{k}": v for k, v in fig.items()}
+
+
+def mesh_path(card):
+    """Phase 15: the resident mix over meshes of virtual shards of the
+    card, in turns (MESH_TURNS): ``compress_resident(mesh=)`` per mode,
+    each container equal to the mesh-less one, and ``decompress_resident(
+    mesh=)`` of each, equal to the input. Returns the MB/s of each shard
+    count's runs."""
+    import torch
+    import sqz_tpu_torch
+    from sqz_tpu_torch.parallel.mesh import make_mesh
+    dev = torch.device("cuda", 0)
+    data = resident_input()
+    x = torch.frombuffer(bytearray(data), dtype=torch.uint8).to(dev)
+    want = {m: sqz_tpu_torch.compress_resident(x, blk_bits=MAIN_BITS,
+                                               mode=m)
+            for m in RESIDENT_MODES}
+    mb = len(data) / 1e6
+    runs = {}
+    for n in MESH_TURNS:
+        mesh = make_mesh(n, devices=[dev] * n)
+        reset_launches()
+        walls = {}
+        for m in RESIDENT_MODES:
+            t = time.perf_counter()
+            blob = sqz_tpu_torch.compress_resident(x, blk_bits=MAIN_BITS,
+                                                   mode=m, mesh=mesh)
+            walls[f"enc_{m}"] = time.perf_counter() - t
+            if blob != want[m]:
+                raise AssertionError(f"the {m} container over {n} shards "
+                                     f"differs from the mesh-less one")
+        for m in RESIDENT_MODES:
+            t = time.perf_counter()
+            out = sqz_tpu_torch.decompress_resident(want[m], mesh=mesh)
+            torch.cuda.synchronize()
+            walls[f"dec_{m}"] = time.perf_counter() - t
+            if not out.is_cuda or out.cpu().numpy().tobytes() != data:
+                raise AssertionError(f"the {m} restore over {n} shards "
+                                     f"differs from the input")
+        launches = read_launches()
+        if launches.get("sqz4_decode", 0) < 3 * n:
+            raise AssertionError(f"{n} shards: launches {launches}")
+        runs.setdefault(n, []).append(walls)
+        log(f"mesh of {n} virtual shards ({card}): " + "; ".join(
+            f"{k} {v:.3f} s ({mb / v:.1f} MB/s)" for k, v in walls.items())
+            + f"; launches {json.dumps(launches)}")
+    return {f"mesh{n}_{k}_MBps_run{i}": mb / v
+            for n, ws in runs.items() for i, w in enumerate(ws, 1)
+            for k, v in w.items()}
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def two_process_path(card):
+    """Phase 16: the two-process run on the one card (gloo) and one NCCL
+    rank beside it; rank 0's containers must equal the single-process
+    container and every worker exit 0."""
+    import tempfile
+    import torch
+    import sqz_tpu_torch
+    data = resident_input()
+    want = sqz_tpu_torch.compress_resident(
+        torch.frombuffer(bytearray(data), dtype=torch.uint8).cuda(),
+        blk_bits=MAIN_BITS, mode="rle")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    with tempfile.TemporaryDirectory(prefix="sqz_procs_") as work:
+        procs = []
+        t = time.perf_counter()
+        try:
+            for backend, world in (("gloo", 2), ("nccl", 1)):
+                out = os.path.join(work, backend)
+                os.mkdir(out)
+                port = free_port()
+                for rank in range(world):
+                    procs.append((backend, rank, subprocess.Popen(
+                        [sys.executable, "-m", "sqz_tpu_torch.parallel.dryrun",
+                         "--rank", str(rank), "--world", str(world),
+                         "--port", str(port), "--backend", backend,
+                         "--device", "cuda:0", "--blocks",
+                         str(RESIDENT_BLOCKS), "--blk-bits", str(MAIN_BITS),
+                         "--out", out], cwd=ROOT, env=env,
+                        stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                        text=True)))
+            outs = [p.communicate(timeout=PROCS_TIMEOUT)[0]
+                    for _b, _r, p in procs]
+        finally:
+            for _b, _r, p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall = time.perf_counter() - t
+        for (backend, rank, p), out in zip(procs, outs):
+            tail = out.strip().splitlines()[-1:] if out.strip() else []
+            log(f"{backend} rank {rank}: exit {p.returncode}; "
+                + " ".join(tail))
+            if p.returncode:
+                raise AssertionError(f"{backend} rank {rank} failed:\n"
+                                     f"{out[-3000:]}")
+        for backend in ("gloo", "nccl"):
+            if read(os.path.join(work, backend, "rle.sqzt")) != want:
+                raise AssertionError(f"the {backend} run's container differs"
+                                     f" from the single-process one")
+    log(f"two processes on one card (gloo) and one NCCL rank ({card}): "
+        f"containers equal to the single-process one; {wall:.1f} s with "
+        f"the workers' start")
+    return {"procs_wall_s": wall}
 
 KERNELS = (   # name, source, the TPU kernel it replaces
     ("sqz4_encode", "sqz4_encode.cu", f"{PALLAS}:686"),
@@ -1826,6 +2072,9 @@ def main() -> int:
     corrupt_rejected(blob)
     del data, blob, fblob
     we2e.update(checkpoint_path(card))
+    we2e.update(tools_path(card))
+    we2e.update(mesh_path(card))
+    we2e.update(two_process_path(card))
     if any(m.split(".")[0] in ("jax", "sqz_tpu") for m in sys.modules):
         raise AssertionError("the port imported jax or the JAX package")
     kernels = []

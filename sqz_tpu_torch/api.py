@@ -22,10 +22,9 @@ overrides both.
 
 The resident paths (``compress_resident`` / ``decompress_resident``) code
 data that already sits on the card (a uint8 CUDA tensor) with no host
-planning, and restore it into a tensor there.
-
-Not served yet: the resident paths over a ``mesh`` (NotImplementedError
-naming ROADMAP.md Queue 1 item 11).
+planning, and restore it into a tensor there; over a ``mesh``
+(``parallel/mesh.make_mesh``) every shard codes or restores its own
+blocks (``parallel/shard.py``).
 """
 
 from __future__ import annotations
@@ -53,12 +52,6 @@ class Engine(str, enum.Enum):
     ORACLE = "oracle"
     NATIVE = "native"
     TORCH = "torch"
-
-
-def _todo(what: str, item: int):
-    return NotImplementedError(
-        f"{what} is not ported to the torch engine yet "
-        f"(ROADMAP.md, Queue 1 item {item})")
 
 
 def _host_parse(parse: str, engine: Engine) -> str:
@@ -422,16 +415,26 @@ def compress_resident(data, blk_bits: int = 16, mode: str = "rle",
     cell parse) or 'lz' (the device LZ matcher, ``ops/lzparse.py``).
     Only the payload bytes come back from the card; ``checksum`` hashes
     the input on the host (a download for a tensor), so it is off by
-    default. ``lanes``: blocks per kernel launch (default 512)."""
-    if mesh is not None:
-        raise _todo("compress_resident over a mesh", 11)
+    default. ``lanes``: blocks per kernel launch (default 512).
+
+    ``mesh`` (a ``parallel.mesh.Mesh``): blocks shard over its devices
+    and every shard parses and codes its own blocks
+    (``parallel/shard.encode_resident_sharded``); ``device`` does not
+    apply. In a multi-process mesh only rank 0 receives the container
+    (None elsewhere)."""
     if not 1 <= blk_bits <= 16:
         raise ValueError("resident paths support blk_bits 1..16 "
                          "(the sqz4 device kernels' range)")
-    dev = resolve_device(device)
-    from sqz_tpu_torch.ops import resident
-    payloads = resident.encode_resident_blocks(data, blk_bits, mode,
-                                               lanes=lanes, device=dev)
+    if mesh is not None:
+        from sqz_tpu_torch.parallel.shard import encode_resident_sharded
+        payloads = encode_resident_sharded(data, blk_bits, mesh, mode,
+                                           lanes)
+        if payloads is None:                # not rank 0 of the mesh
+            return None
+    else:
+        from sqz_tpu_torch.ops import resident
+        payloads = resident.encode_resident_blocks(
+            data, blk_bits, mode, lanes=lanes, device=resolve_device(device))
     if isinstance(data, torch.Tensor):
         osize = int(data.numel())
         raw = (data.reshape(-1).cpu().numpy().tobytes() if checksum
@@ -452,9 +455,15 @@ def decompress_resident(blob: bytes, mesh=None, lanes: int = None,
     the cell model rejects); only kernel-flagged or oversized blocks
     decode on the host. The container checksum is not verified (it would
     download the bytes): use ``decompress`` for a verified read. Warm,
-    anchored and squeeze containers raise ValueError."""
+    anchored and squeeze containers raise ValueError.
+
+    ``mesh``: every shard restores its own blocks
+    (``parallel/shard.decompress_resident_sharded``, ``assembly`` kept),
+    into one tensor on the mesh's first local device, on every rank;
+    ``device`` does not apply."""
     if mesh is not None:
-        raise _todo("decompress_resident over a mesh", 11)
+        from sqz_tpu_torch.parallel.shard import decompress_resident_sharded
+        return decompress_resident_sharded(blob, mesh, lanes, assembly)
     from sqz_tpu_torch.ops import resident
     return resident.decompress_resident(blob, lanes=lanes,
                                         assembly=assembly, device=device)

@@ -138,6 +138,17 @@ SQZ4_EOS = 0xFF                # pm_size end-of-stream marker
 SQZ4_MAGIC = b"squeeze4"       # container magic (reference test.c:41)
 SQZ4_FREQ_CAP = 1 << 56        # pm_update total cap (src/sqz.c:467)
 
+# Model layout: one row per probability model, 36 rows total
+# (reference sqz_init, src/sqz.c:550-565); the sqz4 kernels' micro-op
+# codes are these row numbers.
+PM_LITERAL = 0                 # n=2   literal/backref flag
+PM_SIZE = 1                    # n=256 match length (+0xFF EOS)
+PM_BYTE = 2                    # n=256 literal bytes
+PM_BITS = 3                    # n=32  distance bit-length
+PM_DIST0 = 4                   # n=2 each, 32 rows: per-bit distance models
+PM_ROWS = 36                   # PM_DIST0 + 32
+PM_SYMS = np.array([2, 256, 256, 32] + [2] * 32, dtype=np.int32)
+
 # Warm-start gate (sqzt v2 encoder policy): the per-block fresh/warm pick
 # costs a second encode pass, so the seeded pass only runs for blocks the
 # gate marks as candidates: tail blocks (model seeding alone helps short

@@ -5,9 +5,12 @@ the launch status check and per-stage host timing."""
 
 from __future__ import annotations
 
+import threading
 import time
 
 import torch
+
+_count_lock = threading.Lock()
 
 
 def resolve_device(device) -> torch.device:
@@ -53,17 +56,29 @@ def launched(rc: int, name: str):
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
 
 
+def count(wrapper, attr: str = "launches"):
+    """Add one launch to ``wrapper.<attr>``, under a lock: a mesh's
+    shards on distinct devices launch from a host thread each."""
+    with _count_lock:
+        setattr(wrapper, attr, getattr(wrapper, attr) + 1)
+
+
 class Stages:
-    """Host wall time per stage into ``stats`` (seconds, accumulated)."""
+    """Host wall time per stage into ``stats`` (seconds, accumulated;
+    nothing is kept or waited for when ``stats`` is None). A mark waits
+    for the caller's current stream only, so a mesh's shards on other
+    streams of the device run on."""
 
     def __init__(self, stats, dev):
-        self.stats = stats if stats is not None else {}
+        self.stats = stats
         self.dev = dev
         self.t = time.perf_counter()
 
     def mark(self, name: str):
+        if self.stats is None:
+            return
         if self.dev.type == "cuda":
-            torch.cuda.synchronize(self.dev)
+            torch.cuda.current_stream(self.dev).synchronize()
         now = time.perf_counter()
         self.stats[name] = self.stats.get(name, 0.0) + now - self.t
         self.t = now

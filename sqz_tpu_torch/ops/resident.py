@@ -34,6 +34,8 @@ the reference's.
 
 from __future__ import annotations
 
+import threading
+
 import numpy as np
 import torch
 
@@ -52,6 +54,15 @@ RLE_DISTS = (1, 2, 4, 8, 16, 32, 64, 128)
 
 # lanes (blocks) restored by each route of decompress_resident
 route_lanes = {"cell": 0, "general": 0, "host": 0}
+_route_lock = threading.Lock()
+LZ_LANES = 512   # most blocks a device-LZ launch codes
+
+
+def count_route(route: str, n: int):
+    """Add ``n`` lanes to ``route_lanes[route]`` (a mesh's shards on
+    distinct devices restore from a host thread each)."""
+    with _route_lock:
+        route_lanes[route] += n
 
 
 def _round_up(x: int, m: int) -> int:
@@ -271,15 +282,11 @@ def _prep_blocks(data, blk_bits: int, lanes: int, dev):
     return blocks, torch.from_numpy(lengths).to(dev), nb
 
 
-def encode_resident_blocks(data, blk_bits: int, mode: str = "rle",
-                           lanes: int = None, device="cuda",
-                           stats: dict = None):
-    """Resident encode of ``data`` (bytes or a uint8 tensor) -> one sqz4
-    payload per 2^blk_bits block. ``mode`` 'lit', 'rle' or 'lz' (see the
-    module); the downloads are the payload bytes and, in 'rle' and 'lz',
-    one int (the pair budget). ``lanes``: blocks a launch (default 512).
-    ``stats`` accumulates parse_s (blocks and tokens on the device),
-    kernel_s and fetch_s."""
+def resident_coder(blk_bits: int, mode: str, lanes: int = None):
+    """The group coder of a resident encode: (coder, its sizes, blocks a
+    launch). ``mode`` 'rle' takes blocks smaller than a cell and 'lz'
+    blocks smaller than a parse segment literal-only; 'lz' codes at most
+    LZ_LANES blocks a launch (``lanes`` default ``sqz4_host.LANES``)."""
     from sqz_tpu_torch.ops import lzparse
     if blk_bits > sqz4_cuda.DEVICE_BLK_BITS:
         raise ValueError("sqz4 device kernels support blk_bits <= 16")
@@ -292,25 +299,45 @@ def encode_resident_blocks(data, blk_bits: int, mode: str = "rle",
         mode = "lit"    # blocks smaller than one parse segment
     lanes = lanes or host.LANES
     if mode == "lz":
-        lanes = min(lanes, 512)
-    dev = torch.device(device)
-    st = launch.Stages(stats, dev)
-    blocks, lengths, nb = _prep_blocks(data, blk_bits, lanes, dev)
+        lanes = min(lanes, LZ_LANES)
     group, args = {"lit": (encode_literal_group, encode_group_args),
                    "rle": (encode_rle_group, rle_group_args),
                    "lz": (lzparse.encode_lz_group, lzparse.lz_group_args)
                    }[mode]
-    gargs = args(blk_bits)
+    return group, args(blk_bits), lanes
+
+
+def encode_rows(data, blk_bits: int, coder, dev, st=None):
+    """``data`` (bytes or a uint8 tensor) -> one payload per block through
+    ``coder`` (``resident_coder``'s triple), a launch per group of its
+    lanes, the payloads fetched group by group (compacted on the card by
+    SQZ_FETCH's default)."""
+    group, gargs, lanes = coder
+    blocks, lengths, nb = _prep_blocks(data, blk_bits, lanes, dev)
     payloads: list = []
     for g0 in range(0, blocks.shape[0], lanes):
         words, lens = group(blocks[g0:g0 + lanes], lengths[g0:g0 + lanes],
                             st=st, **gargs)
-        st.mark("kernel_s")
+        mark(st, "kernel_s")
         payloads += sqz4_cuda.fetch_payloads(words, lens,
                                              min(lanes, nb - g0),
                                              sqz4_cuda.fetch_mode())
-        st.mark("fetch_s")
+        mark(st, "fetch_s")
     return payloads
+
+
+def encode_resident_blocks(data, blk_bits: int, mode: str = "rle",
+                           lanes: int = None, device="cuda",
+                           stats: dict = None):
+    """Resident encode of ``data`` (bytes or a uint8 tensor) -> one sqz4
+    payload per 2^blk_bits block. ``mode`` 'lit', 'rle' or 'lz' (see the
+    module); the downloads are the payload bytes and, in 'rle' and 'lz',
+    one int (the pair budget). ``lanes``: blocks a launch (default 512).
+    ``stats`` accumulates parse_s (blocks and tokens on the device),
+    kernel_s and fetch_s."""
+    dev = torch.device(device)
+    return encode_rows(data, blk_bits, resident_coder(blk_bits, mode, lanes),
+                       dev, launch.Stages(stats, dev))
 
 
 # ------------------------------------------------- restore (cell assembly)
@@ -538,34 +565,47 @@ def decompress_resident(blob: bytes, lanes: int = None,
     rejects, the host only for kernel-flagged or oversized lanes). The
     lanes of each route count in ``route_lanes``. ``stats`` accumulates
     pack_s, upload_s, kernel_s, cell_s, general_s and host_s."""
-    from sqz_tpu_torch.ops import lz_restore
-    if assembly not in ("auto", "cell", "general"):
-        raise ValueError(f"unknown assembly {assembly!r}")
+    check_assembly(assembly)
     blk_bits, osize, payloads, sizes = unpack_cold_container(blob)
     dev = launch.resolve_device(device)
+    return restore_blocks(payloads, sizes, blk_bits, lanes or host.LANES,
+                          assembly, dev, launch.Stages(stats, dev))
+
+
+def check_assembly(assembly: str):
+    if assembly not in ("auto", "cell", "general"):
+        raise ValueError(f"unknown assembly {assembly!r}")
+
+
+def restore_blocks(payloads, sizes, blk_bits: int, lanes: int,
+                   assembly: str, dev, st=None):
+    """Consecutive blocks of a cold sqz4 container (their payloads and
+    sizes, only the last short) -> their bytes, a 1-D uint8 tensor on
+    ``dev`` (``decompress_resident``'s routes, ``lanes`` blocks a
+    launch)."""
+    from sqz_tpu_torch.ops import lz_restore
     bs = 1 << blk_bits
     nb = len(payloads)
+    total = sum(sizes)
     if blk_bits < 7:
         # blocks smaller than a cell: no cell model; tiny blocks decode on
         # the host and upload once
         out = np.zeros((nb, bs), np.uint8)
         host_decode_blocks(payloads, sizes, range(nb), out)
-        route_lanes["host"] += nb
-        return torch.from_numpy(out.reshape(-1)[:osize].copy()).to(dev)
+        count_route("host", nb)
+        return torch.from_numpy(out.reshape(-1)[:total].copy()).to(dev)
     sqz4_cuda.check_blk_bits(blk_bits)
-    lanes = lanes or host.LANES
     dargs = decoder_args(blk_bits, lanes)
-    st = launch.Stages(stats, dev)
     outs = []
     for g0 in range(0, nb, lanes):
         grp, gsz = payloads[g0:g0 + lanes], sizes[g0:g0 + lanes]
         n = len(grp)
         buf, plens, szs, over = pack_payload_group(grp, gsz, dargs["Pw"],
                                                    lanes)
-        st.mark("pack_s")
+        mark(st, "pack_s")
         bufd = convert.to_device(buf, dev)
         plensd, szsd = (torch.from_numpy(a).to(dev) for a in (plens, szs))
-        st.mark("upload_s")
+        mark(st, "upload_s")
         if assembly == "general":
             blocks, _c, bad = lz_restore.decode_lz_group(
                 bufd, plensd, szsd, dargs, bs, st=st)
@@ -573,8 +613,8 @@ def decompress_resident(blob: bytes, lanes: int = None,
             blocks, _c, bad = decode_rle_group(bufd, plensd, szsd, dargs,
                                                bs, st=st)
         bad_np = convert.to_numpy(bad)[:n] | over[:n]
-        route_lanes["general" if assembly == "general" else "cell"] += \
-            int((~bad_np).sum())
+        count_route("general" if assembly == "general" else "cell",
+                    int((~bad_np).sum()))
         if bad_np.any() and assembly == "auto":
             # not cell-parsed: the general assembly restores it on the
             # card (one more decoder pass over the group)
@@ -585,7 +625,7 @@ def decompress_resident(blob: bytes, lanes: int = None,
             blocks = torch.where(
                 torch.from_numpy(np.pad(sel, (0, lanes - n))).to(dev)[:, None],
                 gblocks, blocks)
-            route_lanes["general"] += int(sel.sum())
+            count_route("general", int(sel.sum()))
             bad_np = bad_np & gbad_np
         if bad_np.any():
             # kernel-flagged (corrupt: the host codec raises its error) or
@@ -593,8 +633,8 @@ def decompress_resident(blob: bytes, lanes: int = None,
             fixed = convert.to_numpy(blocks[:n]).copy()
             host_decode_blocks(grp, gsz, np.nonzero(bad_np)[0], fixed)
             blocks = torch.from_numpy(fixed).to(dev)
-            route_lanes["host"] += int(bad_np.sum())
-            st.mark("host_s")
+            count_route("host", int(bad_np.sum()))
+            mark(st, "host_s")
         # only the last block can be short: flatten and trim
         outs.append(blocks[:n].reshape(-1))
-    return torch.cat(outs)[:osize]
+    return torch.cat(outs)[:total]

@@ -107,9 +107,9 @@ def encode_full(m_ops: torch.Tensor, s_ops: torch.Tensor, cap_words: int,
             stream)
     launch.launched(rc, "sqz4_encode")
     if seed is None:
-        encode_full.launches += 1
+        launch.count(encode_full)
     else:
-        encode_full.seeded_launches += 1
+        launch.count(encode_full, "seeded_launches")
     return words, lens
 
 
@@ -148,9 +148,9 @@ def decode(payload: torch.Tensor, meta: torch.Tensor, t_max: int, lw: int,
             counts.data_ptr(), seed_ptr, DECODE_THREADS, stream)
     launch.launched(rc, "sqz4_decode")
     if seed is None:
-        decode.launches += 1
+        launch.count(decode)
     else:
-        decode.seeded_launches += 1
+        launch.count(decode, "seeded_launches")
     return lit, tok, mrec, counts
 
 
@@ -187,9 +187,9 @@ def encode_tok(toks: torch.Tensor, lits: torch.Tensor, t_max: int,
             int(lit_skip), stream)
     launch.launched(rc, "sqz4_encode_tok")
     if lit_skip:
-        encode_tok.lit_skip_launches += 1
+        launch.count(encode_tok, "lit_skip_launches")
     else:
-        encode_tok.launches += 1
+        launch.count(encode_tok)
     return words, lens
 
 
@@ -222,7 +222,7 @@ def encode_stats(start: torch.Tensor, size: torch.Tensor,
             words.data_ptr(), cap_words, lens.data_ptr(), STATS_THREADS,
             stream)
     launch.launched(rc, "sqz4_encode_stats")
-    encode_stats.launches += 1
+    launch.count(encode_stats)
     return words, lens
 
 
@@ -293,7 +293,7 @@ def compact_words(words: torch.Tensor, lens: torch.Tensor, nb: int):
             words.data_ptr(), B, offsets.data_ptr(), nb, out.data_ptr(),
             COMPACT_ROWS, stream)
     launch.launched(rc, "sqz4_compact")
-    compact_words.launches += 1
+    launch.count(compact_words)
     return out
 
 

@@ -202,22 +202,30 @@ def save_pytree(tree, path, blk_bits: int = 16, mode: str = "rle",
     ``shuffle`` and ``delta`` filter each leaf's bytes first (see
     ``leaf_bytes``, ``byte_delta``). ``stats`` accumulates the encoder's
     stage times (``encode_resident_blocks``). Returns raw and compressed
-    sizes and their ratio. ``mesh`` is not served yet."""
+    sizes and their ratio.
+
+    ``mesh`` (a ``parallel.mesh.Mesh``; the distributed checkpoint): the
+    stream is built on the mesh's first local device, and every shard
+    parses and codes its own blocks (``stats`` is not kept). In a
+    multi-process mesh only rank 0 writes the file (None elsewhere)."""
     from sqz_tpu_torch.ops import resident
-    if mesh is not None:
-        raise NotImplementedError(
-            "save_pytree over a mesh is not ported to the torch engine yet "
-            "(ROADMAP.md, Queue 1 item 11)")
     if not 1 <= blk_bits <= 16:
         raise ValueError("resident paths support blk_bits 1..16 "
                          "(the sqz4 device kernels' range)")
-    dev = resolve_device(device)
+    dev = _device(device, mesh)
     stream, metas, structure = filtered_stream(tree, shuffle, delta, dev)
     raw = int(stream.numel())
-    payloads = resident.encode_resident_blocks(stream, blk_bits, mode,
-                                               lanes=lanes, device=dev,
-                                               stats=stats)
+    if mesh is not None:
+        from sqz_tpu_torch.parallel.shard import encode_resident_sharded
+        payloads = encode_resident_sharded(stream, blk_bits, mesh, mode,
+                                           lanes)
+    else:
+        payloads = resident.encode_resident_blocks(stream, blk_bits, mode,
+                                                   lanes=lanes, device=dev,
+                                                   stats=stats)
     del stream
+    if payloads is None:                    # not rank 0 of the mesh
+        return None
     blob = sqzt.pack(SQZT_FORMAT_SQZ4, 15, blk_bits, raw, payloads, None)
     meta = pickle.dumps(dict(tree=structure, leaves=metas,
                              blk_bits=blk_bits))
@@ -228,6 +236,16 @@ def save_pytree(tree, path, blk_bits: int = 16, mode: str = "rle",
         f.write(blob)
     return dict(raw_bytes=raw, compressed_bytes=len(blob),
                 ratio=len(blob) / raw if raw else 0.0)
+
+
+def _device(device, mesh):
+    """The device of the stream and the leaves: the mesh's first local
+    device under a mesh (TypeError for anything but a Mesh), else
+    ``device``."""
+    if mesh is None:
+        return resolve_device(device)
+    from sqz_tpu_torch.parallel.mesh import check_mesh
+    return check_mesh(mesh).devices[0]
 
 
 def read_checkpoint(path):
@@ -250,17 +268,18 @@ def load_pytree(path, mesh=None, lanes: int = None, device="cuda",
     the container decodes through the resident restore
     (``decompress_resident``), and each leaf is unfiltered and viewed
     back there. ``stats`` accumulates the restore's stage times. A file
-    written by the JAX package raises ValueError. ``mesh`` is not served
-    yet."""
+    written by the JAX package raises ValueError. ``mesh``: every shard
+    restores its own blocks (``stats`` is not kept), and the leaves come
+    back on the mesh's first local device, on every rank."""
     from sqz_tpu_torch.ops import resident
-    if mesh is not None:
-        raise NotImplementedError(
-            "load_pytree over a mesh is not ported to the torch engine yet "
-            "(ROADMAP.md, Queue 1 item 11)")
-    dev = resolve_device(device)
+    dev = _device(device, mesh)
     meta, blob = read_checkpoint(path)
-    stream = resident.decompress_resident(blob, lanes=lanes, device=dev,
-                                          stats=stats)
+    if mesh is not None:
+        from sqz_tpu_torch.parallel.shard import decompress_resident_sharded
+        stream = decompress_resident_sharded(blob, mesh, lanes)
+    else:
+        stream = resident.decompress_resident(blob, lanes=lanes, device=dev,
+                                              stats=stats)
     del blob
     leaves = [_restore_leaf(stream, m, dev) for m in meta["leaves"]]
     return _unflatten(meta["tree"], iter(leaves))

@@ -244,10 +244,19 @@ def test_jax_written_file_raises_without_importing_jax(tmp_path):
 def test_bad_files_and_requests_raise(tmp_path):
     p = tmp_path / "x.ckpt"
     ckpt.save_pytree({"a": torch.arange(10)}, p, blk_bits=8, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+    # over a mesh of two virtual CPU shards: the same file, every leaf
+    # back; anything but a Mesh raises TypeError
+    from sqz_tpu_torch.parallel.mesh import make_mesh
+    mesh = make_mesh(2, devices=[torch.device("cpu")] * 2)
+    pm = tmp_path / "mesh.ckpt"
+    ckpt.save_pytree({"a": torch.arange(10)}, pm, blk_bits=8, mesh=mesh)
+    assert pm.read_bytes() == p.read_bytes()
+    assert torch.equal(ckpt.load_pytree(pm, mesh=mesh)["a"],
+                       torch.arange(10))
+    with pytest.raises(TypeError, match="Mesh"):
         ckpt.save_pytree({"a": torch.arange(10)}, p, mesh=object(),
                          device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+    with pytest.raises(TypeError, match="Mesh"):
         ckpt.load_pytree(p, mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="blk_bits"):
         ckpt.save_pytree({"a": torch.arange(10)}, p, blk_bits=17,

@@ -354,3 +354,33 @@ def test_stats_copy_equals_reference(kind):
             == ref_stats.count_rejections(data, 1 << 10))
     assert stats.shannon_entropy([3, 1, 5, 0]) == \
         ref_stats.shannon_entropy([3, 1, 5, 0])
+
+
+def _function(path: Path, name: str) -> str:
+    import ast
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, ast.FunctionDef) and node.name == name:
+            return ast.dump(node)
+    raise AssertionError(f"{name} not in {path}")
+
+
+@pytest.mark.parametrize("name", ["pack_exchange_row",
+                                  "unpack_exchange_rows"])
+def test_exchange_helpers_are_the_references(name):
+    """The multi-process exchange rows keep the reference's layout: the
+    port's helpers are its code (comments aside)."""
+    assert (_function(ROOT / "sqz_tpu_torch/parallel/multihost.py", name)
+            == _function(ROOT / "sqz_tpu/parallel/multihost.py", name))
+
+
+def test_microops_copy_equals_reference():
+    from sqz_tpu.ops.sqz4_jax import microops_from_tokens as ref_microops
+    from sqz_tpu_torch.parallel.shard import microops_from_tokens
+    rng = np.random.default_rng(11)
+    tokens = [("lit", int(b)) for b in rng.integers(0, 256, 50)]
+    tokens += [("match", int(n), int(d)) for n, d in zip(
+        rng.integers(2, 255, 30), rng.integers(1, 1 << 15, 30))]
+    rng.shuffle(tokens)
+    for toks in (tokens, [], tokens[:1]):
+        for a, b in zip(microops_from_tokens(toks), ref_microops(toks)):
+            np.testing.assert_array_equal(a, b)

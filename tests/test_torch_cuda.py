@@ -1,7 +1,8 @@
 """The CUDA kernels on a card: each equals its plain version (the seeded
 and lit_skip modes too), and the slice round-trips through them, the
 pipeline, warm start, anchored containers, the squeeze format, the
-resident paths and the checkpoint included. Marked
+resident paths, the checkpoint, the mesh of virtual shards and the
+check tools included. Marked
 ``gpu``; skips without a CUDA device. On a machine with
 one (and without JAX), run:
 
@@ -420,3 +421,58 @@ def test_checkpoint_round_trips_on_the_card(cuda, tmp_path):
                            blk_bits=BLK)
     assert sqz4_cuda.encode_tok.launches > 0
     assert torch.equal(checkpoint.load_pytree(p)["w"].cpu(), tree["w"])
+
+
+@pytest.mark.parametrize("n", [1, 2, 4])
+def test_mesh_of_virtual_shards_equals_the_single_card(cuda, n):
+    # n virtual shards of one card, a stream each: the containers equal
+    # the mesh-less ones, and every restore (each assembly) the input
+    from sqz_tpu_torch.parallel import shard
+    from sqz_tpu_torch.parallel.mesh import make_mesh
+    mesh = make_mesh(n, devices=[torch.device("cuda", 0)] * n)
+    data = synthetic.resident_mix(37, BLK, seed=5)
+    x = torch.frombuffer(bytearray(data), dtype=torch.uint8).to(cuda)
+    for mode in ("lit", "rle", "lz"):
+        want = sqz_tpu_torch.compress_resident(x, blk_bits=BLK, mode=mode,
+                                               lanes=8)
+        blob = sqz_tpu_torch.compress_resident(x, blk_bits=BLK, mode=mode,
+                                               mesh=mesh, lanes=8)
+        assert blob == want
+        for assembly in ("auto", "cell", "general"):
+            out = sqz_tpu_torch.decompress_resident(blob, mesh=mesh,
+                                                    lanes=8,
+                                                    assembly=assembly)
+            assert out.is_cuda and out.cpu().numpy().tobytes() == data
+    text = corpus.texty(13 * (1 << BLK) + 99, seed=2)
+    for warm in (False, True):
+        assert shard.encode_data_sharded(text, BLK, 1 << 10, mesh,
+                                         warm=warm) == \
+            sqz4_cuda.encode_data_full(text, BLK, 1 << 10, True,
+                                       (1 << BLK) + 2048, parse="exact",
+                                       device=cuda, warm=warm)
+    payloads = native.blocks_compress(text, 1, 10, BLK)
+    sizes = [len(p) for p in container.split_blocks(text, BLK)]
+    assert b"".join(shard.decode_blocks_sharded(payloads, sizes, BLK,
+                                                mesh)) == text
+
+
+def test_check_tools_pass_on_the_card(cuda):
+    from sqz_tpu_torch.tools import check_dec, check_enc, check_lz
+    from sqz_tpu_torch.tools import check_resident
+    rep = {}
+    assert check_dec.main(["--bytes", str(256 << 10), "--blk-bits", "12",
+                           "--mutants", "40"], rep) == 0
+    assert rep["mutants_rejected"] + rep["mutants_produced"] == 40
+    assert check_enc.main(["--bytes", str(256 << 10)], rep) == 0
+    assert check_resident.main(["--bytes", str(1 << 20), "--blk-bits",
+                                "14"], rep) == 0
+    assert check_lz.main(["--bytes", str(1 << 20)], rep) == 0
+    assert rep["lz_gap_pp"] <= 1.6
+
+
+def test_dryrun_on_virtual_shards_of_the_card(cuda):
+    from sqz_tpu_torch.parallel import dryrun
+    fn, args = dryrun.entry()
+    words, lens = fn(*args)
+    assert words.is_cuda and int(lens[0, 0].min()) > 0
+    dryrun.dryrun_multichip(4)

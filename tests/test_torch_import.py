@@ -40,9 +40,10 @@ def _foreign(name: str) -> bool:
 
 
 def test_import_leaves_jax_out():
-    """Importing the port and small compress / decompress round trips on
-    the CPU (cold, warm and anchored, the host engines, ranges and the
-    resident paths) load neither jax nor any module of the JAX
+    """Importing the port (its parallel package and check tools too) and
+    small compress / decompress round trips on the CPU (cold, warm and
+    anchored, the host engines, ranges and the resident paths, also over
+    a mesh of two CPU shards) load neither jax nor any module of the JAX
     package."""
     native.build()    # the round trip needs the runtime: build it here
     code = (
@@ -77,6 +78,14 @@ def test_import_leaves_jax_out():
         "    out = sqz_tpu_torch.decompress_resident(blob, lanes=8, "
         "device='cpu')\n"
         "    assert out.numpy().tobytes() == data\n"
+        "from sqz_tpu_torch.parallel import dryrun, mesh, multihost, shard\n"
+        "from sqz_tpu_torch.tools import (check_dec, check_enc, check_lz,\n"
+        "                                 check_resident)\n"
+        "m = mesh.make_mesh(2, devices=[torch.device('cpu')] * 2)\n"
+        "blob = sqz_tpu_torch.compress_resident(data, blk_bits=8, "
+        "mode='rle', mesh=m)\n"
+        "out = sqz_tpu_torch.decompress_resident(blob, mesh=m)\n"
+        "assert out.numpy().tobytes() == data\n"
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'sqz_tpu')]\n"
         "assert not bad, bad\n")

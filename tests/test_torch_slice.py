@@ -78,16 +78,26 @@ def test_cuda_device_without_a_card_raises():
 
 
 def test_unported_requests_raise_not_implemented():
-    # the resident paths are served; over a mesh they are not (multi-GPU,
-    # ROADMAP Queue 1 item 11), and a squeeze container is no input of
-    # the resident restore (a ValueError, as the reference's)
+    # the resident paths are served on the card and over a mesh (here two
+    # virtual CPU shards, whose container and restore equal the mesh-less
+    # ones); anything but a Mesh raises TypeError, and a squeeze container
+    # is no input of the resident restore (a ValueError, as the
+    # reference's)
+    from sqz_tpu_torch.parallel.mesh import make_mesh
     data = _data()
     sq_blob = sqz_tpu.compress(data, fmt="squeeze", engine="native",
                                blocks=True, blk_bits=10)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+    mesh = make_mesh(2, devices=[torch.device("cpu")] * 2)
+    blob = sqz_tpu_torch.compress_resident(data, blk_bits=10, mode="lit",
+                                           mesh=mesh)
+    assert blob == sqz_tpu_torch.compress_resident(
+        data, blk_bits=10, mode="lit", device="cpu")
+    out = sqz_tpu_torch.decompress_resident(blob, mesh=mesh)
+    assert out.numpy().tobytes() == data
+    with pytest.raises(TypeError, match="Mesh"):
         sqz_tpu_torch.compress_resident(data, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        sqz_tpu_torch.decompress_resident(sq_blob, mesh=object(),
+    with pytest.raises(TypeError, match="Mesh"):
+        sqz_tpu_torch.decompress_resident(blob, mesh=object(),
                                           device="cpu")
     with pytest.raises(ValueError, match="cold sqz4"):
         sqz_tpu_torch.decompress_resident(sq_blob, device="cpu")

@@ -84,9 +84,13 @@ Phases (any failure exits non-zero):
      every lane under ``assembly="general"``), the fast-parse container
      by the general assembly in every lane, no lane on the host; a
      corrupt payload byte must raise; the cold token kernel's, its
-     lit_skip mode's and the compaction's launch counts over the run must
-     be > 0. The compaction is held against its plain version on the lit
-     encode's payloads (the largest it meets). The lit_skip
+     lit_skip mode's, the compaction's and the cell assembly's launch
+     counts over the run must be > 0. The compaction is held against its
+     plain version on the lit encode's payloads (the largest it meets).
+     The cell assembly kernel is held against its plain version (in
+     workers) on the decoder's outputs of the rle container's group and
+     of the lz container's group (where it rejects the lanes with
+     matches off the cell grid): equal blocks and bad flags. The lit_skip
      kernel is held against its plain version (in a worker) at the rle
      path's shape, and, on the rle and the lz tokens, against the cold
      kernel on the same tokens with the literals compacted on the host;
@@ -96,15 +100,16 @@ Phases (any failure exits non-zero):
      (mode rle) and ``load_pytree``. Every leaf must come back a CUDA
      tensor equal to the saved one; the native copy must decode the
      file's container to the stream the save built; the lit_skip token
-     kernel's, the compaction's and the decoder's launch counts over the
-     run must be > 0. Then ``params`` alone in mode lit (the cold token
-     kernel) must round-trip, a corrupt payload byte in that file must
-     raise, and the CLI must agree on the card: ``ckpt-save`` /
-     ``ckpt-load`` of a small .npz, ``compress`` / ``decompress`` /
-     ``roundtrip`` (``python -m sqz_tpu_torch``) with the torch engine on
-     1 MiB of texty, its exact-parse container equal to the native
-     engine's, and ``range`` equal to slicing. Save and load MB/s, ratio
-     and stages are printed. Between the load and mode lit, the
+     kernel's, the compaction's, the decoder's and the cell assembly's
+     launch counts over the run must be > 0, and the cell route must
+     restore every lane. Then ``params`` alone in
+     mode lit (the cold token kernel) must round-trip, a corrupt payload
+     byte in that file must raise, and the CLI must agree on the card:
+     ``ckpt-save`` / ``ckpt-load`` of a small .npz, ``compress`` /
+     ``decompress`` / ``roundtrip`` (``python -m sqz_tpu_torch``) with the
+     torch engine on 1 MiB of texty, its exact-parse container equal to
+     the native engine's, and ``range`` equal to slicing. Save and load
+     MB/s, ratio and stages are printed. Between the load and mode lit, the
      distributed checkpoint: ``save_pytree`` / ``load_pytree`` of the
      same state over a mesh of 2 virtual shards of the card
      (``parallel/mesh.make_mesh``): the file must equal the mesh-less
@@ -124,8 +129,9 @@ Phases (any failure exits non-zero):
      shards of ``cuda:0`` (a host thread and a stream a shard), in turns
      (1 2 4 4 2 1): ``compress_resident(mesh=)`` lit, rle and lz, each
      container equal to the mesh-less one, and ``decompress_resident(
-     mesh=)`` (auto) of each, equal to the input; enc and dec MB/s and
-     the launches of each shard count are printed;
+     mesh=)`` (auto) of each, equal to the input, the cell assembly
+     launched at least once a shard and mode; enc and dec MB/s and the
+     launches of each shard count are printed;
  16. two processes on the one card (``python -m
      sqz_tpu_torch.parallel.dryrun``, gloo, a shard of ``cuda:0`` each):
      ``compress_resident(mesh=)`` rle of the resident mix, rank 0's
@@ -1308,6 +1314,41 @@ def host_route_path():
     return {"host_route_blocks": routed}
 
 
+def cell_check(pool, blob):
+    """The cell assembly kernel against its plain version (in a worker of
+    ``pool``, see PlainCheck) on the decoder's outputs of the first group
+    of ``blob``'s payloads, as ``decompress_resident`` gives them to it.
+    Returns (PlainCheck, bound and library entries); the kernel's time is
+    the mean of 20 launches."""
+    import numpy as np
+    import torch
+    from sqz_tpu_torch import convert
+    from sqz_tpu_torch.ops import resident, sqz4_host as host
+    dev = torch.device("cuda")
+    blk_bits, _osize, payloads, sizes = resident.unpack_cold_container(blob)
+    bs, lanes = 1 << blk_bits, host.LANES
+    dargs = resident.decoder_args(blk_bits, lanes)
+    buf, plens, szs, _over = resident.pack_payload_group(
+        payloads[:lanes], sizes[:lanes], dargs["Pw"], lanes)
+    # int32 sizes: the plain version's worker takes u8 / i32 / u32 arrays
+    szs_d = torch.from_numpy(szs.astype(np.int32)).to(dev)
+    outs = resident.run_decoder(convert.to_device(buf, dev),
+                                torch.from_numpy(plens).to(dev), szs_d,
+                                dargs)
+    args = (*outs, szs_d, bs)
+    chk = PlainCheck(pool, resident.assemble_cells,
+                     resident.assemble_cells_ref, args, REPS)
+    chk.ms = mean_events_ms(lambda: resident.assemble_cells(*args), 20)
+    # what the walk and the fill need: the literal words, the token-bit
+    # words up to ntok, the match records, the counts and sizes in; the
+    # blocks and flags out
+    cnt = convert.to_numpy(outs[3])[0].astype(np.int64)
+    nbytes = (4 * (-(-cnt[1] // 4)).sum() + 4 * (-(-cnt[2] // 32)).sum()
+              + 4 * cnt[3].sum() + cnt.size * 4 + 4 * lanes
+              + lanes * bs + lanes)
+    return chk, bound(int(nbytes), 0) + (None,)
+
+
 def resident_input():
     """resident-blk16-mix-32MiB: 512 blocks of 64 KiB (one group) of
     ``synthetic.resident_mix`` (sparse float32 weights, periodic content
@@ -1324,8 +1365,9 @@ def resident_path(card, texty, fblob, pool):
     fast-parse ``compress`` container of ``texty``, with the launches and
     the restore routes counted over that run; then the checks. Returns
     (launches, end-to-end figures, the lit_skip kernel's PlainCheck and
-    its bound and library entries): the plain version runs in a worker of
-    ``pool`` at the rle path's full shape."""
+    its bound and library entries, the same for the cell assembly): the
+    plain versions run in workers of ``pool`` at the rle path's full
+    shape (the cell assembly's on the rle and the lz containers)."""
     import numpy as np
     import torch
     import sqz_tpu_torch
@@ -1341,11 +1383,7 @@ def resident_path(card, texty, fblob, pool):
     torch.cuda.synchronize()
     log(f"resident input, {len(data) / 2**20:.2f} MiB: "
         f"{time.perf_counter() - t:.1f} s")
-    counters = (sqz4_cuda.encode_tok, sqz4_cuda.decode,
-                sqz4_cuda.compact_words)
-    for c in counters:
-        c.launches = 0
-    sqz4_cuda.encode_tok.lit_skip_launches = 0
+    reset_launches()
     blobs, walls, routes, outs = {}, {}, {}, {}
     for mode in ("lit", "rle", "lz"):
         t = time.perf_counter()
@@ -1361,11 +1399,9 @@ def resident_path(card, texty, fblob, pool):
         walls[f"dec_{name}"] = time.perf_counter() - t
         routes[name] = {k: resident.route_lanes[k] - before[k]
                         for k in before}
-    launches = {"sqz4_encode_tok": sqz4_cuda.encode_tok.launches,
-                "sqz4_encode_tok_lit_skip":
-                    sqz4_cuda.encode_tok.lit_skip_launches,
-                "sqz4_decode": sqz4_cuda.decode.launches,
-                "sqz4_compact": sqz4_cuda.compact_words.launches}
+    launches = {k: read_launches().get(k, 0) for k in (
+        "sqz4_encode_tok", "sqz4_encode_tok_lit_skip", "sqz4_decode",
+        "sqz4_compact", "sqz4_cell_assembly")}
     log(f"launches over the resident paths: {launches}; restore routes "
         f"(lanes): {json.dumps(routes)}")
 
@@ -1398,11 +1434,9 @@ def resident_path(card, texty, fblob, pool):
     if out.cpu().numpy().tobytes() != data or \
             resident.route_lanes["general"] - before["general"] != nb:
         raise AssertionError("general assembly of the lz container")
-    if min(launches["sqz4_encode_tok"],
-           launches["sqz4_encode_tok_lit_skip"],
-           launches["sqz4_compact"]) < 1:
-        raise AssertionError(f"a token kernel mode or the compaction was "
-                             f"not launched: {launches}")
+    if min(launches.values()) < 1:
+        raise AssertionError(f"a kernel of the resident paths was not "
+                             f"launched: {launches}")
     code, wb, bb, osize, payloads, csum, _f, _a = container.unpack(
         blobs["rle"])
     p = bytearray(payloads[CORRUPT_BLOCK])
@@ -1415,6 +1449,21 @@ def resident_path(card, texty, fblob, pool):
         log(f"resident restore rejects a corrupt block: {e}")
     else:
         raise AssertionError("decompress_resident took a corrupt payload")
+
+    # the cell assembly on the rle and the lz containers' groups: its
+    # flags give the routes above (every rle lane to the cell route, the
+    # lz lanes with matches off the cell grid to the general one)
+    cell = {m: cell_check(pool, blobs[m]) for m in ("rle", "lz")}
+    flagged = {m: int(convert.to_numpy(c.got[1])[:nb].sum())
+               for m, (c, _x) in cell.items()}
+    if flagged["rle"] or nb - flagged["lz"] != routes["lz"]["cell"]:
+        raise AssertionError(f"cell assembly flags {flagged} against the "
+                             f"routes {routes}")
+    cchk, cextra = cell["rle"]
+    log(f"cell assembly kernel at {nb} blocks x {bs} B (the rle "
+        f"container's group; {card}): {cchk.ms:.4f} ms (mean of 20), "
+        f"bound {cextra[0]:.4f} ms by {cextra[1]}; the lz group "
+        f"{cell['lz'][0].ms:.4f} ms, {flagged['lz']} lanes flagged")
 
     # one more run of each for its stages
     enc_st = {m: {} for m in ("lit", "rle", "lz")}
@@ -1491,7 +1540,7 @@ def resident_path(card, texty, fblob, pool):
          for m, st in enc_st.items()}) + "; decode " + json.dumps(
         {m: {k: round(v, 4) for k, v in st.items()}
          for m, st in dec_st.items()}))
-    return launches, fig, (chk, extra)
+    return launches, fig, (chk, extra), cell
 
 
 # phase 13: the training state of GPT-2 small (124M) at its published
@@ -1658,11 +1707,7 @@ def checkpoint_path(card):
         f"{time.perf_counter() - t_phase:.1f} s")
     with tempfile.TemporaryDirectory(prefix="sqz_ckpt_") as work:
         path = os.path.join(work, "gpt2s.sqzckpt")
-        counters = (sqz4_cuda.encode_tok, sqz4_cuda.decode,
-                    sqz4_cuda.compact_words)
-        for c in counters:
-            c.launches = 0
-        sqz4_cuda.encode_tok.lit_skip_launches = 0
+        reset_launches()
         before = dict(resident.route_lanes)
         enc_st, dec_st = {}, {}
         t = time.perf_counter()
@@ -1673,10 +1718,9 @@ def checkpoint_path(card):
         back = checkpoint.load_pytree(path, stats=dec_st)
         torch.cuda.synchronize()
         load_s = time.perf_counter() - t
-        launches = {"sqz4_encode_tok_lit_skip":
-                        sqz4_cuda.encode_tok.lit_skip_launches,
-                    "sqz4_compact": sqz4_cuda.compact_words.launches,
-                    "sqz4_decode": sqz4_cuda.decode.launches}
+        launches = {k: read_launches().get(k, 0) for k in (
+            "sqz4_encode_tok_lit_skip", "sqz4_compact", "sqz4_decode",
+            "sqz4_cell_assembly")}
         routes = {k: resident.route_lanes[k] - before[k] for k in before}
         raw = info["raw_bytes"]
         log(f"launches over the checkpoint path: {launches}; restore "
@@ -1684,6 +1728,10 @@ def checkpoint_path(card):
         if min(launches.values()) < 1:
             raise AssertionError(f"a kernel of the checkpoint path was not "
                                  f"launched: {launches}")
+        # an rle container is cell-parsed: every lane by the cell route
+        if routes != {"cell": -(-raw >> MAIN_BITS), "general": 0,
+                      "host": 0}:
+            raise AssertionError(f"checkpoint restore routes: {routes}")
         if not leaves_equal(back, state):
             raise AssertionError("load_pytree differs from the saved state")
         del back
@@ -1788,27 +1836,35 @@ TOOLS = ("check_dec", "check_enc", "check_resident", "check_lz")
 MESH_TURNS = (1, 2, 4, 4, 2, 1)   # phase 15: virtual shards, in turns
 PROCS_TIMEOUT = 600      # phase 16's workers
 
-# the launch counters of the sliced phases: name -> (wrapper, attribute)
-COUNTERS = {"sqz4_encode": ("encode_full", "launches"),
-            "sqz4_encode_seeded": ("encode_full", "seeded_launches"),
-            "sqz4_encode_stats": ("encode_stats", "launches"),
-            "sqz4_encode_tok": ("encode_tok", "launches"),
-            "sqz4_encode_tok_lit_skip": ("encode_tok", "lit_skip_launches"),
-            "sqz4_decode": ("decode", "launches"),
-            "sqz4_compact": ("compact_words", "launches")}
+# the launch counters of the sliced phases: name -> (module of
+# sqz_tpu_torch.ops, wrapper, attribute)
+COUNTERS = {"sqz4_encode": ("sqz4_cuda", "encode_full", "launches"),
+            "sqz4_encode_seeded": ("sqz4_cuda", "encode_full",
+                                   "seeded_launches"),
+            "sqz4_encode_stats": ("sqz4_cuda", "encode_stats", "launches"),
+            "sqz4_encode_tok": ("sqz4_cuda", "encode_tok", "launches"),
+            "sqz4_encode_tok_lit_skip": ("sqz4_cuda", "encode_tok",
+                                         "lit_skip_launches"),
+            "sqz4_decode": ("sqz4_cuda", "decode", "launches"),
+            "sqz4_compact": ("sqz4_cuda", "compact_words", "launches"),
+            "sqz4_cell_assembly": ("resident", "assemble_cells",
+                                   "launches")}
+
+
+def _counter(mod, fn):
+    import importlib
+    return getattr(importlib.import_module(f"sqz_tpu_torch.ops.{mod}"), fn)
 
 
 def reset_launches():
-    from sqz_tpu_torch.ops import sqz4_cuda
-    for fn, attr in COUNTERS.values():
-        setattr(getattr(sqz4_cuda, fn), attr, 0)
+    for mod, fn, attr in COUNTERS.values():
+        setattr(_counter(mod, fn), attr, 0)
 
 
 def read_launches() -> dict:
     """The launches since ``reset_launches`` of every kernel that ran."""
-    from sqz_tpu_torch.ops import sqz4_cuda
-    got = {k: getattr(getattr(sqz4_cuda, fn), attr)
-           for k, (fn, attr) in COUNTERS.items()}
+    got = {k: getattr(_counter(mod, fn), attr)
+           for k, (mod, fn, attr) in COUNTERS.items()}
     return {k: v for k, v in got.items() if v}
 
 
@@ -1928,7 +1984,8 @@ def mesh_path(card):
                 raise AssertionError(f"the {m} restore over {n} shards "
                                      f"differs from the input")
         launches = read_launches()
-        if launches.get("sqz4_decode", 0) < 3 * n:
+        if min(launches.get(k, 0) for k in ("sqz4_decode",
+                                            "sqz4_cell_assembly")) < 3 * n:
             raise AssertionError(f"{n} shards: launches {launches}")
         runs.setdefault(n, []).append(walls)
         log(f"mesh of {n} virtual shards ({card}): " + "; ".join(
@@ -2012,6 +2069,8 @@ KERNELS = (   # name, source, the TPU kernel it replaces
     ("squeeze_bitpack", "squeeze_bitpack.cu", f"{PALLAS}:1489"),
     ("sqz4_encode_stats", "sqz4_encode_stats.cu", f"{PALLAS}:281"),
     ("probe", "probe.cu", "tools/pallas_probe.py:13"),
+    ("sqz4_cell_assembly", "sqz4_cell.cu",
+     "sqz_tpu/ops/resident.py:422,498 (jax.lax.scan, not a Pallas kernel)"),
 )
 
 
@@ -2051,20 +2110,24 @@ def main() -> int:
         we2e.update(anchored_path())
         we2e.update(host_route_path())
         t = time.perf_counter()
-        rlaunches, re2e, (rchk, rextra) = resident_path(card, data, fblob,
-                                                        pool)
-        launches["sqz4_encode_tok_lit_skip"] = \
-            rlaunches["sqz4_encode_tok_lit_skip"]
+        rlaunches, re2e, (rchk, rextra), cell = resident_path(
+            card, data, fblob, pool)
+        for k in ("sqz4_encode_tok_lit_skip", "sqz4_cell_assembly"):
+            launches[k] = rlaunches[k]
         we2e.update(re2e)
         log(f"resident paths: {time.perf_counter() - t:.1f} s")
         t = time.perf_counter()
         full = kernels_vs_plain(data, MAIN_BITS, MAIN_WIN_BITS,
                                 sqz4_host.LANES, REPS, STATS_BITS, pool)
         full["sqz4_encode_tok_lit_skip"] = rchk.result() + rextra
+        cres = {m: c.result() + x for m, (c, x) in cell.items()}
+        full["sqz4_cell_assembly"] = cres["rle"]
         log(f"kernels vs plain at the full shapes: "
             f"{time.perf_counter() - t:.1f} s; lit_skip "
             f"{full['sqz4_encode_tok_lit_skip'][1]:.3f} ms (plain "
-            f"{full['sqz4_encode_tok_lit_skip'][2]:.1f} ms)")
+            f"{full['sqz4_encode_tok_lit_skip'][2]:.1f} ms); cell assembly "
+            f"rle {cres['rle'][1]:.4f} ms (plain {cres['rle'][2]:.1f} ms), "
+            f"lz {cres['lz'][1]:.4f} ms (plain {cres['lz'][2]:.1f} ms)")
     finally:
         pool.shutdown(wait=True, cancel_futures=True)
     chain_figures(chain_inputs(data), MAIN_BITS, MAIN_WIN_BITS, REPS)
@@ -2085,6 +2148,9 @@ def main() -> int:
               "sqz4_encode_tok_lit_skip": f"{RESIDENT_BLOCKS} blocks x "
                                           f"{1 << MAIN_BITS} B of the "
                                           f"resident mix, cell parse",
+              "sqz4_cell_assembly": f"{RESIDENT_BLOCKS} blocks x "
+                                    f"{1 << MAIN_BITS} B of the resident "
+                                    f"mix, the rle container's group",
               "probe": "the 8 of the 14 probes one torch call computes, "
                        "at the reference's inputs, [1, 128] and [256, 128]"}
     for name, src, replaces in KERNELS:

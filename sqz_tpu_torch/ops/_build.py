@@ -1,10 +1,11 @@
 """Build the CUDA sources under ``csrc/`` with nvcc and load them (ctypes).
 
-The kernels (the sqz4 coders and compaction, the squeeze bit-packer, the
-primitive probes) have a plain C interface (``extern "C"`` launchers taking
-device pointers, sizes and a stream), so they compile in seconds without
-PyTorch's headers. Each source compiles in its own nvcc process, all
-started together, and one more nvcc links the objects:
+The kernels (the sqz4 coders and compaction, the resident restore's cell
+assembly, the squeeze bit-packer, the primitive probes) have a plain C
+interface (``extern "C"`` launchers taking device pointers, sizes and a
+stream), so they compile in seconds without PyTorch's headers. Each
+source compiles in its own nvcc process, all started together, and one
+more nvcc links the objects:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -c
          -Xcompiler -fPIC -o <source>.o csrc/<source>.cu      (each source)
@@ -30,7 +31,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("sqz4_encode.cu", "sqz4_decode.cu", "sqz4_encode_tok.cu",
            "sqz4_compact.cu", "squeeze_bitpack.cu", "sqz4_encode_stats.cu",
-           "probe.cu")
+           "probe.cu", "sqz4_cell.cu")
 HEADERS = ("sqz4_coder.cuh", "sqz4_div.cuh", "sqz4_warp.cuh",
            "sqz4_chain.cuh", "sqz4_pair.cuh", "sqz_tile.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "sqz_tpu_torch"
@@ -124,5 +125,8 @@ def library() -> ctypes.CDLL:
                                                      p, i, p]
             lib.probe_launch.restype = i
             lib.probe_launch.argtypes = [i, p, p, p, i, i, p]
+            lib.sqz4_cell_launch.restype = i
+            lib.sqz4_cell_launch.argtypes = [p, i, p, i, p, i, p, p, i, i, p,
+                                             p, p]
             _lib = lib
         return _lib

@@ -19,11 +19,12 @@ the card, the token encoder codes them, and only payload bytes come back.
   lit_skip too.
 
 Restore: the decoder kernel gives literal, token-bit and match-record
-streams; the cell assembly (``decode_rle_group``) places them for
-cell-parsed streams, the general assembly (``ops/lz_restore.py``) for any
-spec-valid stream, and only kernel-flagged (corrupt) or oversized lanes
-reach the host codec. ``route_lanes`` counts the lanes each route
-restored.
+streams; the cell assembly (``decode_rle_group``: the kernel
+``csrc/sqz4_cell.cu`` on the card, its plain version on the CPU) places
+them for cell-parsed streams, the general assembly
+(``ops/lz_restore.py``) for any spec-valid stream, and only
+kernel-flagged (corrupt) or oversized lanes reach the host codec.
+``route_lanes`` counts the lanes each route restored.
 
 Arrays are lane-major here (``[B, ...]``, one block a row): the token
 kernel takes tokens ``[G, B, Tt]`` and literal bytes ``[G, B, L]``, so
@@ -470,9 +471,50 @@ def run_decoder(buf, plens, sizes, dargs: dict):
 
 
 def assemble_cells(lit, tok, mrec, counts, sizes, bs: int):
-    """The three-pass cell assembly of one decoded group: ([B, bs] u8
-    blocks, [B] bad) where bad marks lanes that are not cell-parsed or
-    that the kernel flagged."""
+    """The cell assembly of one decoded group: the decoder's outputs in
+    its layouts (lit, tok, mrec uint32 [1, rows, B], counts int32 [1, 8,
+    B]) and the block sizes [B] -> ([B, bs] u8 blocks, [B] bool bad), bad
+    marking lanes that are not cell-parsed or that the decoder flagged.
+    The CUDA kernel (``csrc/sqz4_cell.cu``) for tensors on the card, its
+    plain version (``assemble_cells_ref``) for tensors on the CPU; its
+    launches count in ``assemble_cells.launches``."""
+    for t, name in ((lit, "lit"), (tok, "tok"), (mrec, "mrec")):
+        launch.check_tensor(t, name, torch.uint32)
+    launch.check_tensor(counts, "counts", torch.int32)
+    _g, lw, B = lit.shape
+    C = bs // CELL
+    if any(t.shape[0] != 1 or t.shape[2] != B for t in (lit, tok, mrec,
+                                                       counts)) \
+            or counts.shape[1] < 7 or sizes.shape != (B,):
+        raise ValueError("cell assembly takes one group: [1, rows, B] "
+                         "decoder outputs and [B] sizes")
+    if bs % CELL or C < 1 or lw < C * 32:
+        raise ValueError(f"cell assembly of {bs}-byte blocks needs whole "
+                         f"cells and {C * 32} literal rows")
+    dev = launch.kernel_device(lit, tok, mrec, counts, sizes)
+    if dev.type == "cpu":
+        return assemble_cells_ref(lit, tok, mrec, counts, sizes, bs)
+    from sqz_tpu_torch.ops import _build
+    szs = sizes.to(torch.int32)
+    blocks = torch.empty((B, bs), dtype=torch.uint8, device=dev)
+    bad = torch.empty((B,), dtype=torch.bool, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = _build.library().sqz4_cell_launch(
+            lit.data_ptr(), lw, tok.data_ptr(), tok.shape[1],
+            mrec.data_ptr(), mrec.shape[1], counts.data_ptr(),
+            szs.data_ptr(), B, C, blocks.data_ptr(), bad.data_ptr(), stream)
+    launch.launched(rc, "sqz4_cell")
+    launch.count(assemble_cells)
+    return blocks, bad
+
+
+assemble_cells.launches = 0
+
+
+def assemble_cells_ref(lit, tok, mrec, counts, sizes, bs: int):
+    """The plain version of ``assemble_cells``: the three passes as torch
+    ops, a Python step a cell (the reference's two scans)."""
     B = sizes.shape[0]
     C = bs // CELL
     cnt = _cols(counts)

@@ -282,7 +282,7 @@ def _code(text: str, drop_docstring: bool) -> str:
 @pytest.mark.parametrize("path", [
     "oracle/bitstream.py", "oracle/huffman.py", "oracle/match.py",
     "oracle/rangecoder.py", "oracle/squeeze.py", "oracle/sqz4.py",
-    "oracle/__init__.py", "utils/stats.py"])
+    "oracle/refmap.py", "oracle/__init__.py", "utils/stats.py"])
 def test_oracle_and_stats_copies_are_the_references(path):
     """The copies are the reference's code with its import paths
     rewritten (comments may differ, and the package docstring of
@@ -332,6 +332,30 @@ def test_oracle_copy_equals_reference(kind):
         assert s4 == ref_oracle.sqz4_compress(data, window=1 << 10, lz=lz)
         assert s4 == native.sqz4_compress(data, window=1 << 10, lz=lz)
         assert oracle.sqz4_decompress(s4) == data
+
+
+REFMAP_INPUTS = {
+    "texty": lambda: ref_corpus.texty(3000, seed=3),
+    "rle4": lambda: ref_corpus.rle4(3000),
+    "random_bytes": lambda: ref_corpus.random_bytes(3000, seed=4),
+}
+
+
+@pytest.mark.parametrize("kind", sorted(REFMAP_INPUTS))
+def test_refmap_parse_copy_equals_reference(kind):
+    """The hash-map parse: the same container as the reference's oracle,
+    decoding back, and the same tokens from small tables (random bytes
+    fill 2^12 slots to the 75% cutoff, texty 2^8)."""
+    from sqz_tpu.oracle.refmap import refmap_tokens as ref_tokens
+    from sqz_tpu_torch.oracle.refmap import refmap_tokens
+    data = REFMAP_INPUTS[kind]()
+    s4 = oracle.sqz4_compress(data, window=1 << 10, parse="refmap")
+    assert s4 == ref_oracle.sqz4_compress(data, window=1 << 10,
+                                          parse="refmap")
+    assert oracle.sqz4_decompress(s4) == data
+    for map_n in (1 << 12, 1 << 8):
+        assert list(refmap_tokens(data, 1 << 15, map_n=map_n)) == \
+            list(ref_tokens(data, 1 << 15, map_n=map_n))
 
 
 @pytest.mark.parametrize("kind", sorted(INPUTS))

@@ -33,7 +33,8 @@ from sqz_tpu import native
 from sqz_tpu.ops import sqz4_pallas as sp
 from sqz_tpu.utils import corpus
 from sqz_tpu_torch import convert, native as port_native
-from sqz_tpu_torch.ops import probe, sqz4_cuda, sqz4_host as host, sqz4_ref
+from sqz_tpu_torch.ops import probe, resident, sqz4_cuda, sqz4_host as host
+from sqz_tpu_torch.ops import sqz4_ref
 from sqz_tpu_torch.ops import squeeze_cuda, squeeze_ref
 from sqz_tpu_torch.utils import synthetic
 
@@ -168,6 +169,45 @@ extern "C" void host_compact(const uint32_t* words, int B,
 """
 
 
+# The cell assembly as its kernel's CTAs run it: one lane after another,
+# each on a CTA of kHostCtaThreads (one host thread, or the kernel's 128)
+# through the kernel's lane body, with a ring of `ring` literal cells (2,
+# 3, or the kernel's 32).
+CELL_HOSTS = r"""
+template <int kRing>
+static void cell_lanes(const uint32_t* lit, const uint32_t* tok, int tw,
+                       const uint32_t* mrec, int mw, const int32_t* counts,
+                       const int32_t* sizes, int B, int C, uint8_t* blocks,
+                       uint8_t* bad) {
+    std::vector<uint32_t> smem(sqz4_cell::smem_words(tw, mw, C, kRing));
+    for (long long b = 0; b < B; ++b)
+        on_cta([&](int tid) {
+            sqz4_cell::assemble_lane<kHostCtaThreads, kRing>(
+                tid, lit + b, tok + b, tw, mrec + b, mw, counts + b,
+                sizes[b], B, C, blocks + b * C * sqz4_cell::kCell, bad + b,
+                smem.data());
+        });
+}
+
+extern "C" int host_cell(const uint32_t* lit, const uint32_t* tok, int tw,
+                         const uint32_t* mrec, int mw, const int32_t* counts,
+                         const int32_t* sizes, int B, int C, uint8_t* blocks,
+                         uint8_t* bad, int ring) {
+    if (ring == 2)
+        cell_lanes<2>(lit, tok, tw, mrec, mw, counts, sizes, B, C, blocks,
+                      bad);
+    else if (ring == 3)
+        cell_lanes<3>(lit, tok, tw, mrec, mw, counts, sizes, B, C, blocks,
+                      bad);
+    else if (ring == sqz4_cell::kCellRing)
+        cell_lanes<sqz4_cell::kCellRing>(lit, tok, tw, mrec, mw, counts,
+                                         sizes, B, C, blocks, bad);
+    else
+        return -1;
+    return 0;
+}
+"""
+
 HARNESS = r"""
 #define SQZ_DEVICE inline
 #define __clzll(x) __builtin_clzll(x)
@@ -179,6 +219,8 @@ HARNESS = r"""
 #include "squeeze_bitpack.cu"
 #include "sqz4_encode_stats.cu"
 #include "probe.cu"
+#include "sqz4_cell.cu"
+#include <vector>
 
 extern "C" void host_encode(const uint32_t* m, const uint32_t* s, int G,
                             int TW, int B, const int32_t* seed, int fresh,
@@ -257,7 +299,12 @@ extern "C" int host_probe(int which, const void* a, const void* b,
 // the one-lane build: a warp's body runs once, in this thread
 template <class F>
 static void on_warp(F body) { body(); }
-""" + TILE_HOSTS
+
+// and a CTA of one thread
+constexpr int kHostCtaThreads = 1;
+template <class F>
+static void on_cta(F body) { body(0); }
+""" + TILE_HOSTS + CELL_HOSTS
 
 
 WARP_HARNESS = r"""
@@ -330,6 +377,45 @@ inline int lowest(unsigned x) { return x ? __builtin_ctz(x) : kLanes; }
 #include "sqz4_decode.cu"
 #include "sqz4_compact.cu"
 #include "squeeze_bitpack.cu"
+
+// the cell assembly's CTA barriers for a CTA of host threads: cta_any's
+// barrier ORs the threads' flags in its completion step
+#define SQZ_HOST_CTA
+#include <atomic>
+namespace sqz4_cell {
+struct HostCta {
+    struct Done {
+        HostCta* cta;
+        void operator()() noexcept { cta->any = cta->acc.exchange(false); }
+    };
+    std::atomic<bool> acc{false};
+    bool any = false;
+    std::barrier<Done> bar;
+    explicit HostCta(int n) : bar(n, Done{this}) {}
+};
+inline thread_local HostCta* t_cta = nullptr;
+inline void cta_sync() { t_cta->bar.arrive_and_wait(); }
+inline bool cta_any(bool p) {
+    if (p) t_cta->acc = true;
+    t_cta->bar.arrive_and_wait();
+    return t_cta->any;
+}
+}  // namespace sqz4_cell
+#include "sqz4_cell.cu"
+
+// body(tid) on a CTA of the kernel's 128 host threads
+constexpr int kHostCtaThreads = sqz4_cell::kCellThreads;
+template <class F>
+static void on_cta(F body) {
+    sqz4_cell::HostCta cta(kHostCtaThreads);
+    std::vector<std::thread> th;
+    for (int t = 0; t < kHostCtaThreads; ++t)
+        th.emplace_back([&, t] {
+            sqz4_cell::t_cta = &cta;
+            body(t);
+        });
+    for (auto& t : th) t.join();
+}
 
 // body() on a warp of 32 host threads, one lane each
 template <class F>
@@ -407,7 +493,7 @@ extern "C" void host_decode(const uint32_t* p, const int32_t* meta, int G,
                                   counts + g * 8 * B + b, sm.get());
             });
 }
-""" + TILE_HOSTS
+""" + TILE_HOSTS + CELL_HOSTS
 
 
 def _build(tmp_path_factory, name, source, std):
@@ -438,6 +524,8 @@ def _tile_argtypes(lib):
     lib.host_compact.argtypes = [p, i, p, i, p, i]
     lib.host_bitpack.argtypes = [p, i, i, i, p, i, p, i]
     lib.host_bitpack.restype = i
+    lib.host_cell.argtypes = [p, p, i, p, i, p, p, i, i, p, p, i]
+    lib.host_cell.restype = i
     return lib
 
 
@@ -495,10 +583,9 @@ def test_encoder_lanes_equal_plain_version(lanes_lib, paired):
             == native.blocks_compress(data, 1, 10, blk))
 
 
-def _decode_both(lib, payloads, sizes, blk, lanes, seed=None, dlen=0):
-    """The decoder's lane bodies and its plain version on the same inputs
-    (``seed``: the seed column, int32 [610], for the seeded mode; ``dlen``
-    the dictionary length in the meta rows)."""
+def _decode_lanes(lib, payloads, sizes, blk, lanes, seed=None, dlen=0):
+    """The decoder's lane bodies on payloads: ([lit, tok, mrec, counts] in
+    the kernel's layouts, the plan, the packed buffer and meta)."""
     plan = host.plan_decode_dispatch(len(payloads), blk, lanes=lanes)
     buf, meta = host.pack_decode_chunk(payloads, sizes, lanes, plan["G"],
                                        plan["Pw"], dlen)
@@ -510,6 +597,16 @@ def _decode_both(lib, payloads, sizes, blk, lanes, seed=None, dlen=0):
                     None if seed is None else _ptr(seed),
                     _ptr(got[0]), lw, _ptr(got[1]), tw, _ptr(got[2]), mw,
                     _ptr(got[3]))
+    return got, plan, buf, meta
+
+
+def _decode_both(lib, payloads, sizes, blk, lanes, seed=None, dlen=0):
+    """The decoder's lane bodies and its plain version on the same inputs
+    (``seed``: the seed column, int32 [610], for the seeded mode; ``dlen``
+    the dictionary length in the meta rows)."""
+    got, plan, buf, meta = _decode_lanes(lib, payloads, sizes, blk, lanes,
+                                         seed, dlen)
+    lw, tw, mw, t_max = plan["lw"], plan["tw"], plan["mw"], plan["t_max"]
     pt, mt = convert.decoder_inputs(buf, meta, "cpu")
     want = [convert.to_numpy(a) for a in sqz4_ref.decode_ref(
         pt, mt, t_max, lw, tw, mw,
@@ -1215,3 +1312,137 @@ def test_seeded_decoder_lanes_flag_corrupt_streams_like_plain_version(
                              host.seed_column(seed), len(dictionary))
     _assert_equal(got, want)
     assert got[3][0, 4].any()
+
+
+# The resident restore's cell assembly (csrc/sqz4_cell.cu): its lane body
+# on the decoder's outputs (from the decoder's lane bodies) against the
+# plain version, blocks and bad flags on every lane, tolerance 0.
+
+def _match(length, dist):
+    return length | (1 << 8) | (dist.bit_length() << 9) | (dist << 16)
+
+
+def _lit_skip_payloads(lib, rows, toks, blk):
+    """Raw blocks [n, bs] u8 and their token rows (lists, EOS appended) ->
+    payloads from the lit_skip token encoder's lane bodies."""
+    n, bs = rows.shape
+    cw = resident.rle_group_args(blk)["cap_words"]
+    tt = max(96, max(map(len, toks)) + 1)
+    tk = np.zeros((1, n, tt), np.uint32)
+    for b, row in enumerate(toks):
+        tk[0, b, :len(row) + 1] = row + [resident.EOS_TOKEN]
+    words = np.zeros((1, cw, n), np.uint32)
+    lens = np.zeros((1, 8, n), np.int32)
+    lib.host_encode_tok(_ptr(tk), tt, _ptr(np.ascontiguousarray(rows[None])),
+                        bs, 1, n, bs + 64, _ptr(words), cw, _ptr(lens), 1)
+    return host.unpack_group_payloads(words, lens, n)
+
+
+def _cell_both(lib, payloads, sizes, blk, ring):
+    """One group of payloads through the decoder's lane bodies, then the
+    cell assembly's lane bodies and its plain version: ((blocks, bad),
+    (blocks, bad)) as numpy."""
+    bs = 1 << blk
+    lanes = len(payloads)
+    (lit, tok, mrec, counts), plan, _b, _m = _decode_lanes(
+        lib, payloads, sizes, blk, lanes)
+    szs = np.asarray(sizes, np.int32)
+    blocks = np.full((lanes, bs), 0xEE, np.uint8)
+    bad = np.full((lanes,), 7, np.uint8)
+    assert lib.host_cell(_ptr(lit), _ptr(tok), plan["tw"], _ptr(mrec),
+                         plan["mw"], _ptr(counts), _ptr(szs), lanes,
+                         bs // resident.CELL, _ptr(blocks), _ptr(bad),
+                         ring) == 0
+    wb, wbad = resident.assemble_cells(
+        *(convert.to_device(a, "cpu") for a in (lit, tok, mrec, counts)),
+        torch.from_numpy(szs.astype(np.int64)), bs)
+    return (blocks, bad.astype(bool)), (wb.numpy(), wbad.numpy())
+
+
+def _crafted_cells():
+    """1 KiB blocks of random nonzero cells with hand-made token rows: far
+    copies of a literal source (restores), of a periodic source (flagged),
+    of a periodic all-zero source (restores), and matches the cell model
+    rejects (a dist that is not a power of two, a short match, a far dist
+    off the cell grid, a match in a short last cell)."""
+    rng = np.random.default_rng(41)
+    L, M = 128, _match     # a literal cell's token, a match token
+    cases = []
+
+    def case(edits, row, size=1024):
+        cells = rng.integers(1, 256, (8, 128), dtype=np.uint8)
+        for i, j in edits:
+            cells[i] = 0 if j is None else cells[j]
+        cases.append((cells.reshape(-1), row, size))
+
+    case([(3, 1)], [L, L, L, M(128, 256), L, L, L, L])
+    case([(1, 0), (3, 1)], [L, M(128, 128), L, M(128, 256), L, L, L, L])
+    case([(1, None), (2, None), (4, None)],
+         [L, L, M(128, 128), L, M(128, 256), L, L, L])
+    case([], [L, L, M(128, 96), L, L, L, L, L])
+    case([], [L, M(64, 128), 64, L, L, L, L, L, L])
+    case([], [L, L, M(128, 200), L, L, L, L, L])
+    case([], [L] * 7 + [M(104, 128)], size=1000)
+    case([(5, 2)], [L, L, L, L, L, M(128, 384), L, L])
+    return cases
+
+
+@pytest.mark.parametrize("ring", [2, 32])
+def test_cell_assembly_lanes_on_crafted_far_copies(coder_lib, ring):
+    cases = _crafted_cells()
+    rows = np.stack([c[0] for c in cases])
+    sizes = [c[2] for c in cases]
+    payloads = _lit_skip_payloads(coder_lib, rows, [c[1] for c in cases], 10)
+    got, want = _cell_both(coder_lib, payloads, sizes, 10, ring)
+    _assert_equal(got, want)
+    assert want[1].tolist() == [False, True, False, True, True, True, True,
+                                False]
+    for b in np.nonzero(~want[1])[0]:
+        assert got[0][b].tobytes() == rows[b].tobytes()
+        assert port_native.sqz4_decompress_payload(
+            payloads[b], 1024) == rows[b].tobytes()
+
+
+def _cell_mix(lib, blk):
+    """Cell-parsed payloads of the resident mix and of RLE-shaped blocks,
+    the last block short, beside host-parsed ones (not cell-parsed) and a
+    corrupt one: (payloads, sizes, data, the cell-parsed count)."""
+    bs = 1 << blk
+    text = corpus.texty(8 * bs, seed=43)
+    parts = [bytes(bs), text[:bs], bytes(bs // 2) + text[:bs // 2],
+             (b"x" * 127 + b"y") * (bs // 128), b"abcd" * (bs // 4),
+             (text[:32] * (bs // 32)), text[:bs // 2] + text[:bs // 2]]
+    data = b"".join(parts) + synthetic.resident_mix(
+        10, blk, seed=44, tail=bs - 100)
+    nb = -(-len(data) // bs)
+    rows = np.zeros((nb, bs), np.uint8)
+    rows.reshape(-1)[:len(data)] = np.frombuffer(data, np.uint8)
+    sizes = [min(bs, len(data) - b * bs) for b in range(nb)]
+    tt = resident.rle_group_args(blk)["Tt"]
+    toks, _pairs = resident.rle_plan_device(
+        torch.from_numpy(rows), torch.tensor(sizes, dtype=torch.int64), tt)
+    tk = toks.view(torch.int32)[0].numpy().view(np.uint32)
+    payloads = _lit_skip_payloads(
+        lib, rows, [list(map(int, r[:list(r).index(resident.EOS_TOKEN)]))
+                    for r in tk], blk)
+    for b in range(nb):
+        assert port_native.sqz4_decompress_payload(
+            payloads[b], sizes[b]) == rows[b, :sizes[b]].tobytes()
+    hosted = [port_native.sqz4_compress_payload(text[o:o + bs], 1 << 15)
+              for o in range(bs, 5 * bs, bs)]
+    bad = bytearray(payloads[1])
+    bad[len(bad) // 2] ^= 0x5A
+    return (payloads + hosted + [bytes(bad)], sizes + [bs] * 4 + [sizes[1]],
+            rows, nb)
+
+
+@pytest.mark.parametrize("blk", [7, 10])
+@pytest.mark.parametrize("ring", [3, 32])
+def test_cell_assembly_lanes_equal_plain_version(coder_lib, blk, ring):
+    payloads, sizes, rows, nb = _cell_mix(coder_lib, blk)
+    got, want = _cell_both(coder_lib, payloads, sizes, blk, ring)
+    _assert_equal(got, want)
+    assert not want[1][:nb].any() and want[1][-1]
+    if blk >= 10:
+        assert want[1][nb:].all()
+    np.testing.assert_array_equal(got[0][:nb], rows)

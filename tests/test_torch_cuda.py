@@ -381,6 +381,49 @@ def test_resident_paths_round_trip_on_the_card(cuda):
             container.pack(code, wb, bb, osize, payloads, csum))
 
 
+@pytest.mark.parametrize("blk", [7, 10, 16])
+def test_cell_assembly_kernel_equals_plain_version(cuda, blk):
+    # a resident-mix group (rle container, short last block) beside a
+    # host-parsed and a corrupt payload: the kernel's blocks and bad flags
+    # on the decoder's outputs equal the plain version's, and
+    # decompress_resident restores through the kernel
+    bs = 1 << blk
+    nb = 6 if blk == 16 else 12
+    data = synthetic.resident_mix(nb, blk, seed=21)
+    x = torch.frombuffer(bytearray(data), dtype=torch.uint8).to(cuda)
+    blob = sqz_tpu_torch.compress_resident(x, blk_bits=blk, mode="rle")
+    payloads = container.unpack(blob)[4]
+    sizes = [min(bs, len(data) - b * bs) for b in range(nb)]
+    bad = bytearray(payloads[1])
+    bad[len(bad) // 2] ^= 0x5A
+    payloads = payloads + [native.sqz4_compress_payload(
+        corpus.texty(bs, seed=22), 1 << 15), bytes(bad)]
+    sizes += [bs, sizes[1]]
+    lanes = len(payloads)
+    dargs = resident.decoder_args(blk, lanes)
+    buf, plens, szs, _o = resident.pack_payload_group(payloads, sizes,
+                                                      dargs["Pw"], lanes)
+    szs_d = torch.from_numpy(szs).to(cuda)
+    outs = resident.run_decoder(convert.to_device(buf, cuda),
+                                torch.from_numpy(plens).to(cuda), szs_d,
+                                dargs)
+    before = resident.assemble_cells.launches
+    got = resident.assemble_cells(*outs, szs_d, bs)
+    torch.cuda.synchronize()
+    assert resident.assemble_cells.launches == before + 1
+    want = resident.assemble_cells_ref(*(o.cpu() for o in outs),
+                                       szs_d.cpu(), bs)
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu(), want[1])
+    assert not want[1][:nb].any() and want[1][-1]
+    assert got[0][:nb].cpu().numpy().reshape(-1)[:len(data)].tobytes() \
+        == data
+    before = resident.assemble_cells.launches
+    out = sqz_tpu_torch.decompress_resident(blob)
+    assert out.cpu().numpy().tobytes() == data
+    assert resident.assemble_cells.launches == before + 1
+
+
 def test_checkpoint_round_trips_on_the_card(cuda, tmp_path):
     # a mixed-dtype tree on the card: the same file as the plain versions
     # write on the CPU, restored bit for bit into CUDA tensors through

@@ -59,7 +59,8 @@ Phases (any failure exits non-zero):
   7. the stats-fed encoder's main path, ``sqz4_cuda.encode_groups`` on the
      statistics of 512 blocks of 16 KiB (payloads equal the native
      engine's), and the probes' main path, ``probe.run_probes`` (every
-     probe equals its expected value), each with its launch count > 0;
+     probe equals its expected value, all fourteen in one launch), each
+     with its launch count > 0 (the probes' exactly 1);
   8. a corrupt payload byte must be rejected, naming its block;
   9. sqz4 warm start (sqzt v2): the 32 MiB input through ``compress(warm=
      True)`` / ``decompress``, exact and fast parse. The exact container
@@ -678,10 +679,12 @@ def probe_library_calls(dev):
 
 def probes_vs_plain():
     """Every probe kernel against its plain version and its expected
-    value; kernel and library times are means of 20 launches. The times
-    returned (kernel, plain, library) and the bound are summed over the
-    same probes: those that one torch call computes
-    (``probe_library_calls``); the kernel time of all of them is logged."""
+    value, all fourteen in one launch (``probe.probes``, as
+    ``run_probes`` runs them). Times are means of 20 launches: the
+    kernel's over the 8 probes one torch call computes
+    (``probe_library_calls``), one launch of the 8, beside the 8 library
+    calls; the bound and the plain time over the same 8. The launch of
+    all fourteen is timed and logged too."""
     import torch
     from sqz_tpu_torch import convert
     from sqz_tpu_torch.ops import _build, probe
@@ -689,13 +692,13 @@ def probes_vs_plain():
     lib = _build.library()
     stream = torch.cuda.current_stream().cuda_stream
     calls = probe_library_calls(dev)
-    kms = plain_ms = lib_ms = 0.0
-    all_kms = 0.0
+    items = [(name, *probe.probe_tensors(name, dev)) for name in probe.PROBES]
+    gots = dict(zip(probe.PROBES, probe.probes(items)))
+    torch.cuda.synchronize()
+    plain_ms = lib_ms = 0.0
     nbytes = 0
-    for i, name in enumerate(probe.PROBES):
-        a, b = probe.probe_tensors(name, dev)
-        got = probe.probe(name, a, b)
-        torch.cuda.synchronize()
+    for name, a, b in items:
+        got = gots[name]
         t = time.perf_counter()
         want = probe.plain(name, a, b)
         torch.cuda.synchronize()
@@ -704,25 +707,34 @@ def probes_vs_plain():
                 convert.to_numpy(got) == probe.expected(name)).all():
             raise AssertionError(f"probe {name} differs from its plain "
                                  f"version or its expected value")
-        out = torch.empty_like(got)
-        k_ms = mean_events_ms(lambda: lib.probe_launch(
-            i, a.data_ptr(), b.data_ptr() if b is not None else None,
-            out.data_ptr(), probe.B, a.shape[0], stream), 20)
-        if not torch.equal(out.view(torch.int32), got.view(torch.int32)):
-            raise AssertionError(f"timed probe {name} launches differ")
-        all_kms += k_ms
         if name not in calls:
             continue
         if not (calls[name]().cpu().numpy() == probe.expected(name)).all():
             raise AssertionError(f"library call for {name} differs")
         lib_ms += mean_events_ms(calls[name], 20)
-        kms += k_ms
         plain_ms += p_ms
         nbytes += sum(x.numel() * x.element_size() for x in (a, b, got)
                       if x is not None)
-    log(f"probes: kernels {all_kms:.4f} ms over all {len(probe.PROBES)}, "
-        f"{kms:.4f} ms over the {len(calls)} with a library call "
-        f"(library {lib_ms:.4f} ms)")
+
+    def one_launch(names):
+        """Mean ms of one launch of the probes ``names`` (outputs checked
+        against the batch above)."""
+        its = [it for it in items if it[0] in names]
+        outs = [torch.empty_like(gots[k]) for k, _a, _b in its]
+        args = probe.launch_args(its, outs) + (probe.B, stream)
+        if lib.probe_launch(*args):
+            raise AssertionError("the timed probe launch failed")
+        ms = mean_events_ms(lambda: lib.probe_launch(*args), 20)
+        for (k, _a, _b), out in zip(its, outs):
+            if not torch.equal(out.view(torch.int32),
+                               gots[k].view(torch.int32)):
+                raise AssertionError(f"timed probe {k} differs")
+        return ms
+
+    all_ms, kms = one_launch(set(probe.PROBES)), one_launch(set(calls))
+    log(f"probes: one launch of all {len(probe.PROBES)} {all_ms:.4f} ms, "
+        f"of the {len(calls)} with a library call {kms:.4f} ms (library "
+        f"{lib_ms:.4f} ms over {len(calls)} calls)")
     return (0, kms, plain_ms) + bound(nbytes, 0) + (lib_ms,)
 
 
@@ -1141,9 +1153,10 @@ def stats_and_probe_paths(data):
     bad = [k for k, (got, want) in res.items() if not (got == want).all()]
     if bad:
         raise AssertionError(f"probes differ from their values: {bad}")
-    if min(stats_launches, probe_launches) < 1:
-        raise AssertionError("a kernel was not launched: "
-                             f"{stats_launches}, {probe_launches}")
+    if stats_launches < 1 or probe_launches != 1:
+        raise AssertionError("a kernel was not launched (or the probes not "
+                             f"in one launch): {stats_launches}, "
+                             f"{probe_launches}")
     log(f"encode_groups, 512 x 16 KiB of statistics: {enc_s:.3f} s, "
         f"launches {stats_launches}; probes all equal, launches "
         f"{probe_launches}")
@@ -2152,7 +2165,8 @@ def main() -> int:
                                     f"{1 << MAIN_BITS} B of the resident "
                                     f"mix, the rle container's group",
               "probe": "the 8 of the 14 probes one torch call computes, "
-                       "at the reference's inputs, [1, 128] and [256, 128]"}
+                       "in one launch, at the reference's inputs, [1, 128] "
+                       "and [256, 128]"}
     for name, src, replaces in KERNELS:
         err, ms, plain_ms, bound_ms, bound_by, lib_ms = full[name]
         kernels.append({

@@ -28,13 +28,26 @@
 // Inputs a and b are [rows, lanes] arrays (u32 unless noted: u8 for
 // u8_convert's a, i32 for dyn_sublane_read's b, one u32 for
 // smem_scalar's a); the output is u32 [1, lanes], or [rows, lanes] for
-// the cumsum. What bounds them: launch latency (a few KiB each); one
-// thread per lane, one CTA, a probe index picks the body.
+// the cumsum. What bounds them: launch latency (a few KiB each, a few
+// operations a lane), and in the sublane sum and cumsum a chain of 256
+// row loads a lane (the sum unrolled, the cumsum 64 rows read ahead of
+// their stores, so that the loads are in flight together). So one launch
+// runs a batch of probes, all fourteen in run_probes: a CTA a probe (its
+// index, inputs, output and rows in the kernel's parameter block), a
+// thread a lane; the reference ran a pallas_call each.
 
 #include <stdint.h>
 
 #ifndef SQZ_DEVICE
 #define SQZ_DEVICE __device__ __forceinline__
+#endif
+
+// the row loops' loads in flight together (a host compiler unrolls on
+// its own)
+#ifdef __CUDACC__
+#define PROBE_UNROLL _Pragma("unroll 16")
+#else
+#define PROBE_UNROLL
 #endif
 
 namespace probe {
@@ -65,15 +78,24 @@ SQZ_DEVICE int probe_lane(int which, const void* a_, const void* b_,
         break;
     case 5: {
         uint32_t acc = 0;
+        PROBE_UNROLL
         for (int r = 0; r < rows; ++r) acc += a[r * lanes + lane];
         out[lane] = acc;
         break;
     }
     case 6: {
+        // out may alias a: a block of rows is read before it is written
+        constexpr int kRows = 64;
         uint32_t acc = 0;
-        for (int r = 0; r < rows; ++r) {
-            acc += a[r * lanes + lane];
-            out[r * lanes + lane] = acc;
+        for (int r0 = 0; r0 < rows; r0 += kRows) {
+            uint32_t v[kRows];
+            for (int i = 0; i < kRows; ++i)
+                v[i] = r0 + i < rows ? a[(r0 + i) * lanes + lane] : 0u;
+            for (int i = 0; i < kRows; ++i)
+                if (r0 + i < rows) {
+                    acc += v[i];
+                    out[(r0 + i) * lanes + lane] = acc;
+                }
         }
         break;
     }
@@ -108,24 +130,66 @@ SQZ_DEVICE int probe_lane(int which, const void* a_, const void* b_,
     return 0;
 }
 
+// A batch of probes, one launch: item i is CTA i's probe
+constexpr int kMaxBatch = 32;
+struct Item {
+    int which;
+    int rows;
+    const void* a;
+    const void* b;
+    uint32_t* out;
+};
+struct Batch {
+    int n;
+    int lanes;
+    Item item[kMaxBatch];
+};
+
+// Lane `lane` of the batch's probe `cta`; returns 0, or -1 for an unknown
+// probe.
+SQZ_DEVICE int probe_cta(const Batch& batch, int cta, int lane) {
+    const Item& it = batch.item[cta];
+    return probe_lane(it.which, it.a, it.b, it.out, batch.lanes, it.rows,
+                      lane);
+}
+
+// The batch of n probes (which, rows, inputs and outputs a probe), or
+// false when it is not one the kernel runs (host code).
+inline bool make_batch(int n, const int* which, const int* rows,
+                       const void* const* a, const void* const* b,
+                       void* const* out, int lanes, Batch* batch) {
+    if (n < 1 || n > kMaxBatch || lanes < 1 || lanes > 1024) return false;
+    batch->n = n;
+    batch->lanes = lanes;
+    for (int i = 0; i < n; ++i) {
+        if (which[i] < 0 || which[i] >= kProbes) return false;
+        batch->item[i] = Item{which[i], rows[i], a[i], b[i],
+                              static_cast<uint32_t*>(out[i])};
+    }
+    return true;
+}
+
 }  // namespace probe
 
 #ifdef __CUDACC__
 
-__global__ void probe_kernel(int which, const void* a, const void* b,
-                             uint32_t* out, int lanes, int rows) {
-    const int lane = threadIdx.x;
-    if (lane < lanes) probe::probe_lane(which, a, b, out, lanes, rows, lane);
+__global__ void probe_kernel(const probe::Batch batch) {
+    if (static_cast<int>(threadIdx.x) < batch.lanes)
+        probe::probe_cta(batch, blockIdx.x, threadIdx.x);
 }
 
-// One launch of probe `which` (0..13) over `lanes` lanes (one CTA) on
-// `stream`; returns the cudaError_t of the launch (cudaErrorInvalidValue
-// for an unknown probe).
-extern "C" int probe_launch(int which, const void* a, const void* b,
-                            void* out, int lanes, int rows, void* stream) {
-    if (which < 0 || which >= probe::kProbes) return cudaErrorInvalidValue;
-    probe_kernel<<<1, lanes, 0, static_cast<cudaStream_t>(stream)>>>(
-        which, a, b, static_cast<uint32_t*>(out), lanes, rows);
+// One launch of n probes (item i: probe which[i] in 0..13 of rows[i]
+// rows, inputs a[i] and b[i], output out[i]; host arrays of device
+// pointers) over `lanes` lanes, a CTA a probe, on `stream`; returns the
+// cudaError_t of the launch (cudaErrorInvalidValue for an unknown probe
+// or a batch of more than kMaxBatch).
+extern "C" int probe_launch(int n, const int* which, const int* rows,
+                            const void* const* a, const void* const* b,
+                            void* const* out, int lanes, void* stream) {
+    probe::Batch batch;
+    if (!probe::make_batch(n, which, rows, a, b, out, lanes, &batch))
+        return cudaErrorInvalidValue;
+    probe_kernel<<<n, lanes, 0, static_cast<cudaStream_t>(stream)>>>(batch);
     return static_cast<int>(cudaGetLastError());
 }
 

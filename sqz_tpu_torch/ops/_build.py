@@ -124,7 +124,7 @@ def library() -> ctypes.CDLL:
             lib.sqz4_encode_stats_launch.argtypes = [p, p, p, i, i, i, p, i,
                                                      p, i, p]
             lib.probe_launch.restype = i
-            lib.probe_launch.argtypes = [i, p, p, p, i, i, p]
+            lib.probe_launch.argtypes = [i, p, p, p, p, p, i, p]
             lib.sqz4_cell_launch.restype = i
             lib.sqz4_cell_launch.argtypes = [p, i, p, i, p, i, p, p, i, i, p,
                                              p, p]

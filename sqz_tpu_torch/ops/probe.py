@@ -3,9 +3,10 @@
 The reference's probes check, one small Pallas kernel each, that the TPU
 compiles and computes the integer and float primitives its coder kernels
 are built from. Here each probe is a body of one CUDA kernel
-(``csrc/probe.cu``, picked by index) on the reference's inputs, beside
-its plain PyTorch version (for CPU tensors) and its expected value
-(numpy; the reference's own check where it has one).
+(``csrc/probe.cu``): a launch runs a batch of probes, a CTA each, so
+``run_probes`` is one launch for all of them, on the reference's inputs,
+beside each probe's plain PyTorch version (for CPU tensors) and its
+expected value (numpy; the reference's own check where it has one).
 
     from sqz_tpu_torch.ops import probe
     results = probe.run_probes("cuda")    # {name: (got, want)} numpy u32
@@ -147,30 +148,63 @@ def plain(name: str, a: torch.Tensor, b=None) -> torch.Tensor:
     return to_u32(r)
 
 
-def probe(name: str, a: torch.Tensor, b=None) -> torch.Tensor:
-    """Run one probe: the CUDA kernel for CUDA tensors, the plain version
-    for CPU tensors."""
-    dev = a.device
-    if b is not None and b.device != dev:
+MAX_BATCH = 32         # probes a launch (csrc/probe.cu kMaxBatch)
+
+
+def launch_args(items, outs):
+    """The kernel launcher's arguments for probes ``items`` [(name, a, b),
+    ...] (CUDA tensors, contiguous) into ``outs``: (n, which, rows, a, b,
+    out) with host arrays of the device pointers."""
+    import ctypes
+    n = len(items)
+
+    def arr(ctype, vals):
+        return ctypes.cast((ctype * n)(*vals), ctypes.c_void_p)
+
+    return (n, arr(ctypes.c_int, [PROBES.index(k) for k, _a, _b in items]),
+            arr(ctypes.c_int, [a.shape[0] for _k, a, _b in items]),
+            arr(ctypes.c_void_p, [a.data_ptr() for _k, a, _b in items]),
+            arr(ctypes.c_void_p, [b.data_ptr() if b is not None else None
+                                  for _k, _a, b in items]),
+            arr(ctypes.c_void_p, [o.data_ptr() for o in outs]))
+
+
+def probes(items):
+    """Run a batch of probes ``items`` [(name, a, b), ...] (b None where
+    unused), all on one device: one launch of the CUDA kernel for CUDA
+    tensors (a CTA a probe), the plain versions for CPU tensors. Returns
+    their outputs in order, uint32 [1, B] (the cumsum [ROWS, B])."""
+    devs = {t.device for _k, a, b in items for t in (a, b) if t is not None}
+    if len(devs) != 1:
         raise ValueError("probe inputs lie on different devices")
+    dev = devs.pop()
     if dev.type == "cpu":
-        return plain(name, a, b)
+        return [plain(name, a, b) for name, a, b in items]
     if dev.type != "cuda":
         raise ValueError(f"no probe kernel for device {dev}")
+    for name, _a, _b in items:
+        if name not in PROBES:
+            raise ValueError(f"unknown probe {name!r}")
+    if len(items) > MAX_BATCH:
+        raise ValueError(f"at most {MAX_BATCH} probes a launch")
     from sqz_tpu_torch.ops import _build
-    rows = a.shape[0]
-    shape = (rows, B) if name == "sublane_cumsum" else (1, B)
-    out = torch.zeros(shape, dtype=torch.int32, device=dev).view(
-        torch.uint32)
+    items = [(name, a.contiguous(), b.contiguous() if b is not None
+              else None) for name, a, b in items]
+    outs = [launch.zeros((a.shape[0] if name == "sublane_cumsum" else 1, B),
+                         torch.uint32, dev) for name, a, _b in items]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = _build.library().probe_launch(
-            PROBES.index(name), a.contiguous().data_ptr(),
-            b.contiguous().data_ptr() if b is not None else None,
-            out.data_ptr(), B, rows, stream)
-    launch.launched(rc, f"probe {name}")
-    probe.launches += 1
-    return out
+        rc = _build.library().probe_launch(*launch_args(items, outs), B,
+                                           stream)
+    launch.launched(rc, "probes")
+    launch.count(probe)
+    return outs
+
+
+def probe(name: str, a: torch.Tensor, b=None) -> torch.Tensor:
+    """Run one probe (``probes`` of one): the CUDA kernel for CUDA
+    tensors, the plain version for CPU tensors."""
+    return probes([(name, a, b)])[0]
 
 
 probe.launches = 0
@@ -184,7 +218,8 @@ def probe_tensors(name: str, device):
 
 
 def run_probes(device="cuda"):
-    """Every probe on ``device`` -> {name: (got, want)}, numpy u32."""
-    return {name: (convert.to_numpy(probe(name, *probe_tensors(name,
-                                                               device))),
-                   expected(name)) for name in PROBES}
+    """Every probe on ``device`` (on the card one launch) -> {name: (got,
+    want)}, numpy u32."""
+    outs = probes([(name, *probe_tensors(name, device)) for name in PROBES])
+    return {name: (convert.to_numpy(got), expected(name))
+            for name, got in zip(PROBES, outs)}

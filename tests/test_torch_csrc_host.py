@@ -169,43 +169,78 @@ extern "C" void host_compact(const uint32_t* words, int B,
 """
 
 
-# The cell assembly as its kernel's CTAs run it: one lane after another,
-# each on a CTA of kHostCtaThreads (one host thread, or the kernel's 128)
-# through the kernel's lane body, with a ring of `ring` literal cells (2,
-# 3, or the kernel's 32).
+# The cell assembly as its kernel's CTAs run it: tile after tile, each on a
+# CTA of `tile` warps (one host thread a warp, or 32) through the kernel's
+# tile body, with chunks of `chunk` literal cells; the tile's shared
+# memory poisoned before each tile.
 CELL_HOSTS = r"""
-template <int kRing>
-static void cell_lanes(const uint32_t* lit, const uint32_t* tok, int tw,
-                       const uint32_t* mrec, int mw, const int32_t* counts,
-                       const int32_t* sizes, int B, int C, uint8_t* blocks,
-                       uint8_t* bad) {
-    std::vector<uint32_t> smem(sqz4_cell::smem_words(tw, mw, C, kRing));
-    for (long long b = 0; b < B; ++b)
-        on_cta([&](int tid) {
-            sqz4_cell::assemble_lane<kHostCtaThreads, kRing>(
-                tid, lit + b, tok + b, tw, mrec + b, mw, counts + b,
-                sizes[b], B, C, blocks + b * C * sqz4_cell::kCell, bad + b,
-                smem.data());
+template <int kTile, int kChunk, int kBufs>
+static void cell_tiles(const uint32_t* lit, int lw, const uint32_t* tok,
+                       int tw, const uint32_t* mrec, int mw,
+                       const int32_t* counts, const int32_t* sizes, int B,
+                       int C, uint8_t* blocks, uint8_t* bad) {
+    std::vector<uint32_t> smem(
+        sqz4_cell::Layout<kTile, kChunk, kBufs>(tw, mw, C).words());
+    for (int b0 = 0; b0 < B; b0 += kTile) {
+        std::fill(smem.begin(), smem.end(), 0xA5A5A5A5u);
+        on_tile(kTile, [&](int tid) {
+            sqz4_cell::assemble_tile<kTile, kChunk, kBufs>(
+                tid, b0, lit, lw, tok, tw, mrec, mw, counts, sizes, B, C,
+                blocks, bad, smem.data());
         });
+    }
 }
 
-extern "C" int host_cell(const uint32_t* lit, const uint32_t* tok, int tw,
-                         const uint32_t* mrec, int mw, const int32_t* counts,
-                         const int32_t* sizes, int B, int C, uint8_t* blocks,
-                         uint8_t* bad, int ring) {
-    if (ring == 2)
-        cell_lanes<2>(lit, tok, tw, mrec, mw, counts, sizes, B, C, blocks,
-                      bad);
-    else if (ring == 3)
-        cell_lanes<3>(lit, tok, tw, mrec, mw, counts, sizes, B, C, blocks,
-                      bad);
-    else if (ring == sqz4_cell::kCellRing)
-        cell_lanes<sqz4_cell::kCellRing>(lit, tok, tw, mrec, mw, counts,
-                                         sizes, B, C, blocks, bad);
+extern "C" int host_cell(const uint32_t* lit, int lw, const uint32_t* tok,
+                         int tw, const uint32_t* mrec, int mw,
+                         const int32_t* counts, const int32_t* sizes, int B,
+                         int C, uint8_t* blocks, uint8_t* bad, int tile,
+                         int chunk) {
+    using namespace sqz4_cell;
+    if (tile == 1 && chunk == 1)
+        cell_tiles<1, 1, 2>(lit, lw, tok, tw, mrec, mw, counts, sizes, B, C,
+                            blocks, bad);
+    else if (tile == 4 && chunk == 2)
+        cell_tiles<4, 2, 3>(lit, lw, tok, tw, mrec, mw, counts, sizes, B, C,
+                            blocks, bad);
+    else if (tile == kTileLanes && chunk == kTileChunk)
+        cell_tiles<kTileLanes, kTileChunk, kTileBufs>(
+            lit, lw, tok, tw, mrec, mw, counts, sizes, B, C, blocks, bad);
     else
         return -1;
     return 0;
 }
+"""
+
+# a CTA's barrier for host threads (C++17: a generation count under a
+# mutex), ahead of the cell assembly's source
+CTA_SHIM = r"""
+#define SQZ_HOST_CTA
+#include <condition_variable>
+#include <mutex>
+#include <thread>
+namespace sqz4_cell {
+struct HostCta {
+    std::mutex mu;
+    std::condition_variable cv;
+    int n, waiting = 0;
+    long long gen = 0;
+    explicit HostCta(int n_) : n(n_) {}
+    void sync() {
+        std::unique_lock<std::mutex> lk(mu);
+        const long long g = gen;
+        if (++waiting == n) {
+            waiting = 0;
+            ++gen;
+            cv.notify_all();
+        } else {
+            cv.wait(lk, [&] { return gen != g; });
+        }
+    }
+};
+inline thread_local HostCta* t_cta = nullptr;
+inline void cta_sync() { t_cta->sync(); }
+}  // namespace sqz4_cell
 """
 
 HARNESS = r"""
@@ -219,7 +254,9 @@ HARNESS = r"""
 #include "squeeze_bitpack.cu"
 #include "sqz4_encode_stats.cu"
 #include "probe.cu"
+""" + CTA_SHIM + r"""
 #include "sqz4_cell.cu"
+#include <algorithm>
 #include <vector>
 
 extern "C" void host_encode(const uint32_t* m, const uint32_t* s, int G,
@@ -296,14 +333,35 @@ extern "C" int host_probe(int which, const void* a, const void* b,
     return 0;
 }
 
+// every probe of a batch, CTA after CTA, lane after lane
+extern "C" int host_probe_batch(int n, const int* which, const int* rows,
+                                const void* const* a, const void* const* b,
+                                void* const* out, int lanes) {
+    probe::Batch batch;
+    if (!probe::make_batch(n, which, rows, a, b, out, lanes, &batch))
+        return -1;
+    for (int cta = 0; cta < n; ++cta)
+        for (int lane = 0; lane < lanes; ++lane)
+            if (probe::probe_cta(batch, cta, lane)) return -1;
+    return 0;
+}
+
 // the one-lane build: a warp's body runs once, in this thread
 template <class F>
 static void on_warp(F body) { body(); }
 
-// and a CTA of one thread
-constexpr int kHostCtaThreads = 1;
+// body(tid) on a CTA of `warps` warps of one lane: a host thread each
 template <class F>
-static void on_cta(F body) { body(0); }
+static void on_tile(int warps, F body) {
+    sqz4_cell::HostCta cta(warps);
+    std::vector<std::thread> th;
+    for (int t = 0; t < warps; ++t)
+        th.emplace_back([&, t] {
+            sqz4_cell::t_cta = &cta;
+            body(t);
+        });
+    for (auto& t : th) t.join();
+}
 """ + TILE_HOSTS + CELL_HOSTS
 
 
@@ -378,39 +436,19 @@ inline int lowest(unsigned x) { return x ? __builtin_ctz(x) : kLanes; }
 #include "sqz4_compact.cu"
 #include "squeeze_bitpack.cu"
 
-// the cell assembly's CTA barriers for a CTA of host threads: cta_any's
-// barrier ORs the threads' flags in its completion step
-#define SQZ_HOST_CTA
-#include <atomic>
-namespace sqz4_cell {
-struct HostCta {
-    struct Done {
-        HostCta* cta;
-        void operator()() noexcept { cta->any = cta->acc.exchange(false); }
-    };
-    std::atomic<bool> acc{false};
-    bool any = false;
-    std::barrier<Done> bar;
-    explicit HostCta(int n) : bar(n, Done{this}) {}
-};
-inline thread_local HostCta* t_cta = nullptr;
-inline void cta_sync() { t_cta->bar.arrive_and_wait(); }
-inline bool cta_any(bool p) {
-    if (p) t_cta->acc = true;
-    t_cta->bar.arrive_and_wait();
-    return t_cta->any;
-}
-}  // namespace sqz4_cell
+""" + CTA_SHIM + r"""
 #include "sqz4_cell.cu"
 
-// body(tid) on a CTA of the kernel's 128 host threads
-constexpr int kHostCtaThreads = sqz4_cell::kCellThreads;
+// body(tid) on a CTA of `warps` warps of 32 host threads
 template <class F>
-static void on_cta(F body) {
-    sqz4_cell::HostCta cta(kHostCtaThreads);
+static void on_tile(int warps, F body) {
+    sqz4_cell::HostCta cta(warps * sqz4::kLanes);
+    std::unique_ptr<sqz4::HostWarp[]> w(new sqz4::HostWarp[warps]);
     std::vector<std::thread> th;
-    for (int t = 0; t < kHostCtaThreads; ++t)
+    for (int t = 0; t < warps * sqz4::kLanes; ++t)
         th.emplace_back([&, t] {
+            sqz4::t_lane = t % sqz4::kLanes;
+            sqz4::t_warp = &w[t / sqz4::kLanes];
             sqz4_cell::t_cta = &cta;
             body(t);
         });
@@ -524,7 +562,7 @@ def _tile_argtypes(lib):
     lib.host_compact.argtypes = [p, i, p, i, p, i]
     lib.host_bitpack.argtypes = [p, i, i, i, p, i, p, i]
     lib.host_bitpack.restype = i
-    lib.host_cell.argtypes = [p, p, i, p, i, p, p, i, i, p, p, i]
+    lib.host_cell.argtypes = [p, i, p, i, p, i, p, p, i, i, p, p, i, i]
     lib.host_cell.restype = i
     return lib
 
@@ -543,6 +581,7 @@ def lanes_lib(tmp_path_factory):
         tmp_path_factory, "csrc_host", HARNESS, "c++17")))
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.host_probe.argtypes = [i, p, p, p, i, i]
+    lib.host_probe_batch.argtypes = [i, p, p, p, p, p, i]
     lib.host_recip.argtypes = [p, ctypes.c_longlong, p]
     lib.host_div.argtypes = [p, p, ctypes.c_longlong, p]
     return lib
@@ -1338,25 +1377,46 @@ def _lit_skip_payloads(lib, rows, toks, blk):
     return host.unpack_group_payloads(words, lens, n)
 
 
-def _cell_both(lib, payloads, sizes, blk, ring):
-    """One group of payloads through the decoder's lane bodies, then the
-    cell assembly's lane bodies and its plain version: ((blocks, bad),
-    (blocks, bad)) as numpy."""
+# the tile body's geometries: (lanes a CTA, literal cells a chunk); 0, 0
+# is the kernel's
+CELL_GEOMS = {"tile1-chunk1": (1, 1), "tile4-chunk2": (4, 2),
+              "kernel": (0, 0)}
+
+
+def _cell_both(lib, payloads, sizes, blk, geom, dec_lib=None, flags=None):
+    """One group of payloads through the decoder's lane bodies (of
+    ``dec_lib``, default ``lib``), then the cell assembly's tile bodies at
+    geometry ``geom`` and its plain version: ((blocks, bad), (blocks, bad))
+    as numpy. ``flags`` {lane: counts row} sets that decoder count (err
+    row 4, ovf row 6) before the assembly."""
     bs = 1 << blk
     lanes = len(payloads)
     (lit, tok, mrec, counts), plan, _b, _m = _decode_lanes(
-        lib, payloads, sizes, blk, lanes)
+        dec_lib or lib, payloads, sizes, blk, lanes)
+    for lane, row in (flags or {}).items():
+        counts[0, row, lane] = 1
     szs = np.asarray(sizes, np.int32)
     blocks = np.full((lanes, bs), 0xEE, np.uint8)
     bad = np.full((lanes,), 7, np.uint8)
-    assert lib.host_cell(_ptr(lit), _ptr(tok), plan["tw"], _ptr(mrec),
-                         plan["mw"], _ptr(counts), _ptr(szs), lanes,
-                         bs // resident.CELL, _ptr(blocks), _ptr(bad),
-                         ring) == 0
+    tile, chunk = CELL_GEOMS[geom]
+    if tile == 0:
+        tile, chunk = _kernel_geom()
+    assert lib.host_cell(_ptr(lit), plan["lw"], _ptr(tok), plan["tw"],
+                         _ptr(mrec), plan["mw"], _ptr(counts), _ptr(szs),
+                         lanes, bs // resident.CELL, _ptr(blocks),
+                         _ptr(bad), tile, chunk) == 0
     wb, wbad = resident.assemble_cells(
         *(convert.to_device(a, "cpu") for a in (lit, tok, mrec, counts)),
         torch.from_numpy(szs.astype(np.int64)), bs)
     return (blocks, bad.astype(bool)), (wb.numpy(), wbad.numpy())
+
+
+def _kernel_geom():
+    """The kernel's (lanes a CTA, literal cells a chunk), from its
+    source's defaults."""
+    text = (CSRC / "sqz4_cell.cu").read_text()
+    return tuple(int(text.split(f"#define SQZ_CELL_{k} ")[1].split()[0])
+                 for k in ("TILE", "CHUNK"))
 
 
 def _crafted_cells():
@@ -1387,13 +1447,13 @@ def _crafted_cells():
     return cases
 
 
-@pytest.mark.parametrize("ring", [2, 32])
-def test_cell_assembly_lanes_on_crafted_far_copies(coder_lib, ring):
+@pytest.mark.parametrize("geom", ["tile1-chunk1", "kernel"])
+def test_cell_assembly_lanes_on_crafted_far_copies(coder_lib, geom):
     cases = _crafted_cells()
     rows = np.stack([c[0] for c in cases])
     sizes = [c[2] for c in cases]
     payloads = _lit_skip_payloads(coder_lib, rows, [c[1] for c in cases], 10)
-    got, want = _cell_both(coder_lib, payloads, sizes, 10, ring)
+    got, want = _cell_both(coder_lib, payloads, sizes, 10, geom)
     _assert_equal(got, want)
     assert want[1].tolist() == [False, True, False, True, True, True, True,
                                 False]
@@ -1437,12 +1497,157 @@ def _cell_mix(lib, blk):
 
 
 @pytest.mark.parametrize("blk", [7, 10])
-@pytest.mark.parametrize("ring", [3, 32])
-def test_cell_assembly_lanes_equal_plain_version(coder_lib, blk, ring):
+@pytest.mark.parametrize("geom", ["tile4-chunk2", "kernel"])
+def test_cell_assembly_lanes_equal_plain_version(coder_lib, blk, geom):
     payloads, sizes, rows, nb = _cell_mix(coder_lib, blk)
-    got, want = _cell_both(coder_lib, payloads, sizes, blk, ring)
+    got, want = _cell_both(coder_lib, payloads, sizes, blk, geom)
     _assert_equal(got, want)
     assert not want[1][:nb].any() and want[1][-1]
     if blk >= 10:
         assert want[1][nb:].all()
     np.testing.assert_array_equal(got[0][:nb], rows)
+
+
+
+def _expand(spec, bs, rng):
+    """Cells by ``spec`` (("L",) a random literal cell, ("L", n) a literal
+    run of n bytes, ("M", d) a len-128 match at dist d, ("M", d, n) one of
+    n bytes) -> (the block [bs] u8, the token row, the size): the bytes an
+    LZ77 decode of the tokens gives."""
+    out, toks = [], []
+    for cell in spec:
+        if cell[0] == "M":
+            n = cell[2] if len(cell) > 2 else 128
+            for _ in range(n):
+                out.append(out[-cell[1]])
+            toks.append(_match(n, cell[1]))
+        else:
+            n = cell[1] if len(cell) > 1 else 128
+            out += rng.integers(1, 256, n).tolist()
+            toks.append(n)
+    row = np.zeros(bs, np.uint8)
+    row[:len(out)] = out
+    return row, toks, len(out)
+
+
+def _cell_lanes(lib, lanes_lib, specs, blk, geom, flags=None):
+    """Blocks made by ``specs`` through the lit_skip encoder and the
+    decoder (one-lane bodies), then the cell assembly of ``lib`` at
+    ``geom`` against its plain version, blocks and flags equal: (got,
+    want, rows, sizes)."""
+    rng = np.random.default_rng(len(specs) * 131 + blk)
+    made = [_expand(sp, 1 << blk, rng) for sp in specs]
+    rows = np.stack([m[0] for m in made])
+    sizes = [m[2] for m in made]
+    payloads = _lit_skip_payloads(lanes_lib, rows, [m[1] for m in made], blk)
+    got, want = _cell_both(lib, payloads, sizes, blk, geom, lanes_lib, flags)
+    _assert_equal(got, want)
+    return got, want, rows, sizes
+
+
+def _restored(got, want, rows, sizes, lanes):
+    """The lanes restore their blocks (zeros past the size), unflagged."""
+    for b in lanes:
+        assert not want[1][b]
+        assert got[0][b, :sizes[b]].tobytes() == rows[b, :sizes[b]].tobytes()
+        assert not got[0][b, sizes[b]:].any()
+
+
+L_ = ("L",)
+
+
+def M_(d, n=128):
+    return ("M", d, n)
+
+
+def test_cell_assembly_lanes_walk_long_runs(coder_lib, lanes_lib):
+    # runs of match cells past the 32-bit token window, runs of literal
+    # cells past a warp's ballot, and alternations: 64 cells a block
+    specs = [[L_] + [M_(1)] * 45 + [L_] * 18,
+             [L_] * 40 + [M_(4)] * 24,
+             [L_, M_(2)] * 16 + [L_, L_, M_(256), M_(384)] * 8,
+             [L_] * 4 + [M_(512)] + [M_(128)] * 39 + [L_] * 20,
+             [L_] * 33 + [M_(32), L_] * 15 + [M_(128)],
+             # match cells on a literal cell of the lane's last chunk
+             [L_] * 3 + [M_(1)] * 61]
+    got, want, rows, sizes = _cell_lanes(coder_lib, lanes_lib, specs, 13,
+                                         "tile4-chunk2")
+    _restored(got, want, rows, sizes, range(len(specs)))
+    # 256 cells: a lane's four token words of a scan step all ones
+    specs = [[L_] + [M_(1)] * 255, [L_] * 3 + [M_(128)] * 200 + [L_] * 53]
+    got, want, rows, sizes = _cell_lanes(coder_lib, lanes_lib, specs, 15,
+                                         "kernel")
+    _restored(got, want, rows, sizes, range(len(specs)))
+
+
+def test_cell_assembly_lanes_fill_every_period(coder_lib, lanes_lib):
+    # a lane a dist d of 1..128: periodic cells at d, chained with periods
+    # 128 and d / 2 (periods compose to the least); the cell model takes
+    # the powers of two and flags the other dists
+    specs = [[L_, M_(d), M_(128), M_(max(d // 2, 1)), L_, L_, M_(d), M_(d)]
+             for d in range(1, 129)]
+    got, want, rows, sizes = _cell_lanes(coder_lib, lanes_lib, specs, 10,
+                                         "kernel")
+    pow2 = [d - 1 for d in range(1, 129) if d & (d - 1) == 0]
+    _restored(got, want, rows, sizes, pow2)
+    assert want[1].sum() == 128 - len(pow2)
+
+
+def test_cell_assembly_lanes_on_short_blocks(coder_lib, lanes_lib):
+    # sizes that are not whole cells, below the block size; the last lane
+    # has a match in its short last cell, which is no cell match
+    specs = [[L_] * 7 + [("L", 104)], [L_, ("L", 2)], [("L", 1)],
+             [L_, M_(8), ("L", 127)], [L_, M_(1), M_(1), M_(384), ("L", 5)],
+             [("L", 77)], [L_, M_(64), M_(64), L_, L_, ("L", 100)],
+             [L_, M_(1, 64)]]
+    got, want, rows, sizes = _cell_lanes(coder_lib, lanes_lib, specs, 10,
+                                         "tile4-chunk2")
+    assert all(s % 128 and s < 1024 for s in sizes)
+    _restored(got, want, rows, sizes, range(len(specs) - 1))
+    assert want[1][-1]
+
+
+def test_cell_assembly_lanes_flag_each_bad_cause(coder_lib, lanes_lib):
+    # lanes 0-1 restore; then a dist off the cell grid, a far copy of a
+    # nonzero periodic cell, a match inside a literal cell (the walk's
+    # token count misses ntok), a short match at a cell start, and the
+    # decoder's err and ovf flags on good streams
+    good = [L_, L_, M_(4), L_, M_(384), L_, L_, L_]
+    specs = [good, [L_, M_(1), M_(256)] + [L_] * 5,
+             [L_, L_, M_(200)] + [L_] * 5,
+             [L_, M_(2), L_, M_(256)] + [L_] * 4,
+             [("L", 64), M_(64, 64)] + [L_] * 7,
+             [L_, M_(1, 64), ("L", 64)] + [L_] * 6,
+             good, good]
+    got, want, rows, sizes = _cell_lanes(coder_lib, lanes_lib, specs, 10,
+                                         "kernel", flags={6: 4, 7: 6})
+    assert sizes == [1024] * len(specs)
+    assert want[1].tolist() == [False, False] + [True] * 6
+    _restored(got, want, rows, sizes, [0, 1])
+
+
+def test_probe_batch_equals_plain_version(lanes_lib):
+    # the fourteen probes in one fused launch body, a CTA each
+    d = probe.inputs()
+    names = probe.PROBES
+    ins = [[np.ascontiguousarray(d[k]) if k else None
+            for k in probe.ARGS[name]] for name in names]
+    outs = [np.zeros((probe.ROWS if name == "sublane_cumsum" else 1,
+                      probe.B), np.uint32) for name in names]
+    n = len(names)
+
+    def arr(ctype, vals):
+        return (ctype * n)(*vals)
+
+    vp = ctypes.c_void_p
+    assert lanes_lib.host_probe_batch(
+        n, arr(ctypes.c_int, [probe.PROBES.index(k) for k in names]),
+        arr(ctypes.c_int, [a.shape[0] for a, _b in ins]),
+        arr(vp, [a.ctypes.data for a, _b in ins]),
+        arr(vp, [b.ctypes.data if b is not None else None
+                 for _a, b in ins]),
+        arr(vp, [o.ctypes.data for o in outs]), probe.B) == 0
+    for name, out in zip(names, outs):
+        np.testing.assert_array_equal(out, probe.expected(name))
+        want = probe.plain(name, *probe.probe_tensors(name, "cpu"))
+        np.testing.assert_array_equal(out, convert.to_numpy(want))

@@ -71,8 +71,22 @@ Phases (any failure exits non-zero):
      pseudo-text, random bytes and runs, so that the planner picks several
      anchors, through ``compress(warm="anchors")`` / ``decompress``: round
      trip, and (sqz4) one seeded decoder launch per anchor;
- 11. sqz4 at ``blk_bits`` 17 (the host route): 4 MiB, exact parse, equal to
-     the native copy's container, round trip, the host-route count > 0;
+ 11. sqz4 above 64 KiB blocks (the route of ``blk_bits`` 17..40: exact
+     tokens and model statistics on the host, the stats-fed encoder, the
+     decoder cold and seeded): the 32 MiB input at ``blk_bits`` 17 (256
+     lanes) and 20 (32 lanes) through ``compress`` / ``decompress``, the
+     native engine on the same input in turns (card native native card),
+     enc and dec MB/s, one run's stages and both kernels' CUDA-event times
+     and bounds at those shapes; two blocks of random bytes at 18 (the
+     literal models' totals past 2^17); warm (v2) and anchored (v3, the
+     seeded decoder) on 4 MiB at 17; one 16 MiB block at 24 (one lane)
+     beside the native engine. Every container equals the native copy's
+     exact one byte for byte and every round trip holds; the route's
+     block count and the stats-fed encoder's, the decoder's and the
+     seeded decoder's launches over the API calls must be > 0. Both
+     kernels are held against their plain versions (in workers) on the
+     route's group at 17, the 256 lanes of 128 KiB the timed kernels
+     take;
  12. the resident paths: 32 MiB of ``synthetic.resident_mix`` (512 blocks
      of 64 KiB: sparse float32 weights, periodic content, repeated cells,
      pseudo-text, random bytes, a short last block), uploaded once as a
@@ -163,10 +177,19 @@ REPS = 3
 PALLAS = "sqz_tpu/ops/sqz4_pallas.py"
 PLAIN_WORKERS = 7   # plain versions checked at a shape side by side
 ANCHOR_BLOCKS = 7   # blocks of one anchored phase's pattern (four of them)
-HOST_ROUTE_BYTES, HOST_ROUTE_BITS = 4 << 20, 17
+# phase 11, the route above 64 KiB blocks: the main input at 128 KiB and
+# 1 MiB blocks, two blocks of random bytes at 256 KiB, warm and anchored
+# at 128 KiB, one 16 MiB block, and the kernels against their plain
+# versions on the route's group at 128 KiB (256 lanes)
+WIDE_BITS = (17, 20)
+WIDE_RANDOM_BITS = 18
+WIDE_WARM_BITS = 17
+WIDE_ONE_BITS = 24
+WIDE_PLAIN_BITS = 17
 STATS_BITS = 14   # the stats-fed encoder's full-size blocks (16 KiB)
 # the synthetic streams' most ops a block, at 64 x 1 KiB and at the full
-# shapes (at most 2^16: the kernels' model totals stay below 2^17)
+# shapes (kept short: the plain versions step once an op; the kernels take
+# any model total below 2^32, phase 11 totals past 2^17)
 SYNTH_OPS = {SMALL_BITS: 1 << 11, MAIN_BITS: 1 << 14}
 
 # Roofs of one H100 SXM (NVIDIA's data sheet): HBM bytes/s, and the
@@ -641,9 +664,8 @@ def stats_vs_plain(data, blk_bits, win_bits, lanes, reps, pool):
     from sqz_tpu_torch.ops import sqz4_cuda, sqz4_host as host, sqz4_ref
     bs = 1 << blk_bits
     nb = len(data) // bs
-    st = host.op_stream_stats(data, 1 << win_bits, blk_bits, lanes=lanes)
-    packed = [convert.to_device(a, "cuda") for a in
-              sqz4_cuda.pack_group_stats(st, lanes)]
+    st = host.op_stream_stats(data, 1 << win_bits, blk_bits)
+    packed = sqz4_cuda.pack_group_stats(st, "cuda", lanes)
     cw = host.cap_words_for(bs + 2048)
     chk = PlainCheck(pool, sqz4_cuda.encode_stats, sqz4_ref.encode_stats_ref,
                      (*packed, cw), reps)
@@ -854,8 +876,7 @@ def stats_chain(data, win_bits):
     from sqz_tpu_torch.ops import sqz4_cuda, sqz4_host as host
     part = data[:host.LANES << STATS_BITS]
     st = host.op_stream_stats(part, 1 << win_bits, STATS_BITS)
-    packed = [convert.to_device(a, "cuda")
-              for a in sqz4_cuda.pack_group_stats(st)]
+    packed = sqz4_cuda.pack_group_stats(st, "cuda")
     cw = host.cap_words_for((1 << STATS_BITS) + 2048)
     words, lens = sqz4_cuda.encode_stats(*packed, cw)
     if host.unpack_group_payloads(convert.to_numpy(words),
@@ -1289,42 +1310,241 @@ def anchored_path():
     return out
 
 
-def host_route_path():
-    """Phase 11: sqz4 at blk_bits 17 through the host route, against the
-    native copy."""
-    import sqz_tpu_torch
+def wide_ref(data, blk_bits, warm=False):
+    """The native copy's exact-parse container of ``data`` (cold, or warm
+    sqzt v2)."""
     from sqz_tpu_torch import native
     from sqz_tpu_torch.formats import container
     from sqz_tpu_torch.formats.constants import SQZT_FORMAT_SQZ4
-    from sqz_tpu_torch.ops import engine
-    from sqz_tpu_torch.utils import corpus
-    data = corpus.texty(HOST_ROUTE_BYTES, seed=1)
-    ref = container.pack(
-        SQZT_FORMAT_SQZ4, MAIN_WIN_BITS, HOST_ROUTE_BITS, len(data),
-        native.blocks_compress(data, 1, MAIN_WIN_BITS, HOST_ROUTE_BITS),
-        container.fnv1a64(data))
-    engine.host_route_blocks = 0
+    res = native.blocks_compress(data, 1, MAIN_WIN_BITS, blk_bits, warm=warm,
+                                 parse="exact")
+    payloads, fresh = res if warm else (res, None)
+    return container.pack(SQZT_FORMAT_SQZ4, MAIN_WIN_BITS, blk_bits,
+                          len(data), payloads, container.fnv1a64(data),
+                          warm=warm, fresh_mask=fresh)
+
+
+def wide_round_trip(data, blk_bits, engine="torch", **kw):
+    """(container, enc s, dec s) of ``data`` at ``blk_bits`` through
+    ``compress`` / ``decompress`` on ``engine``, exact parse; raises
+    unless the bytes come back."""
+    import sqz_tpu_torch
+    kw = dict(blk_bits=blk_bits, win_bits=MAIN_WIN_BITS, parse="exact",
+              engine=engine, **kw)
     t = time.perf_counter()
-    blob = sqz_tpu_torch.compress(data, parse="exact",
-                                  blk_bits=HOST_ROUTE_BITS,
-                                  win_bits=MAIN_WIN_BITS)
+    blob = sqz_tpu_torch.compress(data, **kw)
     enc_s = time.perf_counter() - t
     t = time.perf_counter()
-    out = sqz_tpu_torch.decompress(blob)
+    out = sqz_tpu_torch.decompress(blob, engine=engine)
     dec_s = time.perf_counter() - t
-    routed = engine.host_route_blocks
-    if blob != ref:
-        raise AssertionError("blk_bits 17 container differs from the "
-                             "native copy's")
     if out != data:
-        raise AssertionError("blk_bits 17 round trip failed")
-    if routed < 1:
-        raise AssertionError("the host route served no block")
-    log(f"sqz4 blk_bits {HOST_ROUTE_BITS} (host route), "
-        f"{len(data) >> 20} MiB: enc {enc_s:.3f} s dec "
-        f"{dec_s:.3f} s ratio {len(blob) / len(data):.4f}; blocks on the "
-        f"host route {routed}")
-    return {"host_route_blocks": routed}
+        raise AssertionError(f"blk_bits {blk_bits} {engine} round trip "
+                             f"failed")
+    return blob, enc_s, dec_s
+
+
+def wide_kernel_inputs(data, blk_bits):
+    """The route's one group for ``data`` on the card (the route's
+    ``group_lanes`` wide): the stats-fed encoder's inputs and capacity,
+    the block sizes and the coded ops."""
+    from sqz_tpu_torch import convert
+    from sqz_tpu_torch.ops import sqz4_cuda, sqz4_host as host
+    bs = 1 << blk_bits
+    sizes = [len(data[o:o + bs]) for o in range(0, len(data), bs)]
+    cols = host.op_stream_stats(data, 1 << MAIN_WIN_BITS, blk_bits)
+    inputs = sqz4_cuda.pack_group_stats(cols, "cuda",
+                                        host.group_lanes(len(sizes)))
+    return (inputs, host.cap_words_for(2 * max(sizes) + 4096), sizes,
+            int((cols[2] != 0).sum()))
+
+
+def wide_decode_inputs(payloads, sizes, blk_bits, lanes):
+    """The decoder's inputs for one group of the route, sized from the
+    largest block: (payload, meta, t_max, lw, tw, mw)."""
+    from sqz_tpu_torch import convert
+    from sqz_tpu_torch.ops import sqz4_host as host
+    plan = host.plan_decode_dispatch(len(payloads), blk_bits, lanes,
+                                     max(sizes))
+    pw = min(plan["Pw"], host.payload_rows(max(map(len, payloads))))
+    buf, meta = host.pack_decode_chunk(payloads, sizes, lanes, plan["G"],
+                                       pw)
+    return convert.decoder_inputs(buf, meta, "cuda") + (
+        plan["t_max"], plan["lw"], plan["tw"], plan["mw"])
+
+
+def wide_kernels(data, blk_bits, pool=None):
+    """Both kernels at the route's shapes for ``data`` (one group): the
+    payloads equal the native copy's, the blocks restore. Returns per
+    kernel (CUDA-event ms, bound ms, bound_by) and, with ``pool``, per
+    kernel its PlainCheck against the plain version on the same inputs
+    (in a worker of ``pool``)."""
+    from sqz_tpu_torch import convert, native
+    from sqz_tpu_torch.ops import sqz4_cuda, sqz4_host as host, sqz4_ref
+    inputs, cw, sizes, coded = wide_kernel_inputs(data, blk_bits)
+    lanes = inputs[0].shape[2]
+    checks = {}
+    if pool is not None:
+        checks["sqz4_encode_stats"] = PlainCheck(
+            pool, sqz4_cuda.encode_stats, sqz4_ref.encode_stats_ref,
+            (*inputs, cw), 1)
+    words, lens = sqz4_cuda.encode_stats(*inputs, cw)
+    payloads = sqz4_cuda.fetch_payloads(words, lens, len(sizes))
+    if payloads != native.blocks_compress(data, 1, MAIN_WIN_BITS, blk_bits):
+        raise AssertionError(f"blk_bits {blk_bits}: stats-fed encoder "
+                             f"payloads differ from native")
+    enc_ms = events_ms(lambda: sqz4_cuda.encode_stats(*inputs, cw), REPS)
+    lens_np = convert.to_numpy(lens)
+    enc = (enc_ms,) + bound(3 * inputs[0].numel() * 4
+                            + int(lens_np[0, 0].sum()) + lens_np.nbytes,
+                            coded * OPS_PER_STAT)
+    dargs = wide_decode_inputs(payloads, sizes, blk_bits, lanes)
+    if pool is not None:
+        checks["sqz4_decode"] = PlainCheck(pool, sqz4_cuda.decode,
+                                           sqz4_ref.decode_ref, dargs, 1)
+    res = sqz4_cuda.decode(*dargs)
+    outs = host.postprocess_decode(*[convert.to_numpy(x) for x in res],
+                                   payloads, sizes, max(sizes))
+    if b"".join(outs) != data:
+        raise AssertionError(f"blk_bits {blk_bits}: decoder kernel did not "
+                             f"restore the blocks")
+    dec_ms = events_ms(lambda: sqz4_cuda.decode(*dargs), REPS)
+    cnt = convert.to_numpy(res[3])
+    out_bytes = int(cnt[:, 1].sum() + (cnt[:, 2].sum() + 7) // 8
+                    + 4 * cnt[:, 3].sum()) + cnt.nbytes
+    dec = (dec_ms,) + bound(dargs[0].numel() * 4 + dargs[1].numel() * 4
+                            + out_bytes, coded * OPS_PER_SYMBOL)
+    return {"sqz4_encode_stats": enc, "sqz4_decode": dec}, checks
+
+
+def wide_input():
+    """4 MiB in 128 KiB blocks: four turns of pseudo-text (two blocks),
+    random bytes (one), runs (three) and pseudo-text of another seed (one),
+    then four blocks of pseudo-text: warm blocks for v2, several anchors
+    for v3."""
+    from sqz_tpu_torch.utils import corpus
+    b = 1 << WIDE_WARM_BITS
+    return b"".join(corpus.texty(2 * b, seed=10 + k)
+                    + corpus.random_bytes(b, seed=20 + k)
+                    + corpus.rle4(3 * b) + corpus.texty(b, seed=30 + k)
+                    for k in range(4)) + corpus.texty(4 * b, seed=40)
+
+
+def wide_path(data, pool):
+    """Phase 11: sqz4 above 64 KiB blocks on the card (the reference's scan
+    route: exact tokens and model statistics on the host, the stats-fed
+    encoder, the decoder cold and seeded). Every container equals the
+    native copy's, every round trip holds; the route's counter and both
+    kernels' launch counts over the API calls are > 0, the seeded
+    decoder's too. Returns (launches, e2e numbers, plain checks)."""
+    import sqz_tpu_torch
+    from sqz_tpu_torch.formats import container
+    from sqz_tpu_torch.ops import engine, sqz4_cuda, sqz4_host as host
+    from sqz_tpu_torch.utils import corpus
+    t0 = time.perf_counter()
+    reset_launches()
+    engine.wide_blocks = host.host_decode.blocks = 0
+    out, turns, checks = {}, {}, {}
+    # 32 MiB of the pseudo-text at 128 KiB and 1 MiB blocks, card and
+    # native engine in turns
+    for bits in WIDE_BITS:
+        ref = wide_ref(data, bits)
+        runs = {"card": [], "native": []}
+        for who in ("card", "native", "native", "card"):
+            blob, enc_s, dec_s = wide_round_trip(
+                data, bits, "native" if who == "native" else "torch")
+            if blob != ref:
+                raise AssertionError(f"blk_bits {bits} {who} container "
+                                     f"differs from the native copy's")
+            runs[who].append((enc_s, dec_s))
+        turns[bits] = runs
+    # two blocks of random bytes at 256 KiB: literal models past 2^17
+    rnd = corpus.random_bytes(2 << WIDE_RANDOM_BITS, seed=3)
+    if wide_round_trip(rnd, WIDE_RANDOM_BITS)[0] != wide_ref(
+            rnd, WIDE_RANDOM_BITS):
+        raise AssertionError("random bytes container differs from the "
+                             "native copy's")
+    # warm (v2) and anchored (v3) at 128 KiB blocks
+    warm_in = wide_input()
+    wblob, wenc, wdec = wide_round_trip(warm_in, WIDE_WARM_BITS, warm=True)
+    if wblob != wide_ref(warm_in, WIDE_WARM_BITS, warm=True):
+        raise AssertionError("warm container differs from the native "
+                             "copy's")
+    v3 = sqz_tpu_torch.compress(warm_in, engine="native",
+                                blk_bits=WIDE_WARM_BITS,
+                                win_bits=MAIN_WIN_BITS, warm="anchors")
+    t = time.perf_counter()
+    if sqz_tpu_torch.decompress(v3) != warm_in:
+        raise AssertionError("anchored container round trip failed")
+    v3dec = time.perf_counter() - t
+    # one block of 16 MiB: one lane
+    one = data[:1 << WIDE_ONE_BITS]
+    oblob, oenc, odec = wide_round_trip(one, WIDE_ONE_BITS)
+    if oblob != wide_ref(one, WIDE_ONE_BITS):
+        raise AssertionError("one-block container differs from the native "
+                             "copy's")
+    _nblob, nenc, ndec = wide_round_trip(one, WIDE_ONE_BITS, "native")
+    launches = read_launches()
+    routed = engine.wide_blocks
+    need = ("sqz4_encode_stats", "sqz4_decode", "sqz4_decode_seeded")
+    if routed < 1 or any(launches.get(k, 0) < 1 for k in need):
+        raise AssertionError(f"the route above 64 KiB did not run: blocks "
+                             f"{routed}, launches {launches}")
+    fresh = container.unpack(wblob)[6]
+    anchors = sum(container.unpack(v3)[7] or [])
+    log(f"wide route launches {launches}, blocks {routed}, host decodes "
+        f"{host.host_decode.blocks}; warm blocks {fresh.count(False)} of "
+        f"{len(fresh)}, v3 anchors {anchors}")
+    mb = len(data) / 1e6
+    for bits, runs in turns.items():
+        log(f"sqz4 blk_bits {bits}, {len(data) >> 20} MiB, "
+            f"{len(data) >> bits} lanes, in turns (card native native "
+            f"card): " + "; ".join(
+                f"{who} enc " + " ".join(f"{mb / e:.1f}" for e, _ in r)
+                + " MB/s dec " + " ".join(f"{mb / d:.1f}" for _, d in r)
+                + " MB/s" for who, r in runs.items()))
+        for who, r in runs.items():
+            out[f"wide{bits}_{who}_enc_MBps"] = mb / min(e for e, _ in r)
+            out[f"wide{bits}_{who}_dec_MBps"] = mb / min(d for _, d in r)
+        enc_st, dec_st = {}, {}
+        bs = 1 << bits
+        pays = sqz4_cuda.encode_data_stats(data, bits, 1 << MAIN_WIN_BITS,
+                                           True, stats=enc_st)
+        sqz4_cuda.decode_groups(pays, [bs] * len(pays), bits,
+                                lanes=host.group_lanes(len(pays)),
+                                stats=dec_st)
+        log(f"blk_bits {bits} stages (s): encode " + json.dumps(
+            {k: round(v, 4) for k, v in enc_st.items()}) + " decode "
+            + json.dumps({k: round(v, 4) for k, v in dec_st.items()}))
+        timed, chk = wide_kernels(
+            data, bits, pool if bits == WIDE_PLAIN_BITS else None)
+        checks.update(chk)
+        for k, (ms, bms, by) in timed.items():
+            log(f"blk_bits {bits} {k}: {ms:.3f} ms, bound {bms:.4f} ms by "
+                f"{by}")
+            out[f"wide{bits}_{k}_ms"] = ms
+    omb = len(one) / 1e6
+    enc_st, dec_st = {}, {}
+    pays = sqz4_cuda.encode_data_stats(one, WIDE_ONE_BITS, 1 << MAIN_WIN_BITS,
+                                       True, stats=enc_st)
+    sqz4_cuda.decode_groups(pays, [len(one)], WIDE_ONE_BITS,
+                            lanes=host.group_lanes(1), stats=dec_st)
+    log(f"sqz4 blk_bits {WIDE_ONE_BITS}, one block of {len(one) >> 20} MiB"
+        f" (one lane): card enc {oenc:.3f} s ({omb / oenc:.2f} MB/s) dec "
+        f"{odec:.3f} s ({omb / odec:.2f} MB/s); native enc {nenc:.3f} s "
+        f"({omb / nenc:.2f} MB/s) dec {ndec:.3f} s ({omb / ndec:.2f} MB/s);"
+        f" stages (s): encode " + json.dumps(
+            {k: round(v, 4) for k, v in enc_st.items()}) + " decode "
+        + json.dumps({k: round(v, 4) for k, v in dec_st.items()}))
+    wmb = len(warm_in) / 1e6
+    log(f"sqz4 blk_bits {WIDE_WARM_BITS} warm, {len(warm_in) >> 20} MiB: "
+        f"enc {wenc:.3f} s dec {wdec:.3f} s ratio "
+        f"{len(wblob) / len(warm_in):.4f}; anchored dec {v3dec:.3f} s "
+        f"({wmb / v3dec:.1f} MB/s)")
+    out.update(wide1_card_enc_MBps=omb / oenc, wide1_card_dec_MBps=omb / odec,
+               wide1_native_enc_MBps=omb / nenc,
+               wide1_native_dec_MBps=omb / ndec)
+    log(f"wide route phase: {time.perf_counter() - t0:.1f} s")
+    return launches, out, checks
 
 
 def cell_check(pool, blob):
@@ -1859,6 +2079,7 @@ COUNTERS = {"sqz4_encode": ("sqz4_cuda", "encode_full", "launches"),
             "sqz4_encode_tok_lit_skip": ("sqz4_cuda", "encode_tok",
                                          "lit_skip_launches"),
             "sqz4_decode": ("sqz4_cuda", "decode", "launches"),
+            "sqz4_decode_seeded": ("sqz4_cuda", "decode", "seeded_launches"),
             "sqz4_compact": ("sqz4_cuda", "compact_words", "launches"),
             "sqz4_cell_assembly": ("resident", "assemble_cells",
                                    "launches")}
@@ -2121,7 +2342,8 @@ def main() -> int:
         wlaunches, we2e = warm_path(data, blob)
         launches.update(wlaunches)
         we2e.update(anchored_path())
-        we2e.update(host_route_path())
+        _wlaunches, wide_e2e, wide_checks = wide_path(data, pool)
+        we2e.update(wide_e2e)
         t = time.perf_counter()
         rlaunches, re2e, (rchk, rextra), cell = resident_path(
             card, data, fblob, pool)
@@ -2133,6 +2355,14 @@ def main() -> int:
         full = kernels_vs_plain(data, MAIN_BITS, MAIN_WIN_BITS,
                                 sqz4_host.LANES, REPS, STATS_BITS, pool)
         full["sqz4_encode_tok_lit_skip"] = rchk.result() + rextra
+        for k, chk in wide_checks.items():
+            # the kernel's time is phase 11's: this one's events can
+            # span the host's pickling of the inputs for the worker
+            err, _ms, plain_ms = chk.result()
+            lanes = chk.got[0].shape[2]
+            we2e[f"wide{WIDE_PLAIN_BITS}x{lanes}_{k}_plain_ms"] = plain_ms
+            log(f"blk_bits {WIDE_PLAIN_BITS}, {lanes} lanes: {k} equals "
+                f"its plain version (plain {plain_ms:.1f} ms, err {err})")
         cres = {m: c.result() + x for m, (c, x) in cell.items()}
         full["sqz4_cell_assembly"] = cres["rle"]
         log(f"kernels vs plain at the full shapes: "

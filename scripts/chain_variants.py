@@ -298,8 +298,7 @@ def kernel_inputs(src, data):
     if src == STATS:
         part = data[:host.LANES << STATS_BITS]
         st = host.op_stream_stats(part, 1 << 15, STATS_BITS)
-        packed = [convert.to_device(a, dev)
-                  for a in sqz4_cuda.pack_group_stats(st)]
+        packed = sqz4_cuda.pack_group_stats(st, dev)
         scw = host.cap_words_for((1 << STATS_BITS) + 2048)
         return packed, scw, sqz4_cuda.encode_stats(*packed, scw)
     payloads = native.blocks_compress(data, 1, 15, 16)

@@ -7,7 +7,9 @@ Engines:
     v3), coded by the CUDA kernels on ``device="cuda"`` (the default;
     without a card it raises) or by their plain PyTorch versions on
     ``device="cpu"`` (for tests). sqz4 blocks above 64 KiB (``blk_bits``
-    17..40) take the native host codec (``ops/engine.py``); the v3
+    17..40) take the route above 64 KiB blocks on the card, the
+    reference's scan route (exact tokens and model statistics on the
+    host, the stats-fed encoder, the decoder; ``ops/engine.py``); the v3
     planner runs on the host, and its containers decode on the card.
   * ``native``: the port's copy of the C++ host runtime (``native/``),
     block-parallel on the host's cores.
@@ -179,7 +181,7 @@ def compress(data: bytes, fmt: Format | str = Format.SQZ4,
     container, cold, ``warm=True`` (sqzt v2) or ``warm="anchors"`` (sqzt
     v3, planned on the host with a beam of ``anchor_beam``): on
     ``device`` with the torch engine (sqz4 at ``blk_bits`` above 16 takes
-    the native host codec with the exact parse), on the host with
+    the stats-fed route with the exact parse), on the host with
     ``native`` or ``oracle``. ``blocks=False`` (host engines only) codes a
     raw reference stream, always with the exact parse. ``parse`` 'exact'
     gives the reference native engine's bytes on every engine."""
@@ -422,9 +424,8 @@ def compress_resident(data, blk_bits: int = 16, mode: str = "rle",
     (``parallel/shard.encode_resident_sharded``); ``device`` does not
     apply. In a multi-process mesh only rank 0 receives the container
     (None elsewhere)."""
-    if not 1 <= blk_bits <= 16:
-        raise ValueError("resident paths support blk_bits 1..16 "
-                         "(the sqz4 device kernels' range)")
+    from sqz_tpu_torch.ops import resident
+    resident.check_resident_blk_bits(blk_bits)
     if mesh is not None:
         from sqz_tpu_torch.parallel.shard import encode_resident_sharded
         payloads = encode_resident_sharded(data, blk_bits, mesh, mode,
@@ -432,7 +433,6 @@ def compress_resident(data, blk_bits: int = 16, mode: str = "rle",
         if payloads is None:                # not rank 0 of the mesh
             return None
     else:
-        from sqz_tpu_torch.ops import resident
         payloads = resident.encode_resident_blocks(
             data, blk_bits, mode, lanes=lanes, device=resolve_device(device))
     if isinstance(data, torch.Tensor):

@@ -38,8 +38,9 @@ namespace sqz4 {
 // csum form (sqz4_pallas.py _enc_seed_table): the inclusive running sums
 // of the byte, size and bits models' counts, the literal flag's counts of
 // 0 and 1, the distance-bit models' counts of 0, then of 1. Each model's
-// total is at most 2^14 after the rescale; a block of up to 2^16 symbols
-// keeps it below 2^17, where recip64 is exact (sqz4_div.cuh).
+// total is at most 2^14 after the rescale; a block of up to
+// 2^kMaxBlockBits bytes keeps it below kTotalLimit, inside the range where
+// recip64 is exact (sqz4_div.cuh).
 constexpr int kSeedByte = 0, kSeedSize = 256, kSeedBits = 512,
               kSeedLit = 544, kSeedDist0 = 546, kSeedDist1 = 578,
               kSeedWords = 610;

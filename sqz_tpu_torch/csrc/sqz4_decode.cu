@@ -26,6 +26,18 @@
 // bytes plus the dictionary (DIST), output past the block size (OVERRUN),
 // and a block still running after t_max steps (ILSEQ).
 //
+// Block sizes: any block up to 2^kMaxBlockBits bytes (sqz4_div.cuh), so
+// the route above 64 KiB blocks decodes here too (the counterpart there of
+// the reference's scan decoder, sqz_tpu/ops/sqz4_jax.py:_decode_scan).
+// The models' counts and the reciprocal windows' totals are int32 / u32
+// and every total stays below kTotalLimit, where recip64 is exact; the
+// stream positions, t_max and the counts are int32 and the array offsets
+// 64-bit; a match record keeps len << 16 | dist, the distance bounded by
+// the window (2^15), not by the block. The underflow escape (ChainDecoder
+// ::front) fires about once in 2^56 / total symbols, so more often as
+// totals grow; tests/test_torch_csrc_host.py reaches it from crafted
+// coder states.
+//
 // A step decodes the token grammar two coder ops at a time: op 1 is a
 // flag, bits or distance-bit op, op 2 the byte, size or distance-bit op
 // that follows it (or nothing when op 1 ended a token). Steps are what

@@ -11,9 +11,15 @@
 // cap_words * 4 are dropped) and lens int32 [G, 8, B] (row 0 = payload
 // byte length, which may exceed the capacity).
 //
-// The kernel's divide is exact for totals below 2^17 (sqz4_div.cuh). The
-// host caller keeps the reference's tighter contract, totals below 2^15
-// (the TPU kernel's f32 long division is exact only there).
+// On this slice's route above 64 KiB blocks it is also the counterpart of
+// the reference's scan coder sqz_tpu/ops/sqz4_jax.py:_encode_scan_stats
+// (sqz4_cuda.encode_data_stats). The kernel's divide is exact for every
+// total below 2^32 (sqz4_div.cuh), so it takes any block up to
+// 2^kMaxBlockBits bytes, whose totals stay below kTotalLimit; its rows
+// and offsets are 64-bit where a group's [T, lanes] passes 2^31
+// elements. encode_groups, the caller for the reference's Pallas
+// encoder, keeps that kernel's tighter contract, totals below 2^15 (its
+// f32 long division is exact only there).
 //
 // What bounds it: as the other coders, one serial dependence chain per
 // block (divide -> multiply -> renormalize, op after op) and as many
@@ -133,7 +139,8 @@ sqz4_encode_stats_kernel(const uint32_t* __restrict__ start,
 
 // start, size, total: [groups, rows, lanes] u32; words: [groups,
 // cap_words, lanes] u32, zero-filled; lens: [groups, 8, lanes] i32,
-// zero-filled; totals below 2^17. threads: 32, 64, 128, 192 or 256 a CTA.
+// zero-filled; totals below 2^32 (kTotalLimit for the widest block).
+// threads: 32, 64, 128, 192 or 256 a CTA.
 // Launches on `stream`; returns the cudaError_t of the launch.
 extern "C" int sqz4_encode_stats_launch(const void* start, const void* size,
                                         const void* total, int groups,

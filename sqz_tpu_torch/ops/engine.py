@@ -17,11 +17,15 @@ Counterpart of ``sqz_tpu/ops/engine.py`` (``compress_blocks`` and
   FORMAT.md §3.2) decode their anchor blocks on the host first, then one
   cold device batch and one seeded device batch per anchor
   (``_warm_scatter``, the seeded decoder).
-- sqz4 at ``blk_bits`` above 16: the kernels' divider is exact only for
-  model totals below 2^17, which 64 KiB blocks keep. Larger blocks go to
-  the port's native host codec by a named route (``_host_route``), as the
-  reference's device engine sends them to its XLA scans; the blocks it
-  serves are counted in ``host_route_blocks``.
+- sqz4 at ``blk_bits`` above 16 (17..40), the reference's scan route
+  (sqz_tpu/ops/engine.py:141-157, :257-271) on the port's kernels: exact
+  tokens and per-op model statistics on the host, whatever ``parse``
+  says, then one launch of the stats-fed encoder a group of blocks
+  (``sqz4_cuda.encode_data_stats``); warm (v2) codes the warm gate's
+  candidates again, seeded from block 0's rescaled final state, each
+  block keeping the smaller payload. Decode is the decoder kernel, cold
+  and seeded, as at 64 KiB, in groups of ``sqz4_host.group_lanes``
+  blocks. The blocks this route serves are counted in ``wide_blocks``.
 - squeeze, cold and warm (sqzt v2): the native planner codes every block
   and records its bitstream writes, and the bit-packer kernel assembles
   the payloads (``squeeze_cuda.squeeze_encode_data``). Warm keeps per
@@ -46,11 +50,12 @@ from sqz_tpu_torch.formats.constants import (SQZT_FORMAT_SQUEEZE,
                                              warm_dictionary, warm_gate_mask)
 from sqz_tpu_torch.formats.container import resolve_anchors
 from sqz_tpu_torch.ops import pipeline, sqz4_cuda, squeeze_cuda
-from sqz_tpu_torch.ops.sqz4_host import LANES, parse_mode
+from sqz_tpu_torch.ops.sqz4_host import LANES, group_lanes, parse_mode
 
-# blocks served by the host route (sqz4 above DEVICE_BLK_BITS), encoded
-# or decoded: a run shows with it which route its containers took
-host_route_blocks = 0
+# sqz4 blocks above 64 KiB (sqz4_cuda.MAIN_BLK_BITS) that the stats-fed
+# route encoded or decoded: a run shows with it which route its
+# containers took
+wide_blocks = 0
 
 
 def _pick_smaller(cold: List[bytes], warm: List[bytes], gate=None):
@@ -117,22 +122,40 @@ def _squeeze_blocks(parts, data, win_bits, lz, blk_bits, warm, parse,
         lambda: encode(True))
 
 
-def _host_route(nblocks: int):
-    """Count ``nblocks`` sqz4 blocks that the host route serves: blocks
-    larger than the kernels take (``sqz4_cuda.DEVICE_BLK_BITS``)."""
-    global host_route_blocks
-    host_route_blocks += nblocks
+def _wide(nblocks: int):
+    """Count ``nblocks`` sqz4 blocks that the route above 64 KiB serves."""
+    global wide_blocks
+    wide_blocks += nblocks
+
+
+def _sqz4_wide(parts, data, win_bits, lz, blk_bits, warm, device):
+    """sqz4 payloads (cold) or (payloads, fresh_mask) (warm) above 64 KiB
+    blocks, as the reference's scan route (sqz_tpu/ops/engine.py:141-157):
+    the cold pass, then the warm gate's candidates seeded, each block
+    keeping the smaller payload."""
+    _wide(len(parts))
+    window = 1 << win_bits
+    cold = sqz4_cuda.encode_data_stats(data, blk_bits, window, lz,
+                                       device=device)
+    if not warm:
+        return cold
+    gate = warm_gate_mask(parts, warm_dictionary(parts[0], win_bits))
+    cand = [b for b in range(1, len(parts)) if gate[b]]
+    if not cand:
+        return cold, [True] * len(parts)
+    warm_p = list(cold)
+    for b, p in zip(cand, sqz4_cuda.encode_data_stats(
+            data, blk_bits, window, lz, warm=True, blocks=cand,
+            device=device)):
+        warm_p[b] = p
+    return _pick_smaller(cold, warm_p, gate)
 
 
 def _sqz4_blocks(parts, data, win_bits, lz, blk_bits, warm, parse, device):
     """sqz4 payloads (cold) or (payloads, fresh_mask) (warm), as the
-    reference's device engine (sqz_tpu/ops/engine.py:97-143)."""
-    if blk_bits > sqz4_cuda.DEVICE_BLK_BITS:
-        # exact native tokens whatever ``parse`` says, as the reference's
-        # scan route tokenizes
-        _host_route(len(parts))
-        return native.blocks_compress(data, 1, win_bits, blk_bits, lz=lz,
-                                      warm=warm, parse="exact")
+    reference's device engine (sqz_tpu/ops/engine.py:97-157)."""
+    if blk_bits > sqz4_cuda.MAIN_BLK_BITS:
+        return _sqz4_wide(parts, data, win_bits, lz, blk_bits, warm, device)
     bs = 1 << blk_bits
     encode = (pipeline.encode_data_pipelined
               if len(parts) > LANES
@@ -219,12 +242,13 @@ def decompress_blocks(payloads: Sequence[bytes], sizes: Sequence[int],
     warm = (fresh_mask is not None and len(payloads) > 1
             and not all(fresh_mask))
     code = 0 if fmt == SQZT_FORMAT_SQUEEZE else 1
-    host = fmt == SQZT_FORMAT_SQUEEZE or blk_bits > sqz4_cuda.DEVICE_BLK_BITS
-    if fmt == SQZT_FORMAT_SQZ4 and host:
-        _host_route(len(payloads))
+    host = fmt == SQZT_FORMAT_SQUEEZE
+    wide = not host and blk_bits > sqz4_cuda.MAIN_BLK_BITS
+    if wide:
+        _wide(len(payloads))
     if host and anchor_mask is None:
         # the native threaded decoder: squeeze (pointer chasing, see the
-        # module docstring) and the host route, cold and v2
+        # module docstring), cold and v2
         return native.blocks_decompress(
             payloads, sum(sizes), code, blk_bits,
             fresh_mask=fresh_mask if warm else None, win_bits=win_bits)
@@ -238,6 +262,12 @@ def decompress_blocks(payloads: Sequence[bytes], sizes: Sequence[int],
             return [decompress_payload(p, s, seed=seed,
                                        dictionary=dictionary)
                     for p, s in zip(pls, szs)]
+    elif wide:
+        def decode_batch(pls, szs, seed, dictionary, ids):
+            return sqz4_cuda.decode_groups(
+                pls, szs, blk_bits, device=device,
+                lanes=group_lanes(len(pls)), block_ids=ids, seed=seed,
+                dictionary=dictionary)
     else:
         def decode_batch(pls, szs, seed, dictionary, ids):
             decode = (pipeline.decode_data_pipelined if len(pls) > LANES

@@ -90,7 +90,7 @@ def encode_data_pipelined(data: bytes, blk_bits: int, window: int, lz: bool,
     for k in ("plan_s", "wait_plan_s", "dispatch_s", "fence_s", "fetch_s"):
         st[k] = 0.0
     t_wall = time.perf_counter()
-    sqz4_cuda.check_blk_bits(blk_bits)
+    sqz4_cuda.check_main_blk_bits(blk_bits)
     dev = torch.device(device)
     parse = host.parse_mode(parse)
     transport = _transport(parse, transport)

@@ -57,6 +57,15 @@ RLE_DISTS = (1, 2, 4, 8, 16, 32, 64, 128)
 route_lanes = {"cell": 0, "general": 0, "host": 0}
 _route_lock = threading.Lock()
 LZ_LANES = 512   # most blocks a device-LZ launch codes
+# The resident paths' blocks, 2^1 .. 2^16 bytes: the reference's resident
+# range (sqz_tpu/api.py:285), whose cell and LZ layouts are sized for it.
+RESIDENT_BLK_BITS = 16
+
+
+def check_resident_blk_bits(blk_bits: int):
+    if not 1 <= blk_bits <= RESIDENT_BLK_BITS:
+        raise ValueError(f"resident paths support blk_bits "
+                         f"1..{RESIDENT_BLK_BITS}")
 
 
 def count_route(route: str, n: int):
@@ -289,8 +298,7 @@ def resident_coder(blk_bits: int, mode: str, lanes: int = None):
     blocks smaller than a parse segment literal-only; 'lz' codes at most
     LZ_LANES blocks a launch (``lanes`` default ``sqz4_host.LANES``)."""
     from sqz_tpu_torch.ops import lzparse
-    if blk_bits > sqz4_cuda.DEVICE_BLK_BITS:
-        raise ValueError("sqz4 device kernels support blk_bits <= 16")
+    check_resident_blk_bits(blk_bits)
     if mode not in ("lit", "rle", "lz"):
         raise ValueError(f"unknown resident mode {mode!r}")
     bs = 1 << blk_bits
@@ -636,7 +644,7 @@ def restore_blocks(payloads, sizes, blk_bits: int, lanes: int,
         host_decode_blocks(payloads, sizes, range(nb), out)
         count_route("host", nb)
         return torch.from_numpy(out.reshape(-1)[:total].copy()).to(dev)
-    sqz4_cuda.check_blk_bits(blk_bits)
+    check_resident_blk_bits(blk_bits)
     dargs = decoder_args(blk_bits, lanes)
     outs = []
     for g0 in range(0, nb, lanes):

@@ -13,8 +13,12 @@ main path around them: the native host planner -> op streams or tokens
 -> encoder kernel -> payloads (downloaded trimmed, or compacted on the
 card), and payloads -> decoder kernel -> token records -> native host
 assembly. ``encode_groups`` codes per-op statistics computed on the host
-(``native.sqz4_model_stats``) through the stats-fed encoder. Blocks ride
-lanes of ``[groups, rows, lanes]`` arrays, as in the reference.
+(``native.sqz4_model_stats``) through the stats-fed encoder, and
+``encode_data_stats`` is the route above 64 KiB blocks around it (the
+reference's scan route: exact tokens and statistics on the host, one
+launch a group of ``sqz4_host.group_lanes`` blocks); its decode is
+``decode_groups`` at that group width. Blocks ride lanes of
+``[groups, rows, lanes]`` arrays, as in the reference.
 """
 
 from __future__ import annotations
@@ -53,16 +57,33 @@ TOK_THREADS = 256
 COMPACT_ROWS = 128
 
 
-# the largest sqz4 blocks the kernels code: a model total (at most 2^14
-# from a warm seed, plus one a coded symbol) stays below 2^17, where their
-# divider is exact (csrc/sqz4_div.cuh); the engine routes larger blocks
-# to the native host codec
-DEVICE_BLK_BITS = 16
+# The widest block the kernels take (csrc/sqz4_div.cuh kMaxBlockBits):
+# the decoder's step budget t_max = 9 * bs + 64 and its counts are int32,
+# and so are the coders' row indices and byte counts. A model total
+# starts at most at 2^14 (a warm seed) and grows by one a coded symbol,
+# at most bs + 1 of them a block, so every total stays below 2^28, inside
+# the range where the divider is exact (every divisor below 2^32).
+MAX_BLOCK_BITS = 27
+# The engine's 64 KiB main path (the op-stream, token and pipelined
+# encoders, the reference's Pallas path) takes blocks up to 2^16 bytes;
+# above, sqzt containers take the stats-fed route (``encode_data_stats``,
+# the reference's scan route).
+MAIN_BLK_BITS = 16
 
 
-def check_blk_bits(blk_bits: int):
-    if blk_bits > DEVICE_BLK_BITS:
-        raise ValueError("sqz4 device kernels support blk_bits <= 16")
+def check_main_blk_bits(blk_bits: int):
+    """The op-stream and token paths take the reference's Pallas range."""
+    if blk_bits > MAIN_BLK_BITS:
+        raise ValueError(f"the op-stream and token paths take blk_bits <= "
+                         f"{MAIN_BLK_BITS}; larger blocks take "
+                         f"encode_data_stats")
+
+
+def check_block_bytes(nbytes: int):
+    """Raise for a block wider than the kernels take (MAX_BLOCK_BITS)."""
+    if nbytes > 1 << MAX_BLOCK_BITS:
+        raise ValueError(f"sqz4 blocks of {nbytes} bytes exceed the "
+                         f"kernels' 2^{MAX_BLOCK_BITS}")
 
 
 def _seed_arg(seed, dev):
@@ -124,7 +145,10 @@ def decode(payload: torch.Tensor, meta: torch.Tensor, t_max: int, lw: int,
     (lit uint32 [G, lw, B], tok uint32 [G, tw, B], mrec uint32 [G, mw, B],
     counts int32 [G, 8, B]: optr, nlit, ntok, nmatch, err, steps, ovf,
     state). ``seed`` (the seeded mode): the seed column, int32
-    [SEED_WORDS], from which every block starts its models."""
+    [SEED_WORDS], from which every block starts its models. Blocks of up
+    to 2^MAX_BLOCK_BITS bytes, any model total they reach (the divider is
+    exact below 2^32); match records keep ``len << 16 | dist``, the
+    distance bounded by the window."""
     launch.check_tensor(payload, "payload", torch.uint32)
     launch.check_tensor(meta, "meta", torch.int32)
     if meta.shape[0] != payload.shape[0] or meta.shape[2] != payload.shape[2]\
@@ -201,9 +225,10 @@ def encode_stats(start: torch.Tensor, size: torch.Tensor,
                  total: torch.Tensor, cap_words: int):
     """sqz4 stats-fed encoder: start / size / total uint32 [G, T, B], each
     op's coder statistics (total 0: a pad; size 0 with total != 0: a
-    flush; anything else coded; totals below 2^17, where the kernel's
-    divide is exact) -> (payload words uint32 [G, cap_words, B], lens
-    int32 [G, 8, B]), as ``encode_full``'s."""
+    flush; anything else coded; any total below 2^32, where the kernel's
+    divide is exact, so any block up to 2^MAX_BLOCK_BITS bytes; T below
+    2^31 rows, G * T * B past 2^31 elements) -> (payload words uint32
+    [G, cap_words, B], lens int32 [G, 8, B]), as ``encode_full``'s."""
     for t, name in ((start, "start"), (size, "size"), (total, "total")):
         launch.check_tensor(t, name, torch.uint32)
     if not start.shape == size.shape == total.shape:
@@ -233,18 +258,19 @@ encode_stats.launches = 0
 STATS_TOTAL_LIMIT = 1 << 15
 
 
-def pack_group_stats(arrs, lanes: int = host.LANES):
-    """[NB, T] u32 stats -> [G, T, lanes] kernel layout (lanes past NB
-    zero: zero totals are pads)."""
+def pack_group_stats(arrs, dev, lanes: int = host.LANES):
+    """(start, size, total) u32 [NB, T] each -> the stats-fed encoder's
+    inputs, uint32 [G, T, lanes] on ``dev``: uploaded as they are and
+    laid out lane-minor there (lanes past NB zero: zero totals are
+    pads)."""
     nb, t = arrs[0].shape
-    G = -(-nb // lanes)
-    out = []
-    for a in arrs:
-        buf = np.zeros((G * lanes, t), dtype=np.uint32)
-        buf[:nb] = a
-        out.append(np.ascontiguousarray(
-            buf.reshape(G, lanes, t).transpose(0, 2, 1)))
-    return out
+    rows = convert.to_device(np.stack(arrs), dev).view(torch.int32)
+    out = torch.zeros((3, -(-nb // lanes), t, lanes), dtype=torch.int32,
+                      device=dev)
+    for g in range(out.shape[1]):
+        part = rows[:, g * lanes:(g + 1) * lanes]
+        out[:, g, :, :part.shape[1]] = part.transpose(1, 2)
+    return tuple(c.view(torch.uint32) for c in out)
 
 
 def encode_groups(start: np.ndarray, size: np.ndarray, total: np.ndarray,
@@ -258,8 +284,7 @@ def encode_groups(start: np.ndarray, size: np.ndarray, total: np.ndarray,
                          "2^15)")
     dev = torch.device(device)
     cap_words = host.cap_words_for(cap)
-    st, sz, tt = (convert.to_device(a, dev) for a in pack_group_stats(
-        (start, size, total), lanes))
+    st, sz, tt = pack_group_stats((start, size, total), dev, lanes)
     words, lens = encode_stats(st, sz, tt, cap_words)
     lens = convert.to_numpy(lens)
     if int(lens[:, 0].max(initial=0)) > cap_words * 4:
@@ -329,7 +354,7 @@ def encode_data_full(data: bytes, blk_bits: int, window: int, lz: bool,
     mismatches a block's content may expand it, so the capacity grows by a
     quarter block, and a block past it is coded again on the host codec,
     seeded the same way."""
-    check_blk_bits(blk_bits)
+    check_main_blk_bits(blk_bits)
     dev = torch.device(device)
     parse = host.parse_mode(parse)
     bs = 1 << blk_bits
@@ -494,7 +519,7 @@ def encode_data_tok(data: bytes, blk_bits: int, window: int, lz: bool,
     """Whole-buffer encode through the token kernel (fast parse), every
     fitting block in one launch; payloads equal ``encode_data_full``'s
     with ``parse="fast"`` (sqz4_pallas.py encode_data_tok)."""
-    check_blk_bits(blk_bits)
+    check_main_blk_bits(blk_bits)
     dev = torch.device(device)
     grp = plan_tok_group(data, blk_bits, window, lz, tok_cap,
                          pin=dev.type == "cuda")
@@ -523,7 +548,9 @@ def fetch_decode_host(lit, tok, mrec, counts):
 def decode_groups(payloads, sizes, blk_bits: int, device="cuda",
                   lanes: int = host.LANES, block_ids=None,
                   stats: dict = None, seed=None, dictionary: bytes = b""):
-    """Payload byte strings + original sizes -> decoded blocks.
+    """Payload byte strings + original sizes -> decoded blocks, every
+    group of ``lanes`` blocks in one launch, the buffers sized from the
+    largest block (``plan_decode_dispatch``).
 
     ``seed`` / ``dictionary`` (sqzt v2 and v3 warm start, FORMAT.md §3.1):
     the model seed (u32[610], the anchor's final state) and the shared
@@ -531,22 +558,23 @@ def decode_groups(payloads, sizes, blk_bits: int, device="cuda",
     kernel). Raises ValueError naming the caller's block index
     (``block_ids``, default positions) for a corrupt block. Payloads too
     long for the decoder buffer decode on the host codec, seeded the same
-    way. ``stats`` (optional dict) accumulates pack_s, upload_s, kernel_s,
-    fetch_s and assemble_s."""
-    check_blk_bits(blk_bits)
+    way (``sqz4_host.host_decode``, counted). ``stats`` (optional dict)
+    accumulates pack_s, upload_s, kernel_s, fetch_s and assemble_s."""
     nb = len(payloads)
     if nb == 0:
         return []
+    largest = max(sizes)
+    check_block_bytes(largest)
     dev = torch.device(device)
     ids = list(block_ids) if block_ids is not None else list(range(nb))
-    cap = 4 * host.plan_decode_dispatch(nb, blk_bits, lanes)["Pw"]
+    cap = 4 * host.plan_decode_dispatch(nb, blk_bits, lanes, largest)["Pw"]
     outs = [None] * nb
     order = [b for b in range(nb) if len(payloads[b]) <= cap]
     for b in set(range(nb)) - set(order):
         outs[b] = host.host_decode(payloads[b], sizes[b], seed, dictionary)
     if not order:
         return outs
-    plan = host.plan_decode_dispatch(len(order), blk_bits, lanes)
+    plan = host.plan_decode_dispatch(len(order), blk_bits, lanes, largest)
     pls = [payloads[b] for b in order]
     szs = [sizes[b] for b in order]
     # only the rows the longest payload fills are packed and uploaded: the
@@ -566,7 +594,7 @@ def decode_groups(payloads, sizes, blk_bits: int, device="cuda",
     lt, tt, mt, cnt = fetch_decode_host(*res)
     st.mark("fetch_s")
     dec = host.postprocess_decode(lt, tt, mt, cnt, pls, szs,
-                                  1 << blk_bits,
+                                  host.block_bytes(blk_bits, largest),
                                   block_ids=[ids[b] for b in order],
                                   transposed=True, seed=seed,
                                   dictionary=dictionary)
@@ -574,3 +602,51 @@ def decode_groups(payloads, sizes, blk_bits: int, device="cuda",
     for pos, b in enumerate(order):
         outs[b] = dec[pos]
     return outs
+
+
+def encode_data_stats(data: bytes, blk_bits: int, window: int, lz: bool,
+                      warm: bool = False, blocks=None, device="cuda",
+                      stats: dict = None):
+    """Whole-buffer encode through the stats-fed encoder -> one payload a
+    block: the reference's scan route (sqz4_jax.encode_blocks), which the
+    engine takes above 64 KiB blocks. Each group of
+    ``sqz4_host.group_lanes`` blocks is tokenized exactly on the host and
+    its per-op model statistics computed there
+    (``sqz4_host.op_stream_stats``), then coded in one launch; payloads
+    equal the native engine's exact parse. The capacity is the
+    reference's, twice the largest block plus 4096 bytes (ValueError past
+    it).
+
+    ``warm`` (sqzt v2, FORMAT.md §3.1): the seeded pass, in which blocks
+    match into block 0's tail and start their models from its rescaled
+    final state (sqz4_jax.seed_from_tokens). ``blocks``: the indices of
+    the blocks to code (default all; the warm pass codes the warm gate's
+    candidates, which are not block 0). ``stats`` (optional dict)
+    accumulates the stage times stats_s (tokens and statistics),
+    upload_s, kernel_s and fetch_s."""
+    dev = torch.device(device)
+    bs = 1 << blk_bits
+    nb = max(1, -(-len(data) // bs))
+    idx = list(range(nb)) if blocks is None else list(blocks)
+    largest = min(bs, len(data))
+    check_block_bytes(largest)
+    cap_words = host.cap_words_for(2 * largest + 4096)
+    lanes = host.group_lanes(len(idx))
+    payloads = []
+    for g0 in range(0, len(idx), lanes):
+        grp = idx[g0:g0 + lanes]
+        st = launch.Stages(stats, dev)
+        chunk = (data[:bs] if warm else b"") + b"".join(
+            data[b * bs:(b + 1) * bs] for b in grp)
+        cols = host.op_stream_stats(chunk, window, blk_bits, lz, warm)
+        if warm:   # block 0 planned for its tail and seed only
+            t = int(np.flatnonzero(cols[2][1:].any(0)).max(initial=0)) + 1
+            cols = [c[1:, :t] for c in cols]
+        st.mark("stats_s")
+        inputs = pack_group_stats(cols, dev, lanes)
+        st.mark("upload_s")
+        words, lens = encode_stats(*inputs, cap_words)
+        st.mark("kernel_s")
+        payloads += fetch_payloads(words, lens, len(grp), fetch_mode())
+        st.mark("fetch_s")
+    return payloads

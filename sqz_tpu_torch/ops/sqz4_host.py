@@ -11,6 +11,7 @@ reference's: ``[groups, rows, lanes]``, one block per lane.
 from __future__ import annotations
 
 import os
+import threading
 
 import numpy as np
 
@@ -29,32 +30,58 @@ def parse_mode(parse: str = "auto") -> str:
     return "fast" if parse == "auto" else parse
 
 
-def op_stream_cap(blk_bits: int) -> int:
+def op_stream_cap(blk_bits: int, largest: int = None) -> int:
     """Ops per block the planners may write: 5/2 ops per byte plus the EOS
-    and flush tail, a multiple of 4 (four ops pack into one word)."""
-    return -(-(5 * (1 << blk_bits) // 2 + 64) // 4) * 4
+    and flush tail, a multiple of 4 (four ops pack into one word), for
+    blocks of 2^blk_bits bytes, or of ``largest`` bytes where it is
+    smaller (the largest block of the call)."""
+    return -(-(5 * block_bytes(blk_bits, largest) // 2 + 64) // 4) * 4
+
+
+def block_bytes(blk_bits: int, largest: int = None) -> int:
+    """The block size buffers are sized from: 2^blk_bits, or the call's
+    ``largest`` block where it is smaller (a short container at a large
+    ``blk_bits`` allocates for its bytes, not for 2^blk_bits)."""
+    bs = 1 << blk_bits
+    return bs if largest is None else min(bs, max(int(largest), 1))
+
+
+def group_lanes(nblocks: int) -> int:
+    """Lanes a group of the route above 64 KiB blocks: ``min(LANES,
+    nblocks)`` rounded up to 32, so that one group's host plan and card
+    buffers (a few times its blocks' bytes each) stay near its data."""
+    return -(-min(LANES, max(nblocks, 1)) // 32) * 32
 
 
 OP_FLUSH = 254   # the flush micro-op
 
 
 def op_stream_stats(data: bytes, window: int, blk_bits: int,
-                    lanes: int = LANES):
-    """The stats-fed encoder's input for ``data``: every block's exact-parse
-    LZ op stream (``native.sqz4_plan_pack``) turned into per-op coder
-    statistics (``native.sqz4_model_stats``). Returns (start, size, total),
+                    lz: bool = True, warm: bool = False):
+    """The stats-fed encoder's input for ``data`` (the reference's scan
+    route, sqz4_jax.encode_blocks and stats_for_ops): every block's
+    exact-parse op stream (``native.sqz4_plan_pack``, one block a row)
+    turned into per-op coder statistics (``native.sqz4_model_stats``).
+    ``warm`` (sqzt v2, FORMAT.md §3.1): blocks 1+ match into block 0's
+    tail and start their models from its rescaled final state, which the
+    planner returns; block 0 stays cold. Returns (start, size, total),
     each u32 [nblocks, T]: a flush as (0, 0, 1), since the model stats
     give it (0, 0, 0), which the encoder reads as a pad; pads (0, 0, 0)."""
     nb = max(1, -(-len(data) // (1 << blk_bits)))
-    mw, sw, mx = native.sqz4_plan_pack(data, window, blk_bits, True, lanes,
-                                       op_stream_cap(blk_bits))
+    warm = warm and nb > 1
+    # one block shorter than 2^blk_bits plans at the bits that hold it:
+    # the planner reserves room for a whole block
+    bits = min(blk_bits, max(len(data) - 1, 1).bit_length())
+    plan = native.sqz4_plan_pack(data, window, bits, lz, 1,
+                                 op_stream_cap(bits, len(data)), warm=warm)
+    mw, sw, mx = plan[:3]
     rows = -(-int(mx) // 4)
     out = np.zeros((3, nb, rows * 4), np.uint32)
     for b in range(nb):
-        g, lane = divmod(b, lanes)
-        m = mw[g, :rows, lane].astype(">u4").view(np.uint8)
-        s = sw[g, :rows, lane].astype(">u4").view(np.uint8)
-        out[:, b] = native.sqz4_model_stats(m, s)
+        m = mw[b, :rows, 0].astype(">u4").view(np.uint8)
+        s = sw[b, :rows, 0].astype(">u4").view(np.uint8)
+        out[:, b] = native.sqz4_model_stats(
+            m, s, seed=plan[3] if warm and b else None)
         out[2, b, m == OP_FLUSH] = 1
     return out[0], out[1], out[2]
 
@@ -124,12 +151,15 @@ def payload_rows(nbytes: int) -> int:
     return max(32, ((nbytes + 3) // 4 + 31) // 32 * 32)
 
 
-def plan_decode_dispatch(nb: int, blk_bits: int, lanes: int = LANES):
-    """Decoder buffer dimensions for ``nb`` blocks of 2^blk_bits bytes:
-    groups ``G``, payload rows ``Pw`` (words), record rows ``lw`` / ``tw``
-    / ``mw`` and the step budget ``t_max`` (the hang guard: a valid block
-    needs fewer steps). Same values as sqz4_pallas.plan_decode_dispatch."""
-    bs = 1 << blk_bits
+def plan_decode_dispatch(nb: int, blk_bits: int, lanes: int = LANES,
+                         largest: int = None):
+    """Decoder buffer dimensions for ``nb`` blocks of 2^blk_bits bytes, or
+    of ``largest`` bytes where that is smaller (the largest block of the
+    call): groups ``G``, payload rows ``Pw`` (words), record rows ``lw`` /
+    ``tw`` / ``mw`` and the step budget ``t_max`` (the hang guard: a
+    valid block needs fewer steps). Without ``largest``, the values of
+    sqz4_pallas.plan_decode_dispatch."""
+    bs = block_bytes(blk_bits, largest)
     cap = bs + 4096
     return dict(
         lanes=lanes,
@@ -235,6 +265,15 @@ def postprocess_decode(lit, tok, mrec, counts, payloads, sizes, bs,
 def host_decode(payload: bytes, size: int, seed=None,
                 dictionary: bytes = b"") -> bytes:
     """One payload through the native host codec (warm: ``seed`` and
-    ``dictionary`` as the device pass takes them)."""
+    ``dictionary`` as the device pass takes them): the reference's one
+    host decode beside its decoder kernel, for a payload longer than the
+    decoder buffer and for a lane whose match records overflowed. Counted
+    in ``host_decode.blocks``."""
+    with _host_decode_lock:
+        host_decode.blocks += 1
     return native.sqz4_decompress_payload(payload, size, seed=seed,
                                           dictionary=dictionary)
+
+
+host_decode.blocks = 0
+_host_decode_lock = threading.Lock()

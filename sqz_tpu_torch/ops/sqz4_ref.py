@@ -75,22 +75,27 @@ def _udiv_small(a, d):
     return (qh << 32) | ql
 
 
+def _udiv(a, d):
+    """u64 a // d for 1 <= d < 2^63: floor(a / 2) // d doubled, then one
+    remainder test (the remainder is below 2 d)."""
+    q = (((a >> 1) & ~MIN64) // d) << 1
+    return q + (~_ult(a - q * d, d)).to(I64)
+
+
 def _shl(x, s):
     """x << s for per-lane s >= 0 (0 once s >= 64)."""
     return torch.where(s >= 64, torch.zeros_like(x),
                        torch.bitwise_left_shift(x, s.clamp(max=63)))
 
 
-def _u64_to_f64(x):
-    f = x.to(torch.float64)
-    return torch.where(x < 0, f + 2.0 ** 64, f)
+# 2^(64-8k) for k = 1..7, then 1, biased as _ult biases (u64 ^ 2^63)
+_LZB_THR = torch.tensor([(1 << (64 - 8 * k)) - (1 << 63) for k in range(1, 8)]
+                        + [1 - (1 << 63)], dtype=I64)
 
 
 def _lead_zero_bytes(x):
     """Leading zero bytes of u64 x (8 for 0): x < 2^(64-8k) for k = 1..8."""
-    thr = torch.tensor([1 << (64 - 8 * k) for k in range(1, 8)] + [1],
-                       dtype=I64, device=x.device)
-    return _ult(x[:, None], thr[None, :]).sum(1)
+    return ((x ^ MIN64)[:, None] < _LZB_THR.to(x.device)).sum(1)
 
 
 def _lanes(t, rows):
@@ -188,23 +193,25 @@ class _Coder:
         escape and emit the settled bytes; on lanes ``flush``, emit the
         top byte. Other lanes code nothing. int64 [N] each."""
         low, rng = self.low, self.rng
-        zero = torch.zeros_like(low)
-        q = _udiv_small(rng, torch.where(active, total, zero + 1))
+        q = _udiv_small(rng, torch.where(active, total, 1))
         low = torch.where(active, low + start * q, low)
         rng = torch.where(active, size * q, rng)
         pre = low
-        cnt = torch.where(active, _lead_zero_bytes(low ^ (low + rng)), zero)
+        cnt = torch.where(active, _lead_zero_bytes(low ^ (low + rng)), 0)
         low = _shl(low, 8 * cnt)
         rng = _shl(rng, 8 * cnt)
         uf = active & _ult(rng, total + 1)
-        low = torch.where(uf, _shl(pre, 8 * cnt + 16), low)
-        rng = torch.where(uf, ~low, rng)
-        cnt = cnt + 2 * uf.to(I64)
-        cnt = torch.where(flush, zero + 1, cnt)
-        self.low = torch.where(flush, pre << 8, low)
-        self.rng = rng
+        if bool(uf.any()):   # rare: two more bytes, re-inflate
+            low = torch.where(uf, _shl(pre, 8 * cnt + 16), low)
+            rng = torch.where(uf, ~low, rng)
+            cnt = cnt + 2 * uf.to(I64)
+        cnt = torch.where(flush, 1, cnt)
+        low = torch.where(flush, pre << 8, low)
+        self.low, self.rng = low, rng
 
         # emission: the top min(cnt, 8) bytes of pre; bytes past 8 are 0
+        if not bool(cnt.any()):   # most ops settle no byte
+            return
         k8, pos, cap = self.k8, self.pos, self.cap
         byte = (pre[:, None] >> (56 - 8 * k8)) & 0xFF
         col = torch.where((k8 < cnt[:, None]) & (pos[:, None] + k8 < cap),
@@ -232,10 +239,9 @@ def encode_stats_ref(start, size, total, cap_words: int):
     G, T, B = start.shape
     st, sz, tt = (_lanes(a, T) for a in (start, size, total))
     coder = _Coder(G * B, cap_words, start.device)
+    act, flush = (tt != 0) & (sz != 0), (tt != 0) & (sz == 0)
     for t in range(T):
-        coded = tt[t] != 0
-        coder.code_stats(st[t], sz[t], tt[t], coded & (sz[t] != 0),
-                         coded & (sz[t] == 0))
+        coder.code_stats(st[t], sz[t], tt[t], act[t], flush[t])
     return coder.result(G, B)
 
 
@@ -415,6 +421,7 @@ class _Stream:
             N, PW * 4), torch.zeros(N, 1, dtype=I64, device=dev)], 1)
         self.end = PW * 4
         self.k8 = torch.arange(8, dtype=I64, device=dev)[None, :]
+        self.sh8 = 56 - 8 * self.k8
         self.pos = torch.zeros(N, dtype=I64, device=dev)
         self.low = torch.zeros(N, dtype=I64, device=dev)
         self.rng = torch.full((N,), -1, dtype=I64, device=dev)
@@ -424,7 +431,7 @@ class _Stream:
     def take(self, k):
         """The next k (0..8) bytes of each lane, big-endian, right-aligned."""
         idx = (self.pos[:, None] + self.k8).clamp(max=self.end)
-        b = torch.gather(self.buf, 1, idx) << (56 - 8 * self.k8)
+        b = torch.gather(self.buf, 1, idx) << self.sh8
         w = b.sum(1)   # disjoint byte fields: the sum is their OR
         s = (64 - 8 * k).clamp(max=63)
         mask = torch.where(k >= 8, torch.full_like(k, -1),
@@ -436,25 +443,20 @@ class _Stream:
     def front(self, total, act):
         """Underflow escape, divide and the saturated cumulative count of
         the next symbol on lanes ``act``. Returns (cum, bad)."""
-        one = torch.ones_like(total)
-        tot = torch.where(act, total, one)
+        tot = torch.where(act, total, 1)
         uf = act & _ult(self.rng, tot)
-        two = self.take(2 * uf.to(I64))
-        self.code = torch.where(uf, (self.code << 16) | two, self.code)
-        self.low = torch.where(uf, self.low << 16, self.low)
-        self.rng = torch.where(uf, ~self.low, self.rng)
+        if bool(uf.any()):   # rare: consume two bytes, re-inflate
+            two = self.take(2 * uf.to(I64))
+            self.code = torch.where(uf, (self.code << 16) | two, self.code)
+            self.low = torch.where(uf, self.low << 16, self.low)
+            self.rng = torch.where(uf, ~self.low, self.rng)
         rd = _udiv_small(self.rng, tot)
         self.rd = rd
         diff = self.code - self.low
         bad = act & ~_ult(diff, tot * rd)
-        est = torch.floor(_u64_to_f64(diff)
-                          / _u64_to_f64(rd).clamp(min=1.0))
-        c0 = torch.minimum(torch.maximum(est - 2, torch.zeros_like(est)),
-                           (tot - 1).to(torch.float64)).to(I64)
-        cum = c0
-        for k in range(1, 5):
-            take = ((c0 + k) < tot) & ~_ult(diff, c0 * rd + k * rd)
-            cum = torch.where(take, c0 + k, cum)
+        # a total is at least 2, so rd < 2^63; where bad (or rd is 0 after
+        # an escape), the count saturates at the last symbol
+        cum = torch.where(bad, tot - 1, _udiv(diff, rd.clamp(min=1)))
         return cum, bad
 
     def back(self, start, size, act):
@@ -465,6 +467,8 @@ class _Stream:
         cnt = torch.where(act, _lead_zero_bytes(self.low ^ (self.low
                                                             + self.rng)),
                           zero)
+        if not bool(cnt.any()):   # most ops settle no byte
+            return
         nxt = self.take(cnt)
         full = cnt >= 8
         sh = (8 * cnt).clamp(max=63)
@@ -523,8 +527,7 @@ def decode_ref(payload, meta, t_max: int, lw: int, tw: int, mw: int,
                               bits[rows, (sym32 - 1).clamp(min=0)], zero)
         symb = (cum1 >= bin0).to(I64)
         sym1 = torch.where(o1_bits, sym32, symb)
-        start1 = torch.where(o1_bits, start32,
-                             torch.where(symb == 1, bin0, zero))
+        start1 = torch.where(o1_bits, start32, symb * bin0)
         size1 = torch.where(o1_bits, bits[rows, sym32] - start32,
                             torch.where(symb == 1, bin1, bin0))
         st.back(start1, size1, act1)
@@ -560,13 +563,13 @@ def decode_ref(payload, meta, t_max: int, lw: int, tw: int, mw: int,
                                tab[rows, (sym256 - 1).clamp(min=0)], zero)
         symb = (cum2 >= f0).to(I64)
         sym2 = torch.where(is256, sym256, symb)
-        start2 = torch.where(is256, start256,
-                             torch.where(symb == 1, f0, zero))
+        start2 = torch.where(is256, start256, symb * f0)
         size2 = torch.where(is256, tab[rows, sym256] - start256,
                             torch.where(symb == 1, f1, f0))
         st.back(start2, size2, act2)
-        cb += (o2_byte[:, None] & (iota256 >= sym2[:, None])).to(I64)
-        cs += (o2_size[:, None] & (iota256 >= sym2[:, None])).to(I64)
+        up = iota256 >= sym2[:, None]
+        cb += (o2_byte[:, None] & up).to(I64)
+        cs += (o2_size[:, None] & up).to(I64)
         hit = o2_dist[:, None] & (iota32 == bp[:, None])
         d0 += (hit & (sym2 == 0)[:, None]).to(I64)
         d1 += (hit & (sym2 == 1)[:, None]).to(I64)
@@ -596,19 +599,19 @@ def decode_ref(payload, meta, t_max: int, lw: int, tw: int, mw: int,
         ntok = ntok + (o2_byte | emit_ok).to(I64)
 
         # ---- next state and errors
-        nstate = torch.where(o2_byte, zero + ST_FLAG, state)
-        nstate = torch.where(o2_size, torch.where(eos, zero + ST_DONE,
-                                                  zero + ST_BITS), nstate)
-        nstate = torch.where(o2_dist, torch.where(done2, zero + ST_FLAG,
-                                                  zero + ST_DIST), nstate)
-        nstate = torch.where(emit1, zero + ST_FLAG, nstate)
-        newerr = torch.where(bad1 | bad2, zero + E_ILSEQ,
-                 torch.where(bad_size, zero + E_SIZE,
-                 torch.where(bad_bits, zero + E_BITS,
-                 torch.where(bad_dist, zero + E_DIST,
-                 torch.where(lit_over | over, zero + E_OVERRUN, zero)))))
+        nstate = torch.where(o2_byte, ST_FLAG, state)
+        nstate = torch.where(o2_size, torch.where(eos, ST_DONE, ST_BITS),
+                             nstate)
+        nstate = torch.where(o2_dist, torch.where(done2, ST_FLAG, ST_DIST),
+                             nstate)
+        nstate = torch.where(emit1, ST_FLAG, nstate)
+        newerr = torch.where(bad1 | bad2, E_ILSEQ,
+                 torch.where(bad_size, E_SIZE,
+                 torch.where(bad_bits, E_BITS,
+                 torch.where(bad_dist, E_DIST,
+                 torch.where(lit_over | over, E_OVERRUN, zero)))))
         err = torch.where(act1 & (err == 0) & (newerr > 0), newerr, err)
-        nstate = torch.where(newerr > 0, zero + ST_ERR, nstate)
+        nstate = torch.where(newerr > 0, ST_ERR, nstate)
         state = torch.where(act1, nstate, state)
         steps = steps + act1.to(I64)
 

@@ -227,7 +227,7 @@ def encode_data_sharded(data: bytes, blk_bits: int, window: int, mesh: Mesh,
     same way. Payloads equal ``encode_data_full(parse="exact")``'s; rank
     0 gets them (None elsewhere)."""
     check_mesh(mesh)
-    sqz4_cuda.check_blk_bits(blk_bits)
+    sqz4_cuda.check_main_blk_bits(blk_bits)
     bs = 1 << blk_bits
     nb = max(1, -(-len(data) // bs))
     warm = warm and nb > 1
@@ -277,7 +277,7 @@ def decode_blocks_sharded(payloads: Sequence[bytes], sizes: Sequence[int],
     gathered in order on rank 0 (None elsewhere). A corrupt block raises
     ValueError naming it (on every rank)."""
     check_mesh(mesh)
-    sqz4_cuda.check_blk_bits(blk_bits)
+    sqz4_cuda.check_main_blk_bits(blk_bits)
     nb = len(payloads)
     width, ranges = shard_ranges(nb, mesh.size, lanes or host.LANES)
 
@@ -367,7 +367,7 @@ def encode_blocks_sharded(token_lists: Sequence[list], blk_bits: int,
     None (cold) or the warm seed, one seed for every seeded block (sqzt
     v2); a shard launches its cold and its seeded blocks apart."""
     check_mesh(mesh)
-    sqz4_cuda.check_blk_bits(blk_bits)
+    sqz4_cuda.check_main_blk_bits(blk_bits)
     nb = len(token_lists)
     seed = _one_seed(seeds, nb)
     m8, s8 = token_op_rows(token_lists)

@@ -209,9 +209,7 @@ def save_pytree(tree, path, blk_bits: int = 16, mode: str = "rle",
     parses and codes its own blocks (``stats`` is not kept). In a
     multi-process mesh only rank 0 writes the file (None elsewhere)."""
     from sqz_tpu_torch.ops import resident
-    if not 1 <= blk_bits <= 16:
-        raise ValueError("resident paths support blk_bits 1..16 "
-                         "(the sqz4 device kernels' range)")
+    resident.check_resident_blk_bits(blk_bits)
     dev = _device(device, mesh)
     stream, metas, structure = filtered_stream(tree, shuffle, delta, dev)
     raw = int(stream.numel())

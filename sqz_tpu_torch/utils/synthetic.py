@@ -7,8 +7,8 @@ reaches every cell token kind. Used by the tests and ``chip_smoke.py`` to hold t
 encoder kernels against their plain versions.
 
 Blocks ride lanes of ``[groups, rows, lanes]`` uint32 arrays, as the
-encoders take them. A block codes at most ``max_ops`` ops (keep it at
-2^16 or less: the kernels' model totals then stay below 2^17).
+encoders take them. A block codes at most ``max_ops`` ops (any count
+below 2^31 codes; its model totals stay far below the divider's 2^32).
 """
 
 from __future__ import annotations

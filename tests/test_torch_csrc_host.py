@@ -311,6 +311,36 @@ extern "C" void host_div(const unsigned long long* num, const uint32_t* d,
         q[i] = sqz4::div_by(num[i], d[i], sqz4::recip64(d[i]));
 }
 
+// One op of the decoder's chain from a crafted coder state (state: low,
+// rng and code, in and out): kind 0 a binary op with counts a and b, kind
+// 1 a 256-symbol op whose counts' inclusive running sums are csum. p: the
+// payload column (pw words) read from its first byte. out: the symbol,
+// the bad flag and the next 8 payload bytes after the op.
+extern "C" void host_dec_op(int kind, int a, int b, const int32_t* csum,
+                            const uint32_t* p, int pw,
+                            unsigned long long* state,
+                            unsigned long long* out) {
+    std::unique_ptr<sqz4::DecSmem> sm(new sqz4::DecSmem);
+    sqz4::ChainDecoder dec{state[0], state[1], state[2], sqz4::ByteReader{}};
+    dec.src.init(p, 1, pw, sm->stage);
+    bool bad = false;
+    int sym;
+    if (kind == 0) {
+        sym = dec.binary(a, b, sqz4::recip64(a + b), &bad);
+    } else {
+        sqz4::LaneModel<256> md;
+        md.init(csum);
+        sqz4::u64 m = sqz4::recip64(md.total);
+        sym = dec.search(sm.get(), md, sqz4::kRcpByte, &m, &bad);
+    }
+    state[0] = dec.low;
+    state[1] = dec.rng;
+    state[2] = dec.code;
+    out[0] = sym;
+    out[1] = bad;
+    out[2] = dec.src.take(8);
+}
+
 extern "C" void host_encode_stats(const uint32_t* st, const uint32_t* sz,
                                   const uint32_t* tt, int G, int T, int B,
                                   uint32_t* words, int cw, int32_t* lens) {
@@ -584,11 +614,18 @@ def lanes_lib(tmp_path_factory):
     lib.host_probe_batch.argtypes = [i, p, p, p, p, p, i]
     lib.host_recip.argtypes = [p, ctypes.c_longlong, p]
     lib.host_div.argtypes = [p, p, ctypes.c_longlong, p]
+    lib.host_dec_op.argtypes = [i, i, i, p, p, i, p, p]
     return lib
 
 
 def _ptr(a):
     return ctypes.c_void_p(a.ctypes.data)
+
+
+def _host_stats(st, lanes):
+    """The stats-fed encoder's [G, T, lanes] inputs as host arrays."""
+    return [convert.to_numpy(a)
+            for a in sqz4_cuda.pack_group_stats(st, "cpu", lanes)]
 
 
 def _data(bs: int) -> bytes:
@@ -857,30 +894,246 @@ def test_decoder_lanes_count_corrupt_lanes_like_plain_version(lanes_lib,
         np.testing.assert_array_equal(a, b)
 
 
+M64 = (1 << 64) - 1
+TOTAL_LIMIT = (1 << 27) + (1 << 14) + 2   # sqz4_div.cuh kTotalLimit
+
+
+def _check_divider(lib, d, rng, nrand):
+    """recip64(d) == (2^64 - 1) // d, and div_by(n, d) == n // d at the
+    edge numerators (0, 1, d - 1, d, d + 1, 2^63, 2^64 - 1, k d and k d - 1
+    for a random k) and ``nrand`` random ones a divisor, against numpy's
+    exact integer //."""
+    m = np.zeros(d.size, np.uint64)
+    lib.host_recip(_ptr(d), d.size, _ptr(m))
+    d64 = d.astype(np.uint64)
+    np.testing.assert_array_equal(m, np.uint64(M64) // d64)
+    k = rng.integers(1, 1 << 63, d.size, dtype=np.uint64) % m + np.uint64(1)
+    nums = [np.zeros_like(d64), np.ones_like(d64), d64 - np.uint64(1), d64,
+            d64 + np.uint64(1), np.full_like(d64, 1 << 63),
+            np.full_like(d64, M64), k * d64, k * d64 - np.uint64(1)]
+    nums += [rng.integers(0, 1 << 64, d.size, dtype=np.uint64)
+             for _ in range(nrand)]
+    nums = np.concatenate(nums)
+    dens = np.tile(d, len(nums) // d.size)
+    q = np.zeros(nums.size, np.uint64)
+    lib.host_div(_ptr(nums), _ptr(dens), nums.size, _ptr(q))
+    np.testing.assert_array_equal(q, nums // dens.astype(np.uint64))
+
+
 def test_divider_is_exact_for_every_model_total(lanes_lib):
     # sqz4_div.cuh: recip64(d) == (2^64 - 1) // d and div_by(n, d) == n // d
-    # for every divisor 1..2^17-1, at the edge numerators and random ones
-    # (a few hundred for a stride of divisors)
+    # for every divisor 1..2^24, at the edge numerators and random ones
+    # (two a divisor, eight below 2^17), in chunks of 2^18 divisors
     rng = np.random.default_rng(17)
-    d_all = np.arange(1, 1 << 17, dtype=np.uint32)
-    m = np.zeros(d_all.size, np.uint64)
-    lanes_lib.host_recip(_ptr(d_all), d_all.size, _ptr(m))
-    np.testing.assert_array_equal(
-        m, np.uint64(0xFFFFFFFFFFFFFFFF) // d_all.astype(np.uint64))
-    d64 = d_all.astype(np.uint64)
-    edge = [np.zeros_like(d64), np.ones_like(d64), d64 - np.uint64(1), d64,
-            d64 + np.uint64(1), np.full_like(d64, 1 << 63),
-            np.full_like(d64, 0xFFFFFFFFFFFFFFFF)]
-    rand = [rng.integers(0, 1 << 64, d64.size, dtype=np.uint64)
-            for _ in range(8)]
-    sd = d_all[::97]
-    nums = np.concatenate(edge + rand + [rng.integers(
-        0, 1 << 64, sd.size * 512, dtype=np.uint64)])
-    dens = np.concatenate([d_all] * (len(edge) + len(rand))
-                          + [np.repeat(sd, 512)])
-    q = np.zeros(nums.size, np.uint64)
-    lanes_lib.host_div(_ptr(nums), _ptr(dens), nums.size, _ptr(q))
-    np.testing.assert_array_equal(q, nums // dens.astype(np.uint64))
+    for lo in range(1, 1 << 24, 1 << 18):
+        d = np.arange(lo, min(lo + (1 << 18), (1 << 24) + 1),
+                      dtype=np.uint32)
+        _check_divider(lanes_lib, d, rng, 8 if lo < 1 << 17 else 2)
+
+
+def test_divider_is_exact_near_every_power_of_two(lanes_lib):
+    # every divisor within 4096 of 2^k, k = 0..32, below 2^32 (the proof's
+    # range; every model total stays below kTotalLimit < 2^28)
+    rng = np.random.default_rng(32)
+    d = np.unique(np.concatenate([
+        np.arange(max(1, (1 << k) - 4096), min((1 << k) + 4097, 1 << 32),
+                  dtype=np.uint64) for k in range(33)])).astype(np.uint32)
+    _check_divider(lanes_lib, d, rng, 8)
+
+
+def test_divider_is_exact_for_random_divisors(lanes_lib):
+    # a million seeded random divisors below 2^32, half of them below the
+    # model-total limit
+    rng = np.random.default_rng(64)
+    d = np.concatenate([rng.integers(1, 1 << 32, 500_000, dtype=np.uint64),
+                        rng.integers(1, TOTAL_LIMIT, 500_000,
+                                     dtype=np.uint64)]).astype(np.uint32)
+    _check_divider(lanes_lib, d, rng, 2)
+
+
+def _ref_dec_op(low, rng, code, stream, freqs):
+    """One op of the reference decoder (sqz_tpu/ops/sqz4_jax.py
+    _decode_scan, FORMAT.md §2.3) in Python integers: the underflow escape
+    where the range is below the total, the divide, the saturated
+    cumulative count, the interval and the renormalization. Returns (low,
+    rng, code, symbol, bad, the next 8 stream bytes, escaped)."""
+    pos = 0
+
+    def take(k):
+        nonlocal pos
+        pos += k
+        return int.from_bytes(stream[pos - k:pos].ljust(k, b"\0"), "big")
+    total = sum(freqs)
+    escaped = rng < total
+    if escaped:
+        code = ((code << 16) | take(2)) & M64
+        low = (low << 16) & M64
+        rng = M64 - low
+    rd = rng // total
+    cum = ((code - low) & M64) // rd
+    bad = cum >= total
+    cum = min(cum, total - 1)
+    csum = np.cumsum(freqs).tolist()
+    sym = next(i for i, c in enumerate(csum) if c > cum)
+    low = (low + (csum[sym] - freqs[sym]) * rd) & M64
+    rng = (freqs[sym] * rd) & M64
+    x = low ^ ((low + rng) & M64)
+    cnt = 8 if x == 0 else (64 - x.bit_length()) // 8
+    if cnt >= 8:
+        code, low, rng = take(8), 0, 0
+    elif cnt:
+        code = ((code << 8 * cnt) | take(cnt)) & M64
+        low = (low << 8 * cnt) & M64
+        rng = (rng << 8 * cnt) & M64
+    return low, rng, code, sym, bad, take(8), escaped
+
+
+@pytest.mark.parametrize("kind", ["binary", "search"])
+def test_decoder_chain_escapes_at_wide_totals(lanes_lib, kind):
+    # model totals past 2^17 up to the limit, from crafted coder states:
+    # half with the range below the total, so that the underflow escape
+    # (ChainDecoder::front) runs, half without; the chain's registers,
+    # symbol, bad flag and stream position equal the reference's
+    rng = np.random.default_rng(5 if kind == "binary" else 6)
+    stream = rng.integers(0, 256, 64, dtype=np.uint8).tobytes()
+    words = np.frombuffer(stream, ">u4").astype(np.uint32)
+    escapes = goods = 0
+    for i in range(400):
+        total = int(rng.integers(1 << 17, TOTAL_LIMIT))
+        if kind == "binary":
+            a = int(rng.integers(1, total))
+            freqs = [a, total - a]
+        else:
+            cut = np.unique(rng.integers(1, total, 255))
+            while cut.size < 255:
+                cut = np.unique(np.concatenate([cut, rng.integers(1, total,
+                                                                  8)]))[:255]
+            freqs = np.diff(np.concatenate([[0], cut, [total]])).tolist()
+        low = int(rng.integers(0, 1 << 64, dtype=np.uint64))
+        if i % 2:
+            r = int(rng.integers(1, total))        # the escape's case
+            if M64 - ((low << 16) & M64) < total:
+                continue                           # no range left after it
+        else:
+            r = int(rng.integers(total, 1 << 64, dtype=np.uint64))
+        # code inside the range, after the escape where it runs
+        span = (M64 - ((low << 16) & M64)) >> 16 if i % 2 else r
+        code = (low + int(rng.integers(0, span, dtype=np.uint64))) & M64
+        if i % 4 == 3:
+            code = int(rng.integers(0, 1 << 64, dtype=np.uint64))
+        want = _ref_dec_op(low, r, code, stream, freqs)
+        state = np.array([low, r, code], np.uint64)
+        out = np.zeros(3, np.uint64)
+        csum = np.cumsum(freqs).astype(np.int32)
+        lanes_lib.host_dec_op(0 if kind == "binary" else 1, freqs[0],
+                              freqs[-1], _ptr(csum), _ptr(words),
+                              words.size, _ptr(state), _ptr(out))
+        got = (*(int(v) for v in state), int(out[0]), bool(out[1]),
+               int(out[2]))
+        assert got == want[:6], (i, got, want)
+        escapes += want[6]
+        goods += not want[4]
+    assert escapes >= 150 and goods >= 150
+
+
+def _ref_encode_stats(ops):
+    """The reference's stats-fed coder (sqz_tpu/ops/sqz4_jax.py
+    _stats_scan and its emission) in Python integers over (start, size,
+    total) ops: (payload bytes, underflow escapes)."""
+    low, rng, out, ufs = 0, M64, bytearray(), 0
+    for st, sz, tt in ops:
+        if tt == 0:
+            continue
+        if sz == 0:                      # flush: the top byte
+            out.append(low >> 56)
+            low = (low << 8) & M64
+            continue
+        q = rng // tt
+        low = (low + st * q) & M64
+        rng = (q * sz) & M64
+        pre = low
+        x = low ^ ((low + rng) & M64)
+        cnt = 8 if x == 0 else (64 - x.bit_length()) // 8
+        low, rng = ((0, 0) if cnt >= 8 else
+                    ((low << 8 * cnt) & M64, (rng << 8 * cnt) & M64))
+        if rng < tt + 1:
+            ufs += 1
+            low = 0 if cnt >= 6 else (pre << (8 * cnt + 16)) & M64
+            rng = M64 - low
+            cnt += 2
+        out += bytes((pre >> (56 - 8 * k)) & 0xFF if k < 8 else 0
+                     for k in range(cnt))
+    return bytes(out), ufs
+
+
+def _escape_ops(total):
+    """Ops of one total that leave the encoder's range below it: each codes
+    a symbol of size 1 whose interval straddles 2^63, so nothing
+    renormalizes and the range shrinks by the total an op."""
+    low, rng, ops = 0, M64, []
+    while rng > total:
+        q = rng // total
+        st = min(((1 << 63) - low) // q, total - 1)
+        ops.append((st, 1, total))
+        low, rng = low + st * q, q
+    return ops
+
+
+def test_stats_encoder_escapes_at_wide_totals(coder_lib):
+    # statistics with totals past 2^17 up to the limit, each lane opening
+    # with two ops that force the underflow escape, then random ops
+    # (flushes and pads among them): the lane bodies equal the plain
+    # version, the reference's stats scan and its arithmetic in Python
+    # integers
+    from sqz_tpu.ops import sqz4_jax
+    rng = np.random.default_rng(9)
+    lanes, T = 4, 600
+    cols = np.zeros((3, lanes, T), np.uint32)
+    ufs = []
+    for b in range(lanes):
+        tot = rng.integers(1 << 17, TOTAL_LIMIT, T)
+        size = rng.integers(1, 1 << 12, T) % tot + 1
+        start = rng.integers(0, 1 << 62, T) % (tot - size + 1)
+        ops = [(int(a), int(z), int(t)) for a, z, t in zip(start, size, tot)]
+        esc = _escape_ops(int(rng.integers(1 << 17, TOTAL_LIMIT)))
+        ops[:len(esc)] = esc
+        for k in rng.choice(np.arange(8, T - 8), 40, replace=False):
+            ops[k] = (0, 0, 1) if k % 2 else (0, 0, 0)
+        ops[T - 8:] = [(0, 0, 1)] * 8
+        cols[:, b] = np.array(ops, np.uint32).T
+        ufs.append(_ref_encode_stats(ops))
+    assert all(u >= 1 for _, u in ufs)
+    packed = [np.ascontiguousarray(c.T[None]) for c in cols]
+    cw = host.cap_words_for(8 * T)
+    got, want = _encode_stats_both(coder_lib, packed, cw)
+    _assert_equal(got, want)
+    pay = host.unpack_group_payloads(*got, lanes)
+    assert pay == [p for p, _ in ufs]
+    jp, jl = sqz4_jax._encode_scan_stats(*(jnp.asarray(c) for c in cols),
+                                         cap=4 * cw)
+    assert [np.asarray(jp)[b, :int(jl[b])].tobytes()
+            for b in range(lanes)] == pay
+
+
+def test_coder_lanes_at_blk_bits_18(lanes_lib):
+    # random bytes in one block of 140,000 (literal flag total past 2^17):
+    # the stats-fed encoder's lane body gives the native payload, and the
+    # decoder's restores it
+    data = corpus.random_bytes(140_000, seed=4)
+    st = host.op_stream_stats(data, 1 << 15, 18)
+    assert int(st[2].max()) > 1 << 17
+    packed = _host_stats(st, 1)
+    cw = host.cap_words_for(2 * len(data) + 4096)
+    words = np.zeros((1, cw, 1), np.uint32)
+    lens = np.zeros((1, 8, 1), np.int32)
+    lanes_lib.host_encode_stats(*map(_ptr, packed), 1, packed[0].shape[1],
+                                1, _ptr(words), cw, _ptr(lens))
+    pay = host.unpack_group_payloads(words, lens, 1)
+    assert pay == [port_native.sqz4_compress_payload(data, 1 << 15)]
+    got, plan, _buf, _meta = _decode_lanes(lanes_lib, pay, [len(data)], 18,
+                                           1)
+    assert b"".join(host.postprocess_decode(*got, pay, [len(data)],
+                                            1 << 18)) == data
 
 
 def test_decoder_binary_test_matches_the_cumulative_count(lanes_lib):
@@ -1063,8 +1316,8 @@ def test_stats_encoder_lanes_equal_plain_version(lanes_lib):
     bs = 1 << blk
     data = _data(bs)
     nb = -(-len(data) // bs)
-    st = host.op_stream_stats(data, 1 << 10, blk, lanes=lanes)
-    packed = sqz4_cuda.pack_group_stats(st, lanes)
+    st = host.op_stream_stats(data, 1 << 10, blk)
+    packed = _host_stats(st, lanes)
     G, T, _ = packed[0].shape
     cw = host.cap_words_for(bs + 2048)
     words = np.zeros((G, cw, lanes), np.uint32)
@@ -1210,8 +1463,7 @@ def test_stats_encoder_warp_codes_parsed_statistics(warp_lib):
     bs = 1 << blk
     data = _data(bs)
     nb = -(-len(data) // bs)
-    packed = sqz4_cuda.pack_group_stats(
-        host.op_stream_stats(data, 1 << 10, blk, lanes=lanes), lanes)
+    packed = _host_stats(host.op_stream_stats(data, 1 << 10, blk), lanes)
     got, want = _encode_stats_both(warp_lib, packed,
                                    host.cap_words_for(bs + 2048))
     _assert_equal(got, want)

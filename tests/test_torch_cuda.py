@@ -1,8 +1,8 @@
 """The CUDA kernels on a card: each equals its plain version (the seeded
 and lit_skip modes too), and the slice round-trips through them, the
 pipeline, warm start, anchored containers, the squeeze format, the
-resident paths, the checkpoint, the mesh of virtual shards and the
-check tools included. Marked
+resident paths, the checkpoint, the mesh of virtual shards, the check
+tools and the route above 64 KiB blocks included. Marked
 ``gpu``; skips without a CUDA device. On a machine with
 one (and without JAX), run:
 
@@ -195,9 +195,8 @@ def test_compaction_tiles_equal_plain_version(cuda, monkeypatch, tile_rows):
 def test_stats_encoder_equals_plain_version(cuda):
     bs = 1 << BLK
     data = corpus.texty(NB * bs, seed=10)
-    st = host.op_stream_stats(data, 1 << 10, BLK, lanes=NB)
-    packed = [convert.to_device(a, cuda)
-              for a in sqz4_cuda.pack_group_stats(st, NB)]
+    st = host.op_stream_stats(data, 1 << 10, BLK)
+    packed = sqz4_cuda.pack_group_stats(st, cuda, NB)
     cw = host.cap_words_for(bs + 2048)
     before = sqz4_cuda.encode_stats.launches
     got = sqz4_cuda.encode_stats(*packed, cw)
@@ -314,6 +313,37 @@ def test_warm_and_anchored_containers_round_trip_on_the_card(cuda):
     for fmt in ("sqz4", "squeeze"):
         blob = sqz_tpu_torch.compress(data, fmt=fmt, warm="anchors", **kw)
         assert sqz_tpu_torch.decompress(blob) == data
+
+
+@pytest.mark.parametrize("warm", [False, True])
+def test_wide_route_round_trips_on_the_card(cuda, warm):
+    # sqz4 above 64 KiB blocks: the stats-fed encoder and the decoder
+    # (seeded for the warm block) on the card, the container equal to the
+    # native copy's exact one
+    data = corpus.texty(1 << 17, seed=3) + corpus.texty(1 << 14, seed=4)
+    kw = dict(blk_bits=17, win_bits=15, parse="exact")
+    enc, blocks = sqz4_cuda.encode_stats.launches, engine.wide_blocks
+    blob = sqz_tpu_torch.compress(data, warm=warm, **kw)
+    res = native.blocks_compress(data, 1, 15, 17, warm=warm)
+    payloads, fresh = res if warm else (res, None)
+    assert blob == container.pack(1, 15, 17, len(data), payloads,
+                                  container.fnv1a64(data), warm=warm,
+                                  fresh_mask=fresh)
+    dec = sqz4_cuda.decode.launches + sqz4_cuda.decode.seeded_launches
+    assert sqz_tpu_torch.decompress(blob) == data
+    assert sqz4_cuda.encode_stats.launches > enc
+    assert sqz4_cuda.decode.launches + sqz4_cuda.decode.seeded_launches > dec
+    assert engine.wide_blocks == blocks + 4
+
+
+def test_wide_route_codes_literal_models_past_two_to_the_17(cuda):
+    # one block of random bytes at blk_bits 18: the literal flag's total
+    # passes 2^17; the payload equals the native one and decodes
+    data = corpus.random_bytes(140_000, seed=4)
+    got = sqz4_cuda.encode_data_stats(data, 18, 1 << 15, True, device=cuda)
+    assert got == [native.sqz4_compress_payload(data, 1 << 15)]
+    assert sqz4_cuda.decode_groups(got, [len(data)], 18, device=cuda,
+                                   lanes=host.group_lanes(1)) == [data]
 
 
 @pytest.mark.parametrize("mode", ["rle", "lz"])

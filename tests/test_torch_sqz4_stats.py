@@ -58,7 +58,7 @@ def test_encode_groups_multi_block_equals_native():
     data = (corpus.texty(5 * 1024, seed=1) + corpus.rle4(2048)
             + corpus.zeros(1024) + corpus.random_bytes(1024, seed=2)
             + corpus.texty(300, seed=3))
-    start, size, total = host.op_stream_stats(data, 1 << 10, blk, lanes=4)
+    start, size, total = host.op_stream_stats(data, 1 << 10, blk)
     got = sqz4_cuda.encode_groups(start, size, total, cap=1024 + 2048,
                                   device="cpu", lanes=4)
     assert got == native.blocks_compress(data, 1, 10, blk)
@@ -72,7 +72,7 @@ def test_flush_reads_as_pad_without_the_total():
     """sqz4_model_stats gives (0, 0, 0) for a flush, which the encoder
     reads as a pad: the flush's byte is then missing."""
     data = corpus.texty(1024, seed=6)
-    start, size, total = host.op_stream_stats(data, 1 << 10, 10, lanes=4)
+    start, size, total = host.op_stream_stats(data, 1 << 10, 10)
     flushes = (start == 0) & (size == 0) & (total == 1)
     assert flushes.any()
     total0 = np.where(flushes, 0, total).astype(np.uint32)
@@ -109,9 +109,8 @@ def test_stats_encoder_equals_op_stream_encoder_words():
     m, s = convert.encoder_inputs(mw, sw, rows, "cpu")
     cw = host.cap_words_for(512 + 2048)
     want = sqz4_ref.encode_full_ref(m, s, cw)
-    st = host.op_stream_stats(data, 1 << 10, blk, lanes=lanes)
-    packed = sqz4_cuda.pack_group_stats(st, lanes)
-    got = sqz4_cuda.encode_stats(*(convert.to_device(a, "cpu")
-                                   for a in packed), cw)
+    st = host.op_stream_stats(data, 1 << 10, blk)
+    got = sqz4_cuda.encode_stats(
+        *sqz4_cuda.pack_group_stats(st, "cpu", lanes), cw)
     for a, b in zip(got, want):
         assert torch.equal(a.view(torch.int32), b.view(torch.int32))

@@ -158,9 +158,9 @@ def test_plain_seeded_encoder_equals_native_seeded_codec():
 
 def test_seed_totals_keep_the_divider_exact():
     # a warm block's model totals: the seed's (at most 2^14 after the
-    # rescale) plus one a coded symbol, at most 2^16 in a 64 KiB block;
-    # they stay below 2^17, where the kernels' divider is exact
-    # (csrc/sqz4_div.cuh)
+    # rescale) plus one a coded symbol, at most bs + 1 in a block of bs
+    # bytes; they stay below kTotalLimit (2^27 + 2^14 + 2 for the widest
+    # block), inside the divider's exact range (csrc/sqz4_div.cuh)
     for block in (corpus.texty(1 << 16, seed=57),
                   corpus.random_bytes(1 << 16, seed=58), corpus.rle4(1 << 16),
                   corpus.zeros(1 << 16), _module_input()):

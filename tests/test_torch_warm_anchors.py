@@ -1,7 +1,7 @@
 """Anchored warm start (sqzt v3, FORMAT.md §3.2) in both formats, corrupt
-warm containers, and sqz4 at ``blk_bits`` above 16 (the host route) in
-the port, against the JAX package's engines (plain PyTorch versions on
-the CPU for the kernels).
+warm containers, and sqz4 at ``blk_bits`` above 16 (the route above
+64 KiB blocks) in the port, against the JAX package's engines (plain
+PyTorch versions on the CPU for the kernels).
 
 Tolerance is zero throughout: containers and restored bytes must be
 equal byte for byte."""
@@ -24,6 +24,7 @@ torch.set_num_threads(1)
 
 BLK, WIN = 10, 10
 BS = 1 << BLK
+WIDE_BYTES = (1 << 17) + (1 << 14)   # two blocks at blk_bits 17
 
 
 def _anchored_input() -> bytes:
@@ -129,21 +130,31 @@ def test_warm_mutants_rejected_like_native_engine():
 
 
 def test_blk_bits_17_takes_the_host_route():
-    data = corpus.texty(300_000, seed=3)
+    # (the name is kept from when a host route served these blocks)
+    # sqz4 at 128 KiB blocks no longer takes a host route: it is the card's
+    # route above 64 KiB (the reference's scan route: exact tokens and model
+    # statistics on the host, the stats-fed encoder, the decoder cold and
+    # seeded), here on the plain versions, counted in engine.wide_blocks.
+    # Two blocks, a full one of pseudo-text and 16 KiB: the plain decoder
+    # steps through every op of the full block.
+    data = corpus.texty(WIDE_BYTES, seed=3)
     kw = dict(fmt="sqz4", blocks=True, blk_bits=17, win_bits=15)
-    before = engine.host_route_blocks
+    before = engine.wide_blocks
     got = sqz_tpu_torch.compress(data, device="cpu", **kw)
-    assert engine.host_route_blocks == before + 3
-    assert len(got) == 38443
+    assert engine.wide_blocks == before + 2
+    assert len(got) == 19073
     assert got == sqz_tpu.compress(data, engine="native", parse="exact",
                                    **kw)
     assert got == sqz_tpu.compress(data, engine="tpu", parse="exact", **kw)
     assert sqz_tpu_torch.decompress(got, device="cpu") == data
     assert sqz_tpu.decompress(got, engine="native") == data
-    assert engine.host_route_blocks == before + 6
-    # warm (v2) and anchored (v3) containers at 128 KiB blocks
+    assert engine.wide_blocks == before + 4
+    # warm (v2; block 1 seeded) and anchored (v3) containers
     warm = sqz_tpu_torch.compress(data, warm=True, device="cpu", **kw)
+    assert sqzt.unpack(warm)[6] == [True, False]
     assert warm == sqz_tpu.compress(data, engine="native", warm=True,
+                                    parse="exact", **kw)
+    assert warm == sqz_tpu.compress(data, engine="tpu", warm=True,
                                     parse="exact", **kw)
     assert sqz_tpu_torch.decompress(warm, device="cpu") == data
     v3 = sqz_tpu.compress(data, engine="native", warm="anchors", **kw)

@@ -7,8 +7,9 @@ Run from the root of a checkout, with no arguments:
 
 Phases (any failure exits non-zero):
   1. environment: torch, card, nvcc, power limit;
-  2. build: the native host runtime (g++) and the CUDA kernels (one nvcc
-     per source), all at once, from the sources in the checkout;
+  2. build: the native host runtime (g++), the CUDA kernels (one nvcc
+     per source) and the token encoder with its phase counters, all at
+     once, from the sources in the checkout;
   3. each kernel on the card against its plain PyTorch version on the
      same inputs (the coders' plain versions on CPU copies of them, each
      in a worker process, side by side), first at 64 blocks of 1 KiB (a
@@ -86,7 +87,11 @@ Phases (any failure exits non-zero):
      seeded decoder's launches over the API calls must be > 0. Both
      kernels are held against their plain versions (in workers) on the
      route's group at 17, the 256 lanes of 128 KiB the timed kernels
-     take;
+     take. Then the widest block: 2^27 + 4096 bytes of the pseudo-text in
+     one block at ``blk_bits`` 28 through ``compress`` / ``decompress``
+     on the card, equal to the native copy's container (made in a worker
+     meanwhile), its times logged; a block above 2^28 bytes must raise
+     ValueError naming engine="native";
  12. the resident paths: 32 MiB of ``synthetic.resident_mix`` (512 blocks
      of 64 KiB: sparse float32 weights, periodic content, repeated cells,
      pseudo-text, random bytes, a short last block), uploaded once as a
@@ -108,7 +113,15 @@ Phases (any failure exits non-zero):
      matches off the cell grid): equal blocks and bad flags. The lit_skip
      kernel is held against its plain version (in a worker) at the rle
      path's shape, and, on the rle and the lz tokens, against the cold
-     kernel on the same tokens with the literals compacted on the host;
+     kernel on the same tokens with the literals compacted on the host.
+     Then lit_skip at the checkpoint's shape: the first group of phase
+     13's stream against its plain version (in a worker) and the cold
+     kernel on compacted literals, its first three groups in one launch
+     (as the save hands them over) equal to one launch a group, and on
+     that group and the resident mix's rle group the coder warp's and
+     the producer warp's split in SM cycles (the token encoder built with
+     its phase counters, ``scripts/tok_timeline.py``) and the ns and SM
+     cycles a coded op of the longest lane;
  13. the checkpoint path: the AdamW training state of GPT-2 small (124M,
      its published shapes; 1.49 GB of fp32 parameters and moments made on
      the card from a seed) through ``utils.checkpoint.save_pytree``
@@ -186,6 +199,12 @@ WIDE_RANDOM_BITS = 18
 WIDE_WARM_BITS = 17
 WIDE_ONE_BITS = 24
 WIDE_PLAIN_BITS = 17
+# phase 11's widest block: one block just over 2^27 bytes at blk_bits 28
+# (the kernels' and the JAX package's limit), its native container made
+# in a worker beside the card's round trip
+HUGE_BITS = 28
+HUGE_BYTES = (1 << 27) + 4096
+HUGE_SEED = 5
 STATS_BITS = 14   # the stats-fed encoder's full-size blocks (16 KiB)
 # the synthetic streams' most ops a block, at 64 x 1 KiB and at the full
 # shapes (kept short: the plain versions step once an op; the kernels take
@@ -280,8 +299,20 @@ def environment():
     return card
 
 
+# the token encoder built with its phase counters (scripts/tok_timeline.py)
+TIMELINE = {}
+
+
+def tok_timeline():
+    """scripts/tok_timeline.py as a module."""
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    import tok_timeline as tt
+    return tt
+
+
 def build():
-    """The native runtime and the CUDA kernels, built at once."""
+    """The native runtime, the CUDA kernels and the token encoder with its
+    phase counters, built at once."""
     from sqz_tpu_torch import native
     from sqz_tpu_torch.ops import _build
     t = time.perf_counter()
@@ -293,8 +324,12 @@ def build():
         except BaseException as e:           # reported below
             errors.append(e)
 
+    def clocks(force):
+        TIMELINE.update(tok_timeline().build(
+            [("clocks", str(_build.CSRC), [], True)]))
+
     threads = [threading.Thread(target=run, args=(fn,))
-               for fn in (native.build, _build.build)]
+               for fn in (native.build, _build.build, clocks)]
     for th in threads:
         th.start()
     for th in threads:
@@ -1547,6 +1582,173 @@ def wide_path(data, pool):
     return launches, out, checks
 
 
+def huge_native(seed):
+    """In a worker: (the native copy's exact container of the phase's one
+    block, seconds)."""
+    from sqz_tpu_torch.utils import corpus
+    data = corpus.texty(HUGE_BYTES, seed=seed)
+    t = time.perf_counter()
+    blob = wide_ref(data, HUGE_BITS)
+    return blob, time.perf_counter() - t
+
+
+def huge_block_path(pool):
+    """Phase 11's widest block: 2^27 + 4096 bytes of the pseudo-text in one
+    block at blk_bits 28 through ``compress`` / ``decompress`` on the card
+    (one lane of the route above 64 KiB), equal to the native copy's
+    container, which a worker makes meanwhile; the route's counter and both
+    kernels' launches > 0; a block above 2^28 bytes raises ValueError
+    naming engine="native". Returns the e2e numbers."""
+    import torch
+    import sqz_tpu_torch
+    from sqz_tpu_torch.ops import engine
+    from sqz_tpu_torch.utils import corpus
+    fut = pool.submit(huge_native, HUGE_SEED)
+    data = corpus.texty(HUGE_BYTES, seed=HUGE_SEED)
+    reset_launches()
+    engine.wide_blocks = 0
+    blob, enc_s, dec_s = wide_round_trip(data, HUGE_BITS)
+    launches = read_launches()
+    torch.cuda.empty_cache()
+    if engine.wide_blocks < 1 or launches.get("sqz4_encode_stats", 0) < 1 \
+            or launches.get("sqz4_decode", 0) < 1:
+        raise AssertionError(f"blk_bits {HUGE_BITS}: blocks "
+                             f"{engine.wide_blocks}, launches {launches}")
+    try:
+        sqz_tpu_torch.compress(bytes((1 << HUGE_BITS) + 1),
+                               blk_bits=HUGE_BITS + 1,
+                               win_bits=MAIN_WIN_BITS)
+    except ValueError as e:
+        if 'engine="native"' not in str(e):
+            raise AssertionError(f"a block above 2^{HUGE_BITS}: {e}")
+        log(f"a block of 2^{HUGE_BITS} + 1 bytes raises: {e}")
+    else:
+        raise AssertionError(f"a block above 2^{HUGE_BITS} bytes was coded")
+    ref, native_s = fut.result()
+    if blob != ref:
+        raise AssertionError(f"blk_bits {HUGE_BITS} container differs from "
+                             f"the native copy's")
+    mb = len(data) / 1e6
+    log(f"sqz4 blk_bits {HUGE_BITS}, one block of {len(data)} B: card enc "
+        f"{enc_s:.3f} s ({mb / enc_s:.2f} MB/s) dec {dec_s:.3f} s "
+        f"({mb / dec_s:.2f} MB/s), launches {launches}; the native copy's "
+        f"container (a worker) {native_s:.3f} s, equal; ratio "
+        f"{len(blob) / len(data):.4f}")
+    return {"huge28_card_enc_MBps": mb / enc_s,
+            "huge28_card_dec_MBps": mb / dec_s,
+            "huge28_native_enc_s": native_s}
+
+
+def ckpt_stream(dev, nbytes):
+    """The first ``nbytes`` of the stream ``save_pytree`` codes for GPT-2
+    small's AdamW state (phase 13's), on the card."""
+    import torch
+    from sqz_tpu_torch.utils import checkpoint
+    state = gpt2_small_state(dev)
+    stream = checkpoint.filtered_stream(state, device=dev)[0][:nbytes]
+    stream = stream.clone()
+    del state
+    torch.cuda.empty_cache()
+    return stream
+
+
+def lit_skip_split(rows):
+    """The coder's and the producer's split (tok_timeline.split) of one
+    launch of the counting build on ``rows`` (toks, blocks, t_max,
+    cap_words)."""
+    import numpy as np
+    tt = tok_timeline()
+    lib = TIMELINE["clocks"]
+    st = tt.clocks(lib, rows, lib.threads)
+    return tt.split(st, np.arange(st.shape[0]))
+
+
+def lit_skip_figures(pool, card, mix):
+    """Phase 12's lit_skip figures at its two shapes, one 512-lane group of
+    64 KiB blocks each: the checkpoint's first group (phase 13's stream)
+    against its plain version (in a worker) and against the cold kernel
+    on host-compacted literals, the first three groups in one launch (the
+    save's launches) equal to one launch a group; then, on that group and
+    on the resident mix's rle group (``mix``, a CUDA tensor), the coder
+    warp's and the producer warp's split in SM cycles (the counting
+    build), and ns and SM cycles a coded op of the longest lane. Returns
+    (the checkpoint group's PlainCheck, its bound entries, figures)."""
+    import torch
+    from sqz_tpu_torch import convert
+    from sqz_tpu_torch.ops import sqz4_cuda, sqz4_ref
+    tt = tok_timeline()
+    dev = torch.device("cuda")
+    groups = 3
+    stream = ckpt_stream(dev, groups << (MAIN_BITS + 9))
+    ck3 = tt.rle_rows(stream, groups)
+    del stream
+    toks, blocks = ck3[0][:1].contiguous(), ck3[1][:1].contiguous()
+    ck1 = (toks, blocks, ck3[2], ck3[3])
+    chk = PlainCheck(pool, sqz4_cuda.encode_tok, sqz4_ref.encode_tok_ref,
+                     (toks, blocks, ck3[2], ck3[3], True), REPS)
+    cold = sqz4_cuda.encode_tok(
+        toks, sqz4_ref.skip_literal_rows(toks, blocks).to(dev), ck3[2],
+        ck3[3])
+    if max_abs_err(chk.got, cold):
+        raise AssertionError("lit_skip differs from the cold mode on the "
+                             "checkpoint group's compacted literals")
+    # three groups a launch, as the save hands them over
+    w3, l3 = sqz4_cuda.encode_tok(*ck3[:4], lit_skip=True)
+    ms3 = events_ms(lambda: sqz4_cuda.encode_tok(*ck3[:4], lit_skip=True),
+                    REPS)
+    for g in range(groups):
+        one = sqz4_cuda.encode_tok(ck3[0][g:g + 1].contiguous(),
+                                   ck3[1][g:g + 1].contiguous(), ck3[2],
+                                   ck3[3], lit_skip=True)
+        if max_abs_err([w3[g:g + 1], l3[g:g + 1]], one):
+            raise AssertionError(f"checkpoint group {g} differs between "
+                                 f"one launch a group and three a launch")
+    del w3, l3
+    toks_np = convert.to_numpy(toks)
+    lens_np = convert.to_numpy(chk.got[1])
+    extra = bound(toks.numel() * 4 + tok_literal_bytes(toks_np)
+                  + int(lens_np[:, 0].sum()) + lens_np.nbytes,
+                  tok_symbols(toks_np) * OPS_PER_SYMBOL) + (None,)
+    mix1 = tt.rle_rows(mix, 1)
+    sm, mx = sm_clock_under_load(
+        lambda: sqz4_cuda.encode_tok(*mix1[:4], lit_skip=True))
+    fig = {"lit_skip_ckpt_group_ms": chk.ms,
+           "lit_skip_ckpt_3groups_ms": ms3,
+           "lit_skip_ckpt_ms_a_group_at_3": ms3 / groups}
+    for name, rows in (("mix_rle", mix1), ("ckpt", ck1), ("ckpt_x3", ck3)):
+        sp = lit_skip_split(rows)
+        top = sp["longest"]
+        c = top["coder"]
+        ms = chk.ms if name == "ckpt" else ms3 if name == "ckpt_x3" else \
+            events_ms(lambda: sqz4_cuda.encode_tok(*mix1[:4], lit_skip=True),
+                      REPS)
+        ns = ms * 1e6 / max(c["ops"], 1)
+        fig.update({f"lit_skip_{name}_coder_wait_share":
+                    c["wait"] / top["coder_total"],
+                    f"lit_skip_{name}_coder_code_share":
+                    c["code"] / top["coder_total"],
+                    f"lit_skip_{name}_code_cycles_per_op":
+                    top["code_cycles_per_op"],
+                    f"lit_skip_{name}_producer_fill_cycles_per_op":
+                    top["producer_fill_cycles_per_op"],
+                    f"lit_skip_{name}_ns_per_op": ns,
+                    f"lit_skip_{name}_cycles_per_op": ns * sm / 1e3})
+        log(f"lit_skip split, {name} ({rows[0].shape[0]} x 512 lanes; the "
+            f"longest lane, {int(c['ops'])} ops; {card}): coder wait "
+            f"{100 * c['wait'] / top['coder_total']:.2f}% code "
+            f"{100 * c['code'] / top['coder_total']:.2f}% hand "
+            f"{100 * c['hand'] / top['coder_total']:.2f}%, "
+            f"{top['code_cycles_per_op']:.1f} SM cycles a coded op in the "
+            f"coder; producer fill {top['producer_fill_cycles_per_op']:.1f} "
+            f"cycles an op; kernel {ms:.3f} ms, {ns:.1f} ns "
+            f"({ns * sm / 1e3:.1f} cycles at {sm:.0f} MHz, max {mx:.0f}) a "
+            f"coded op of the longest lane")
+    log(f"lit_skip at the checkpoint's first group (512 x 64 KiB; {card}): "
+        f"{chk.ms:.3f} ms, bound {extra[0]:.4f} ms by {extra[1]}; three "
+        f"groups in one launch {ms3:.3f} ms ({ms3 / groups:.3f} ms a group)")
+    return chk, extra, fig
+
+
 def cell_check(pool, blob):
     """The cell assembly kernel against its plain version (in a worker of
     ``pool``, see PlainCheck) on the decoder's outputs of the first group
@@ -1773,7 +1975,7 @@ def resident_path(card, texty, fblob, pool):
          for m, st in enc_st.items()}) + "; decode " + json.dumps(
         {m: {k: round(v, 4) for k, v in st.items()}
          for m, st in dec_st.items()}))
-    return launches, fig, (chk, extra), cell
+    return launches, fig, (chk, extra), cell, x
 
 
 # phase 13: the training state of GPT-2 small (124M) at its published
@@ -2345,8 +2547,14 @@ def main() -> int:
         _wlaunches, wide_e2e, wide_checks = wide_path(data, pool)
         we2e.update(wide_e2e)
         t = time.perf_counter()
-        rlaunches, re2e, (rchk, rextra), cell = resident_path(
+        we2e.update(huge_block_path(pool))
+        log(f"blk_bits {HUGE_BITS} phase: {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        rlaunches, re2e, (rchk, rextra), cell, mix = resident_path(
             card, data, fblob, pool)
+        kchk, kextra, kfig = lit_skip_figures(pool, card, mix)
+        del mix
+        we2e.update(kfig)
         for k in ("sqz4_encode_tok_lit_skip", "sqz4_cell_assembly"):
             launches[k] = rlaunches[k]
         we2e.update(re2e)
@@ -2355,6 +2563,11 @@ def main() -> int:
         full = kernels_vs_plain(data, MAIN_BITS, MAIN_WIN_BITS,
                                 sqz4_host.LANES, REPS, STATS_BITS, pool)
         full["sqz4_encode_tok_lit_skip"] = rchk.result() + rextra
+        kres = kchk.result() + kextra
+        we2e.update(lit_skip_ckpt_group_plain_ms=kres[2],
+                    lit_skip_ckpt_group_bound_ms=kres[3])
+        log(f"lit_skip at the checkpoint's first group equals its plain "
+            f"version (plain {kres[2]:.1f} ms, err {kres[0]})")
         for k, chk in wide_checks.items():
             # the kernel's time is phase 11's: this one's events can
             # span the host's pickling of the inputs for the worker

@@ -8,13 +8,14 @@ Run from the root of a checkout, on a machine with a card and nvcc:
 
     python3 scripts/chain_variants.py            # every variant
     python3 scripts/chain_variants.py dec dec-nostore
-    python3 scripts/chain_variants.py --base DIR tok@256 dec
+    python3 scripts/chain_variants.py --base DIR tok dec
 
 ``--base DIR`` also builds each named variant from the sources of the
 checkout at DIR (for example the parent commit, unpacked with ``git
 archive``) and times it beside this checkout's as ``base:<name>``, in
 turns (base, this, this, base): for kernels whose launcher has the same
-signature and launch geometry there (the token encoder's; the decoder's
+signature and launch geometry there (the token encoder's gangs, 160
+threads a CTA, since PR 14; the decoder's
 in checkouts whose launcher takes the seed column, as this one's does;
 and variants whose substitutions name files that checkout has), and for
 the bit-packer and the compaction, whose first designs (one thread a
@@ -62,6 +63,8 @@ STATS_BITS = 14
 # the coder warp codes no op and records no byte: the producers alone
 NOCODE = (PAIR, "c.code(total, start, size, m, r.pre + i, r.cnt + i);",
           "r.cnt[i] = 0;")
+# threads a CTA of the token encoder: one gang (csrc/sqz4_pair.cuh)
+GANG = 160
 
 # name: (source, threads a CTA (the bit-packer and the compaction: rows
 #        a tile), blocks of the group launched, [(file, old, new)])
@@ -90,22 +93,21 @@ VARIANTS = {
     # the compaction: 32 lanes x 128 or 64 rows a tile
     "compact": (COMPACT, 128, 512, []),
     "compact@64": (COMPACT, 64, 512, []),
-    "tok@256": (TOK, 256, 512, []),
-    "tok@64": (TOK, 64, 512, []),
-    "tok@32": (TOK, 32, 512, []),
-    # half the blocks: one coder warp a scheduler at 64 threads a CTA
-    "tok@64-half": (TOK, 64, 256, []),
+    # the token encoder's gangs (four blocks a coder warp)
+    "tok": (TOK, GANG, 512, []),
+    # half the blocks: one gang on 64 of the SMs
+    "tok-half": (TOK, GANG, 256, []),
     # the producer warps alone: the coder codes no op and records no byte
-    "tok@256-nocode": (TOK, 256, 512, [NOCODE]),
+    "tok-nocode": (TOK, GANG, 512, [NOCODE]),
     # the producer turns no record into bytes
-    "tok@256-noemit": (TOK, 256, 512, [
+    "tok-noemit": (TOK, GANG, 512, [
         (PAIR, "e.put(r.pre, r.cnt, r.n + r.flushes);", "")]),
     # the coder's quotient by `/` (the software u64 divide)
-    "tok@256-udiv": (TOK, 256, 512, [
+    "tok-udiv": (TOK, GANG, 512, [
         (CHAIN, "const u64 qe = mulhi64(rng, m);",
          "const u64 qe = rng / total;")]),
     # the settled bytes by compares instead of a leading-zero count
-    "tok@256-cmp": (TOK, 256, 512, [
+    "tok-cmp": (TOK, GANG, 512, [
         (CHAIN, "const int c = lead_zero_bytes(lo ^ (lo + rg));", """int c = 0;
         SQZ_UNROLL()
         for (int k = 1; k < 8; ++k)

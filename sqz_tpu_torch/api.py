@@ -417,7 +417,8 @@ def compress_resident(data, blk_bits: int = 16, mode: str = "rle",
     cell parse) or 'lz' (the device LZ matcher, ``ops/lzparse.py``).
     Only the payload bytes come back from the card; ``checksum`` hashes
     the input on the host (a download for a tensor), so it is off by
-    default. ``lanes``: blocks per kernel launch (default 512).
+    default. ``lanes``: blocks a lane group (default 512); 'lit' and
+    'rle' hand the kernel ``resident.LAUNCH_GROUPS`` groups a launch.
 
     ``mesh`` (a ``parallel.mesh.Mesh``): blocks shard over its devices
     and every shard parses and codes its own blocks

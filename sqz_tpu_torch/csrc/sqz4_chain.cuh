@@ -396,6 +396,17 @@ struct Stager {
         }
     }
 
+    // Past whole chunks that no read needs (idx's chunk more than one
+    // ahead of the window): load idx's chunk now, for the next ensure()
+    // to commit, and stage none of the chunks between.
+    SQZ_DEVICE void skip_to(int idx) {
+        const int c = idx / kStage;
+        if (c > hi + 1) {
+            hi = c - 1;
+            fetch(c);
+        }
+    }
+
     SQZ_DEVICE T at(int idx) const { return buf[idx % (2 * kStage)]; }
 
     SQZ_DEVICE T get(int idx) {

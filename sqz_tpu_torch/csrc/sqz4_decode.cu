@@ -31,8 +31,10 @@
 // the reference's scan decoder, sqz_tpu/ops/sqz4_jax.py:_decode_scan).
 // The models' counts and the reciprocal windows' totals are int32 / u32
 // and every total stays below kTotalLimit, where recip64 is exact; the
-// stream positions, t_max and the counts are int32 and the array offsets
-// 64-bit; a match record keeps len << 16 | dist, the distance bounded by
+// step budget t_max = 9 * bs + 64 and the step counter are uint32 (at
+// 2^28 bytes the budget is 2,415,919,168, past int32), the stream
+// positions and the other counts int32 and the array offsets 64-bit;
+// counts row 5 holds the steps' low 32 bits; a match record keeps len << 16 | dist, the distance bounded by
 // the window (2^15), not by the block. The underflow escape (ChainDecoder
 // ::front) fires about once in 2^56 / total symbols, so more often as
 // totals grow; tests/test_torch_csrc_host.py reaches it from crafted
@@ -267,7 +269,7 @@ struct ChainDecoder {
 // array are `lanes` elements apart. Every lane of the warp decodes the
 // same block; lane 0 stores.
 SQZ_DEVICE void decode_lane(const uint32_t* payload, int pw,
-                            const int32_t* meta, int lanes, int t_max,
+                            const int32_t* meta, int lanes, uint32_t t_max,
                             const int32_t* seed, uint32_t* lit, int lw,
                             uint32_t* tok, int tw, uint32_t* mrec, int mw,
                             int32_t* counts, DecSmem* sm) {
@@ -282,8 +284,8 @@ SQZ_DEVICE void decode_lane(const uint32_t* payload, int pw,
     dec.code = dec.src.take(8);
 
     int state = kFlag, psize = 0, pbits = 0, pdist = 0, bitpos = 0;
-    int optr = 0, nlit = 0, ntok = 0, nmatch = 0, err = 0, t = 0;
-    uint32_t litw = 0, tokw = 0;
+    int optr = 0, nlit = 0, ntok = 0, nmatch = 0, err = 0;
+    uint32_t t = 0, litw = 0, tokw = 0;
     for (; t < t_max && state < kDone; ++t) {
         // ---- op 1: flag | bits | distance bit
         bool bad1 = false;
@@ -403,7 +405,7 @@ SQZ_DEVICE void decode_lane(const uint32_t* payload, int pw,
     counts[2 * lanes] = ntok;
     counts[3 * lanes] = nmatch;
     counts[4 * lanes] = (err == 0 && state < kDone) ? kEIlseq : err;
-    counts[5 * lanes] = t;
+    counts[5 * lanes] = static_cast<int32_t>(t);
     counts[6 * lanes] = nmatch > mw;
     counts[7 * lanes] = state;
 }
@@ -419,7 +421,7 @@ template <bool kSeeded>
 __global__ void __launch_bounds__(32)
 sqz4_decode_kernel(const uint32_t* __restrict__ payload,
                                    const int32_t* __restrict__ meta,
-                                   int pw, int lanes, int t_max,
+                                   int pw, int lanes, uint32_t t_max,
                                    const int32_t* __restrict__ seed,
                                    uint32_t* __restrict__ lit, int lw,
                                    uint32_t* __restrict__ tok, int tw,
@@ -440,10 +442,11 @@ sqz4_decode_kernel(const uint32_t* __restrict__ payload,
 // payload: [groups, pw, lanes] u32; meta: [groups, 8, lanes] i32; lit,
 // tok, mrec: [groups, lw | tw | mw, lanes] u32; counts: [groups, 8, lanes]
 // i32. seed: null (cold) or kSeedWords i32 (every block starts warm from
-// it). threads: 32 (a warp per block). Launches on `stream`; returns the
+// it). t_max: the step budget, unsigned. threads: 32 (a warp per block). Launches on `stream`; returns the
 // cudaError_t of the launch.
 extern "C" int sqz4_decode_launch(const void* payload, const void* meta,
-                                  int groups, int pw, int lanes, int t_max,
+                                  int groups, int pw, int lanes,
+                                  unsigned t_max,
                                   void* lit, int lw, void* tok, int tw,
                                   void* mrec, int mw, void* counts,
                                   const void* seed, int threads,

@@ -11,14 +11,16 @@
 //     = mulhi64(n, m) + div_up(n, d, mulhi64(n, m))
 //
 // The totals these functions meet. The widest block the kernels take is
-// 2^kMaxBlockBits bytes: the decoder's step budget t_max = 9 * bs + 64
-// (ops/sqz4_host.py plan_decode_dispatch) and its counts, the meta rows
-// and the coders' row indices and byte counts are int32. A model total
+// 2^kMaxBlockBits bytes, the JAX package's own limit (its scan decoder's
+// int32 step budget): the decoder's step budget t_max = 9 * bs + 64
+// (ops/sqz4_host.py plan_decode_dispatch) is uint32 there, below 2^32;
+// its counts, the meta rows and the coders' row indices and byte counts
+// are int32, and each stays below 2^30 at 2^28 bytes. A model total
 // starts at 256 at most (cold) or 2^14 at most (a warm seed, rescaled),
 // and grows by one a coded symbol of that model; a block of bs bytes codes
 // at most bs + 1 symbols with one model (the literal flag: one a token
 // plus the end of stream). So every total is below kTotalLimit =
-// 2^kMaxBlockBits + 2^14 + 2 < 2^28, and both functions are exact for
+// 2^kMaxBlockBits + 2^14 + 2 < 2^29, and both functions are exact for
 // every divisor 1 <= d < 2^32, which holds it with room.
 //
 // Why div_by is exact, for any d >= 1: m*d lies in [2^64 - d, 2^64 - 1],
@@ -60,7 +62,7 @@ typedef unsigned long long u64;
 
 // the widest block the kernels take, and the bound of every model total
 // in it (see above)
-constexpr int kMaxBlockBits = 27;
+constexpr int kMaxBlockBits = 28;
 constexpr uint32_t kTotalLimit = (1u << kMaxBlockBits) + (1u << 14) + 2;
 
 // floor(a * b / 2^64)

@@ -110,8 +110,9 @@ def library() -> ctypes.CDLL:
             lib.sqz4_encode_launch.argtypes = [p, p, i, i, i, p, i, p, p, i,
                                                i, p]
             lib.sqz4_decode_launch.restype = i
-            lib.sqz4_decode_launch.argtypes = [p, p, i, i, i, i, p, i, p, i,
-                                               p, i, p, p, i, p]
+            # t_max unsigned: 9 * 2^28 + 64 steps pass int32
+            lib.sqz4_decode_launch.argtypes = [p, p, i, i, i, ctypes.c_uint,
+                                               p, i, p, i, p, i, p, p, i, p]
             lib.sqz4_encode_tok_launch.restype = i
             lib.sqz4_encode_tok_launch.argtypes = [p, i, p, i, i, i, i, p, i,
                                                    p, i, i, p]

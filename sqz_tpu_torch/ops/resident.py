@@ -57,6 +57,11 @@ RLE_DISTS = (1, 2, 4, 8, 16, 32, 64, 128)
 route_lanes = {"cell": 0, "general": 0, "host": 0}
 _route_lock = threading.Lock()
 LZ_LANES = 512   # most blocks a device-LZ launch codes
+# Lane groups a launch of the lit and rle encodes: three groups of 512
+# blocks fill the token kernel's gangs on the card at once (three gangs of
+# four blocks an SM, 132 SMs: 1,584 blocks; csrc/sqz4_encode_tok.cu). The
+# payloads and their order are those of one launch a group.
+LAUNCH_GROUPS = 3
 # The resident paths' blocks, 2^1 .. 2^16 bytes: the reference's resident
 # range (sqz_tpu/api.py:285), whose cell and LZ layouts are sized for it.
 RESIDENT_BLK_BITS = 16
@@ -237,25 +242,37 @@ def rle_group_args(blk_bits: int) -> dict:
                 cap_words=host.cap_words_for(bs + 2048))
 
 
+def in_groups(x, groups: int):
+    """[groups * B, ...] rows (or [1, groups * B, ...]) -> [groups, B,
+    ...], a view: the token kernel's group axis."""
+    x = x.reshape(-1, *x.shape[-1:]) if x.dim() > 2 else x
+    return x.view(groups, x.shape[0] // groups, *x.shape[1:])
+
+
 def encode_literal_group(blocks, lengths, Tt: int, t_max: int,
-                         cap_words: int, st=None):
-    """One lane group, literal-only: raw [B, bs] u8 blocks and their
-    valid lengths [B] -> (payload words uint32 [1, cap_words, B], lens
-    int32 [1, 8, B]) from the cold token kernel. ``st``
-    (launch.Stages) marks parse_s before the kernel."""
-    toks = to_u32(_tokens_from_lengths(lengths, Tt))[None].contiguous()
+                         cap_words: int, st=None, groups: int = 1):
+    """``groups`` lane groups, literal-only: raw [groups * B, bs] u8
+    blocks and their valid lengths [groups * B] -> (payload words uint32
+    [groups, cap_words, B], lens int32 [groups, 8, B]) from one launch of
+    the cold token kernel. ``st`` (launch.Stages) marks parse_s before
+    the kernel."""
+    toks = to_u32(_tokens_from_lengths(lengths, Tt)).contiguous()
     mark(st, "parse_s")
-    return sqz4_cuda.encode_tok(toks, blocks[None], t_max, cap_words)
+    return sqz4_cuda.encode_tok(in_groups(toks, groups),
+                                in_groups(blocks, groups), t_max, cap_words)
 
 
-def encode_rle_group(blocks, lengths, Tt: int, cap_words: int, st=None):
-    """One lane group through the cell parse and the lit_skip token
-    kernel over the raw blocks; the pair budget is the longest lane's
-    count (one int read back)."""
+def encode_rle_group(blocks, lengths, Tt: int, cap_words: int, st=None,
+                     groups: int = 1):
+    """``groups`` lane groups through the cell parse and one launch of
+    the lit_skip token kernel over the raw blocks; the pair budget is the
+    longest lane's count (one int read back): a lane codes the same ops
+    under any budget it does not reach."""
     toks, pairs = rle_plan_device(blocks, lengths, Tt)
     t_max = int(pairs.max())
     mark(st, "parse_s")
-    return sqz4_cuda.encode_tok(toks, blocks[None], t_max, cap_words,
+    return sqz4_cuda.encode_tok(in_groups(toks, groups),
+                                in_groups(blocks, groups), t_max, cap_words,
                                 lit_skip=True)
 
 
@@ -294,9 +311,10 @@ def _prep_blocks(data, blk_bits: int, lanes: int, dev):
 
 def resident_coder(blk_bits: int, mode: str, lanes: int = None):
     """The group coder of a resident encode: (coder, its sizes, blocks a
-    launch). ``mode`` 'rle' takes blocks smaller than a cell and 'lz'
-    blocks smaller than a parse segment literal-only; 'lz' codes at most
-    LZ_LANES blocks a launch (``lanes`` default ``sqz4_host.LANES``)."""
+    group, groups a launch). ``mode`` 'rle' takes blocks smaller than a
+    cell and 'lz' blocks smaller than a parse segment literal-only; 'lz'
+    codes at most LZ_LANES blocks a launch (``lanes`` default
+    ``sqz4_host.LANES``), lit and rle LAUNCH_GROUPS groups."""
     from sqz_tpu_torch.ops import lzparse
     check_resident_blk_bits(blk_bits)
     if mode not in ("lit", "rle", "lz"):
@@ -313,24 +331,28 @@ def resident_coder(blk_bits: int, mode: str, lanes: int = None):
                    "rle": (encode_rle_group, rle_group_args),
                    "lz": (lzparse.encode_lz_group, lzparse.lz_group_args)
                    }[mode]
-    return group, args(blk_bits), lanes
+    return group, args(blk_bits), lanes, 1 if mode == "lz" else LAUNCH_GROUPS
 
 
 def encode_rows(data, blk_bits: int, coder, dev, st=None):
     """``data`` (bytes or a uint8 tensor) -> one payload per block through
-    ``coder`` (``resident_coder``'s triple), a launch per group of its
-    lanes, the payloads fetched group by group (compacted on the card by
-    SQZ_FETCH's default)."""
-    group, gargs, lanes = coder
+    ``coder`` (``resident_coder``'s tuple), a launch per ``per`` groups of
+    its lanes, the payloads fetched group by group (compacted on the card
+    by SQZ_FETCH's default)."""
+    group, gargs, lanes, per = coder
     blocks, lengths, nb = _prep_blocks(data, blk_bits, lanes, dev)
     payloads: list = []
-    for g0 in range(0, blocks.shape[0], lanes):
-        words, lens = group(blocks[g0:g0 + lanes], lengths[g0:g0 + lanes],
-                            st=st, **gargs)
+    step = lanes * per
+    for g0 in range(0, blocks.shape[0], step):
+        rows = blocks[g0:g0 + step]
+        G = rows.shape[0] // lanes
+        words, lens = group(rows, lengths[g0:g0 + step], st=st, groups=G,
+                            **gargs)
         mark(st, "kernel_s")
-        payloads += sqz4_cuda.fetch_payloads(words, lens,
-                                             min(lanes, nb - g0),
-                                             sqz4_cuda.fetch_mode())
+        for g in range(G):
+            payloads += sqz4_cuda.fetch_payloads(
+                words[g:g + 1], lens[g:g + 1],
+                min(lanes, nb - g0 - g * lanes), sqz4_cuda.fetch_mode())
         mark(st, "fetch_s")
     return payloads
 

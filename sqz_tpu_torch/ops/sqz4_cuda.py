@@ -45,25 +45,29 @@ STATS_THREADS = 256
 # Threads per CTA (one block each) of the decoder: a warp whose lanes run
 # the block's chain together (csrc/sqz4_decode.cu).
 DECODE_THREADS = 32
-# Threads per CTA of the token encoder (csrc/sqz4_encode_tok.cu): four
-# blocks a CTA, each a coder warp beside a producer warp (token expansion,
-# models, reciprocals, byte placement), one coder on each of an SM's
-# schedulers. It measured fastest of 256, 64 and 32 (one warp doing both
-# in turn); scripts/chain_variants.py times them (PERF.md).
-TOK_THREADS = 256
+# Threads per CTA of the token encoder (csrc/sqz4_encode_tok.cu): one
+# gang, four producer warps (token expansion, models, reciprocals, byte
+# placement), one a block, and a coder warp whose lanes code the four
+# blocks side by side (csrc/sqz4_pair.cuh); three gangs fit an SM. At one
+# block a scheduler it runs as the pairs of four warps a CTA before it
+# did; at three it has 2.1-2.4x their throughput (scripts/tok_timeline.py,
+# PERF.md).
+TOK_THREADS = 160
 # Rows of a compaction tile (csrc/sqz4_compact.cu: 32 lanes x this many
 # rows staged in shared memory; the launcher takes 64 or 128, and 128
 # measured faster: scripts/chain_variants.py, PERF.md).
 COMPACT_ROWS = 128
 
 
-# The widest block the kernels take (csrc/sqz4_div.cuh kMaxBlockBits):
-# the decoder's step budget t_max = 9 * bs + 64 and its counts are int32,
-# and so are the coders' row indices and byte counts. A model total
-# starts at most at 2^14 (a warm seed) and grows by one a coded symbol,
-# at most bs + 1 of them a block, so every total stays below 2^28, inside
-# the range where the divider is exact (every divisor below 2^32).
-MAX_BLOCK_BITS = 27
+# The widest block the kernels take (csrc/sqz4_div.cuh kMaxBlockBits),
+# the JAX package's own (its scan decoder's int32 step budget): the
+# decoder's step budget t_max = 9 * bs + 64 is unsigned 32-bit, below
+# 2^32 there; its counts and the coders' row indices and byte counts are
+# int32, below 2^30. A model total starts at most at 2^14 (a warm seed)
+# and grows by one a coded symbol, at most bs + 1 of them a block, so
+# every total stays below 2^29, inside the range where the divider is
+# exact (every divisor below 2^32).
+MAX_BLOCK_BITS = 28
 # The engine's 64 KiB main path (the op-stream, token and pipelined
 # encoders, the reference's Pallas path) takes blocks up to 2^16 bytes;
 # above, sqzt containers take the stats-fed route (``encode_data_stats``,
@@ -83,7 +87,8 @@ def check_block_bytes(nbytes: int):
     """Raise for a block wider than the kernels take (MAX_BLOCK_BITS)."""
     if nbytes > 1 << MAX_BLOCK_BITS:
         raise ValueError(f"sqz4 blocks of {nbytes} bytes exceed the "
-                         f"kernels' 2^{MAX_BLOCK_BITS}")
+                         f"kernels' 2^{MAX_BLOCK_BITS}; such containers "
+                         f"take engine=\"native\"")
 
 
 def _seed_arg(seed, dev):
@@ -219,6 +224,7 @@ def encode_tok(toks: torch.Tensor, lits: torch.Tensor, t_max: int,
 
 encode_tok.launches = 0
 encode_tok.lit_skip_launches = 0
+
 
 
 def encode_stats(start: torch.Tensor, size: torch.Tensor,

@@ -165,12 +165,12 @@ def encode_resident_sharded(data, blk_bits: int, mesh: Mesh,
     and codes its own blocks on its device, ``lanes`` (default 512) blocks
     a launch."""
     check_mesh(mesh)
-    group, gargs, width = resident.resident_coder(blk_bits, mode, lanes)
+    group, gargs, width, per = resident.resident_coder(blk_bits, mode, lanes)
     bs = 1 << blk_bits
     flat, n = _flat(data)
     nb = max(1, -(-n // bs))
     width, ranges = shard_ranges(nb, mesh.size, width)
-    coder = (group, gargs, width)
+    coder = (group, gargs, width, per)
 
     def work(i, dev):
         a, b = _local_ranges(mesh, ranges)[i]

@@ -273,7 +273,8 @@ extern "C" void host_encode(const uint32_t* m, const uint32_t* s, int G,
 }
 
 extern "C" void host_decode(const uint32_t* p, const int32_t* meta, int G,
-                            int pw, int B, int t_max, const int32_t* seed,
+                            int pw, int B, unsigned t_max,
+                            const int32_t* seed,
                             uint32_t* lit, int lw, uint32_t* tok, int tw,
                             uint32_t* mrec, int mw, int32_t* counts) {
     std::unique_ptr<sqz4::DecSmem> sm(new sqz4::DecSmem);
@@ -286,18 +287,19 @@ extern "C" void host_decode(const uint32_t* p, const int32_t* meta, int G,
                               counts + g * 8 * B + b, sm.get());
 }
 
+// the token encoder's gangs (kGang blocks each) in turn, one warp each
 extern "C" void host_encode_tok(const uint32_t* toks, int TT,
                                 const uint8_t* lits, int L, int G, int B,
                                 int t_max, uint32_t* words, int cw,
                                 int32_t* lens, int lit_skip) {
-    std::unique_ptr<sqz4::TokSmem> sm(new sqz4::TokSmem);
-    auto lane = lit_skip ? sqz4::encode_tok_lane<true>
-                         : sqz4::encode_tok_lane<false>;
-    for (long long g = 0; g < G; ++g)
-        for (long long b = 0; b < B; ++b)
-            lane(toks + (g * B + b) * TT, TT, lits + (g * B + b) * L, L,
-                 t_max, B, words + g * cw * B + b, cw, lens + g * 8 * B + b,
-                 sm.get(), sqz4::kRoleBoth, 0);
+    std::unique_ptr<sqz4::TokSmem[]> sm(new sqz4::TokSmem[sqz4::kGang]);
+    const sqz4::TokGang gg{toks, TT, lits, L, G * B, B, t_max, words, cw,
+                           lens};
+    auto run = lit_skip ? sqz4::encode_tok_run<true>
+                        : sqz4::encode_tok_run<false>;
+    for (long long n0 = 0; n0 < static_cast<long long>(G) * B;
+         n0 += sqz4::kGang)
+        run(gg, n0, sm.get());
 }
 
 extern "C" void host_recip(const uint32_t* d, long long n,
@@ -529,24 +531,24 @@ extern "C" void host_encode_stats(const uint32_t* st, const uint32_t* sz,
             });
 }
 
+// the token encoder's gangs (kGang blocks each) in turn, one warp each
 extern "C" void host_encode_tok(const uint32_t* toks, int TT,
                                 const uint8_t* lits, int L, int G, int B,
                                 int t_max, uint32_t* words, int cw,
                                 int32_t* lens, int lit_skip) {
-    std::unique_ptr<sqz4::TokSmem> sm(new sqz4::TokSmem);
-    auto lane = lit_skip ? sqz4::encode_tok_lane<true>
-                         : sqz4::encode_tok_lane<false>;
-    for (long long g = 0; g < G; ++g)
-        for (long long b = 0; b < B; ++b)
-            on_warp([&] {
-                lane(toks + (g * B + b) * TT, TT, lits + (g * B + b) * L, L,
-                     t_max, B, words + g * cw * B + b, cw,
-                     lens + g * 8 * B + b, sm.get(), sqz4::kRoleBoth, 0);
-            });
+    std::unique_ptr<sqz4::TokSmem[]> sm(new sqz4::TokSmem[sqz4::kGang]);
+    const sqz4::TokGang gg{toks, TT, lits, L, G * B, B, t_max, words, cw,
+                           lens};
+    auto run = lit_skip ? sqz4::encode_tok_run<true>
+                        : sqz4::encode_tok_run<false>;
+    for (long long n0 = 0; n0 < static_cast<long long>(G) * B;
+         n0 += sqz4::kGang)
+        on_warp([&] { run(gg, n0, sm.get()); });
 }
 
 extern "C" void host_decode(const uint32_t* p, const int32_t* meta, int G,
-                            int pw, int B, int t_max, const int32_t* seed,
+                            int pw, int B, unsigned t_max,
+                            const int32_t* seed,
                             uint32_t* lit, int lw, uint32_t* tok, int tw,
                             uint32_t* mrec, int mw, int32_t* counts) {
     std::unique_ptr<sqz4::DecSmem> sm(new sqz4::DecSmem);
@@ -581,7 +583,8 @@ def _build(tmp_path_factory, name, source, std):
 def _coder_argtypes(lib):
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.host_encode.argtypes = [p, p, i, i, i, p, i, p, i, p]
-    lib.host_decode.argtypes = [p, p, i, i, i, i, p, p, i, p, i, p, i, p]
+    lib.host_decode.argtypes = [p, p, i, i, i, ctypes.c_uint, p, p, i, p, i,
+                                p, i, p]
     lib.host_encode_tok.argtypes = [p, i, p, i, i, i, i, p, i, p, i]
     lib.host_encode_stats.argtypes = [p, p, p, i, i, i, p, i, p]
     return lib
@@ -659,14 +662,17 @@ def test_encoder_lanes_equal_plain_version(lanes_lib, paired):
             == native.blocks_compress(data, 1, 10, blk))
 
 
-def _decode_lanes(lib, payloads, sizes, blk, lanes, seed=None, dlen=0):
+def _decode_lanes(lib, payloads, sizes, blk, lanes, seed=None, dlen=0,
+                  t_max=None):
     """The decoder's lane bodies on payloads: ([lit, tok, mrec, counts] in
-    the kernel's layouts, the plan, the packed buffer and meta)."""
+    the kernel's layouts, the plan, the packed buffer and meta); ``t_max``
+    overrides the plan's step budget."""
     plan = host.plan_decode_dispatch(len(payloads), blk, lanes=lanes)
     buf, meta = host.pack_decode_chunk(payloads, sizes, lanes, plan["G"],
                                        plan["Pw"], dlen)
     G, pw = plan["G"], plan["Pw"]
-    lw, tw, mw, t_max = plan["lw"], plan["tw"], plan["mw"], plan["t_max"]
+    lw, tw, mw = plan["lw"], plan["tw"], plan["mw"]
+    t_max = plan["t_max"] if t_max is None else t_max
     got = [np.zeros((G, n, lanes), np.uint32) for n in (lw, tw, mw)]
     got.append(np.zeros((G, 8, lanes), np.int32))
     lib.host_decode(_ptr(buf), _ptr(meta), G, pw, lanes, t_max,
@@ -701,6 +707,27 @@ def test_decoder_lanes_equal_plain_version(lanes_lib):
         np.testing.assert_array_equal(a, b)
     outs = host.postprocess_decode(*got, payloads, sizes, bs)
     assert b"".join(outs) == data
+
+
+def test_decoder_lanes_take_a_budget_past_int32(lanes_lib):
+    # the step budget of a 2^28-byte block, 9 * 2^28 + 64, passes int32:
+    # the kernel's budget and step counter are unsigned, and a small block
+    # under it decodes to the same streams and counts as under its own
+    blk, lanes = 10, 4
+    bs = 1 << blk
+    data = _data(bs)
+    payloads = native.blocks_compress(data, 1, 10, blk)
+    sizes = [len(data[o:o + bs]) for o in range(0, len(data), bs)]
+    wide = 9 * (1 << 28) + 64
+    assert wide > 1 << 31
+    got = _decode_lanes(lanes_lib, payloads, sizes, blk, lanes,
+                        t_max=wide)[0]
+    own = _decode_lanes(lanes_lib, payloads, sizes, blk, lanes)[0]
+    for a, b in zip(got, own):
+        np.testing.assert_array_equal(a, b)
+    assert got[3][:, 5].max() > 0
+    assert b"".join(host.postprocess_decode(*got, payloads, sizes,
+                                            bs)) == data
 
 
 def test_decoder_lanes_flag_corrupt_streams_like_plain_version(lanes_lib):
@@ -770,6 +797,8 @@ def _tok_inputs(data, blk, lanes, lz=True):
 
 
 def _encode_tok_both(lib, tt, lt, t_max, cw, lit_skip=False):
+    """The token encoder's lane bodies (its gangs) and its plain version on
+    the same rows."""
     G, lanes = tt.shape[:2]
     words = np.zeros((G, cw, lanes), np.uint32)
     lens = np.zeros((G, 8, lanes), np.int32)
@@ -852,6 +881,61 @@ def test_lit_skip_lanes_stop_at_the_pair_budget(lanes_lib, cut):
             np.testing.assert_array_equal(a, b)
 
 
+def _mix_rows(parse, nb, blk, seed):
+    """The resident mix's raw blocks (five lane kinds, the last block a
+    third long) with the cell parse's (rle) or the device LZ parse's (lz)
+    token rows, made on the CPU: (toks [1, nb, Tt], raw [1, nb, bs], the
+    longest row's pairs, valid lengths [nb])."""
+    from sqz_tpu_torch.ops import lzparse
+    blocks, lengths, _ = resident._prep_blocks(
+        synthetic.resident_mix(nb, blk, seed=seed), blk, nb, "cpu")
+    if parse == "rle":
+        toks, pairs = resident.rle_plan_device(
+            blocks, lengths, resident.rle_group_args(blk)["Tt"])
+    else:
+        toks, pairs, _ = lzparse.lz_plan_device(
+            blocks, lengths, lzparse.lz_group_args(blk)["Tt"])
+    return (toks.view(torch.int32).numpy().view(np.uint32),
+            blocks[None].numpy(), int(pairs.max()), lengths.numpy())
+
+
+@pytest.mark.parametrize("parse", ["rle", "lz"])
+@pytest.mark.parametrize("harness", ["lanes", "warp"])
+def test_lit_skip_lanes_code_every_resident_lane_kind(request, harness,
+                                                      parse):
+    # lit_skip over the resident mix's raw blocks (sparse weights, periods
+    # whose match cells skip whole 256-byte literal chunks, repeated
+    # cells, pseudo-text, random bytes; ten lanes: gangs of four, four and
+    # two): equal to the plain version, to the cold mode on the compacted
+    # literals, and decoded by the native copy to the block; a lane with
+    # no match is the native copy's literal-only payload
+    lib = request.getfixturevalue(f"{harness}_lib")
+    blk, nb = 11, 10
+    tt, raw, mx, lengths = _mix_rows(parse, nb, blk, seed=11)
+    cw = host.cap_words_for((1 << blk) + 2048)
+    got, want = _encode_tok_both(lib, tt, raw, mx, cw, lit_skip=True)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+    lits = sqz4_ref.skip_literal_rows(
+        torch.from_numpy(tt.view(np.int32)).view(torch.uint32),
+        torch.from_numpy(raw)).numpy()
+    cold, _ = _encode_tok_both(request.getfixturevalue("lanes_lib"), tt,
+                               lits, mx, cw)
+    for a, b in zip(got, cold):
+        np.testing.assert_array_equal(a, b)
+    payloads = host.unpack_group_payloads(*got, nb)
+    t = tt[0].astype(np.int64)
+    matched = (((t >> 8) & 1) == 1) & ((t & 0xFF) != 255)
+    assert matched.any(1).sum() >= 4
+    for b in range(nb):
+        block = raw[0, b, :lengths[b]].tobytes()
+        assert port_native.sqz4_decompress_payload(
+            payloads[b], len(block)) == block
+        if not matched[b].any():
+            assert payloads[b] == port_native.sqz4_compress_payload(
+                block, 1 << 15, lz=False)
+
+
 def test_decoder_lanes_decode_literal_heavy_blocks(lanes_lib):
     blk, lanes = 10, 4
     bs = 1 << blk
@@ -895,7 +979,7 @@ def test_decoder_lanes_count_corrupt_lanes_like_plain_version(lanes_lib,
 
 
 M64 = (1 << 64) - 1
-TOTAL_LIMIT = (1 << 27) + (1 << 14) + 2   # sqz4_div.cuh kTotalLimit
+TOTAL_LIMIT = (1 << 28) + (1 << 14) + 2   # sqz4_div.cuh kTotalLimit
 
 
 def _check_divider(lib, d, rng, nrand):
@@ -933,7 +1017,7 @@ def test_divider_is_exact_for_every_model_total(lanes_lib):
 
 def test_divider_is_exact_near_every_power_of_two(lanes_lib):
     # every divisor within 4096 of 2^k, k = 0..32, below 2^32 (the proof's
-    # range; every model total stays below kTotalLimit < 2^28)
+    # range; every model total stays below kTotalLimit < 2^29)
     rng = np.random.default_rng(32)
     d = np.unique(np.concatenate([
         np.arange(max(1, (1 << k) - 4096), min((1 << k) + 4097, 1 << 32),
@@ -1488,7 +1572,8 @@ def test_token_encoder_warp_equals_plain_version(warp_lib, cut):
 @pytest.mark.parametrize("cut", [0, 9, -2])
 def test_lit_skip_warp_equals_plain_version(warp_lib, cut):
     # the lit_skip lanes on a warp of 32 host threads (the 32-literal
-    # windows split over the lanes after each jump)
+    # windows split over the lanes after each jump; a gang's coder lanes
+    # on threads of their own, five blocks: a gang and one of one block)
     tt, lt, mx = _skip_inputs(5, 11, 5, seed=6)
     got, want = _encode_tok_both(warp_lib, tt, lt,
                                  mx + cut if cut <= 0 else cut,

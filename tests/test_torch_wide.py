@@ -119,21 +119,21 @@ def test_decompress_range_at_blk_bits_17(warm):
 
 
 def test_block_limit_is_named():
-    # the widest block the kernels take (csrc/sqz4_div.cuh kMaxBlockBits):
-    # int32 step budgets and counts
-    assert sqz4_cuda.MAX_BLOCK_BITS == 27
-    assert 9 * (1 << sqz4_cuda.MAX_BLOCK_BITS) + 64 < 1 << 31
-    sqz4_cuda.check_block_bytes(1 << 27)
-    with pytest.raises(ValueError, match="2\\^27"):
-        sqz4_cuda.check_block_bytes((1 << 27) + 1)
+    # the widest block the kernels take (csrc/sqz4_div.cuh kMaxBlockBits),
+    # the JAX package's own: an unsigned 32-bit step budget, int32 counts
+    assert sqz4_cuda.MAX_BLOCK_BITS == 28
+    assert 1 << 31 < 9 * (1 << sqz4_cuda.MAX_BLOCK_BITS) + 64 < 1 << 32
+    sqz4_cuda.check_block_bytes(1 << 28)
+    with pytest.raises(ValueError, match='2\\^28.*engine="native"'):
+        sqz4_cuda.check_block_bytes((1 << 28) + 1)
     # a wider block raises the limit on compress and on decompress before
     # any coding (such containers take engine="native")
-    data = bytes(1 << 27) + b"x"
-    with pytest.raises(ValueError, match="2\\^27"):
-        sqz_tpu_torch.compress(data, device="cpu", **_kw(28))
+    data = bytes(1 << 28) + b"x"
+    with pytest.raises(ValueError, match="2\\^28"):
+        sqz_tpu_torch.compress(data, device="cpu", **_kw(29))
     del data
-    blob = sqzt.pack(1, WIN, 28, (1 << 27) + 1, [b"\0" * 16])
-    with pytest.raises(ValueError, match="2\\^27"):
+    blob = sqzt.pack(1, WIN, 29, (1 << 28) + 1, [b"\0" * 16])
+    with pytest.raises(ValueError, match="2\\^28"):
         sqz_tpu_torch.decompress(blob, device="cpu")
     with pytest.raises(ValueError, match="blk_bits <= 16"):
         sqz4_cuda.encode_data_full(b"x" * 10, 17, 1 << WIN, True, 4096,

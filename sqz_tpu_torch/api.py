@@ -42,7 +42,7 @@ from sqz_tpu_torch.formats.anchors import plan_anchored
 from sqz_tpu_torch.formats.constants import (SQZT_FORMAT_SQUEEZE,
                                              SQZT_FORMAT_SQZ4,
                                              warm_dictionary, warm_gate_mask)
-from sqz_tpu_torch.ops.launch import resolve_device
+from sqz_tpu_torch.ops.launch import CONTAINER, resolve_device
 
 
 class Format(str, enum.Enum):
@@ -204,7 +204,8 @@ def compress(data: bytes, fmt: Format | str = Format.SQZ4,
             raise ValueError("torch engine requires blocks=True (sqzt "
                              "container)")
         return _compress_raw(data, fmt, engine, win_bits, lz)
-    parts = sqzt.split_blocks(data, blk_bits)
+    with CONTAINER.stage("split"):
+        parts = sqzt.split_blocks(data, blk_bits)
     warm = warm if len(parts) > 1 else False
     code = SQZT_FORMAT_SQUEEZE if fmt is Format.SQUEEZE else SQZT_FORMAT_SQZ4
     dev = resolve_device(device) if engine is Engine.TORCH else None
@@ -222,10 +223,12 @@ def compress(data: bytes, fmt: Format | str = Format.SQZ4,
             res = _compress_host_blocks(parts, fmt, engine, win_bits, lz,
                                         bool(warm), blk_bits, parse)
         payloads, fresh_mask = res if warm else (res, None)
-    csum = sqzt.fnv1a64(data) if checksum else None
-    return sqzt.pack(code, win_bits, blk_bits, len(data), payloads, csum,
-                     warm=bool(warm), fresh_mask=fresh_mask,
-                     anchor_mask=anchor_mask)
+    with CONTAINER.stage("checksum"):
+        csum = sqzt.fnv1a64(data) if checksum else None
+    with CONTAINER.stage("pack"):
+        return sqzt.pack(code, win_bits, blk_bits, len(data), payloads,
+                         csum, warm=bool(warm), fresh_mask=fresh_mask,
+                         anchor_mask=anchor_mask)
 
 
 def _compress_raw(data: bytes, fmt: Format, engine: Engine, win_bits: int,
@@ -312,10 +315,11 @@ def decompress(blob: bytes, fmt: Optional[Format | str] = None,
         if engine is Engine.TORCH:
             raise ValueError("torch engine requires an sqzt container")
         return _decompress_raw(blob, fmt, engine)
-    code, win_bits, blk_bits, osize, payloads, csum, fresh, anch = \
-        sqzt.unpack(blob)
+    with CONTAINER.stage("unpack"):
+        code, win_bits, blk_bits, osize, payloads, csum, fresh, anch = \
+            sqzt.unpack(blob)
+        sizes = _block_sizes(osize, blk_bits, len(payloads))
     fmt = Format.SQUEEZE if code == SQZT_FORMAT_SQUEEZE else Format.SQZ4
-    sizes = _block_sizes(osize, blk_bits, len(payloads))
     if engine is Engine.TORCH:
         dev = resolve_device(device)
         from sqz_tpu_torch.ops import engine as torch_engine
@@ -336,8 +340,9 @@ def decompress(blob: bytes, fmt: Optional[Format | str] = None,
     else:
         data = b"".join(_decode_one(p, n, fmt, engine)
                         for p, n in zip(payloads, sizes))
-    if csum is not None and sqzt.fnv1a64(data) != csum:
-        raise ValueError("sqzt checksum mismatch (EILSEQ)")
+    with CONTAINER.stage("checksum"):
+        if csum is not None and sqzt.fnv1a64(data) != csum:
+            raise ValueError("sqzt checksum mismatch (EILSEQ)")
     return data
 
 

@@ -49,7 +49,7 @@ from sqz_tpu_torch.formats.constants import (SQZT_FORMAT_SQUEEZE,
                                              SQZT_FORMAT_SQZ4,
                                              warm_dictionary, warm_gate_mask)
 from sqz_tpu_torch.formats.container import resolve_anchors
-from sqz_tpu_torch.ops import pipeline, sqz4_cuda, squeeze_cuda
+from sqz_tpu_torch.ops import launch, pipeline, sqz4_cuda, squeeze_cuda
 from sqz_tpu_torch.ops.sqz4_host import LANES, group_lanes, parse_mode
 
 # sqz4 blocks above 64 KiB (sqz4_cuda.MAIN_BLK_BITS) that the stats-fed
@@ -187,7 +187,8 @@ def compress_blocks(parts: Sequence[bytes], fmt: int, win_bits: int,
     fresh_mask)."""
     if any(len(p) != 1 << blk_bits for p in parts[:-1]):
         raise ValueError("every block but the last must be full")
-    data = b"".join(parts)
+    with launch.CONTAINER.stage("join"):
+        data = b"".join(parts)
     warm = warm and len(parts) > 1
     if fmt == SQZT_FORMAT_SQUEEZE:
         return _squeeze_blocks(parts, data, win_bits, lz, blk_bits, warm,
@@ -228,7 +229,8 @@ def _warm_scatter(payloads, sizes, fresh_mask, anchor_mask, decode_batch,
                              [sizes[b] for b in idx], seed, dictionary, idx)
         for b, blk in zip(idx, batch):
             outs[b] = blk
-    return b"".join(outs)
+    with launch.CONTAINER.stage("join"):
+        return b"".join(outs)
 
 
 def decompress_blocks(payloads: Sequence[bytes], sizes: Sequence[int],
@@ -275,7 +277,9 @@ def decompress_blocks(payloads: Sequence[bytes], sizes: Sequence[int],
             return decode(pls, szs, blk_bits, device=device, seed=seed,
                           dictionary=dictionary, block_ids=ids)
     if not warm:
-        return b"".join(decode_batch(payloads, sizes, None, b"",
-                                     list(range(len(payloads)))))
+        outs = decode_batch(payloads, sizes, None, b"",
+                            list(range(len(payloads))))
+        with launch.CONTAINER.stage("join"):
+            return b"".join(outs)
     return _warm_scatter(payloads, sizes, fresh_mask, anchor_mask,
                          decode_batch, decode_anchor, win_bits)

@@ -1,14 +1,17 @@
 """Launch plumbing shared by the kernel wrappers (``sqz4_cuda``,
 ``squeeze_cuda``) and the entry points: the requested device, input
 checks, the device that picks kernel or plain version, zeroed outputs,
-the launch status check and per-stage host timing."""
+the launch status check, and the host stages of a call (profiler
+ranges and host timing)."""
 
 from __future__ import annotations
 
+import contextlib
 import threading
 import time
 
 import torch
+from torch.autograd import profiler as _profiler
 
 _count_lock = threading.Lock()
 
@@ -64,21 +67,62 @@ def count(wrapper, attr: str = "launches"):
 
 
 class Stages:
-    """Host wall time per stage into ``stats`` (seconds, accumulated;
-    nothing is kept or waited for when ``stats`` is None). A mark waits
-    for the caller's current stream only, so a mesh's shards on other
-    streams of the device run on."""
+    """The host stages of one call in the layer ``layer``: ``stage(name)``
+    opens the profiler range ``sqz.<layer>.<name>`` while a profile is
+    being recorded (``torch.profiler``), so that the trace puts the card's
+    idle gaps under the stage that held it back, and adds the stage's host
+    wall seconds to ``stats["<name>_s"]`` when a ``stats`` dict was given
+    (accumulated). With neither, a stage costs one flag read.
 
-    def __init__(self, stats, dev):
+    A timed stage waits for the current stream of ``sync`` (a CUDA device;
+    None: it does not wait) before it reads the clock, so the device work
+    it queued counts in it; a mesh's shards on other streams of the device
+    run on. The profiler ranges never wait."""
+
+    def __init__(self, layer: str, stats: dict = None, sync=None):
+        self.layer = layer
         self.stats = stats
-        self.dev = dev
-        self.t = time.perf_counter()
+        self.sync = sync if sync is not None and \
+            torch.device(sync).type == "cuda" else None
 
-    def mark(self, name: str):
-        if self.stats is None:
-            return
-        if self.dev.type == "cuda":
-            torch.cuda.current_stream(self.dev).synchronize()
-        now = time.perf_counter()
-        self.stats[name] = self.stats.get(name, 0.0) + now - self.t
-        self.t = now
+    def stage(self, name: str):
+        """A context manager around the stage ``name``."""
+        if self.stats is None and not _profiler._is_profiler_enabled:
+            return _NO_STAGE
+        return _Stage(self, name)
+
+
+class _Stage:
+    __slots__ = ("owner", "name", "span", "t0")
+
+    def __init__(self, owner: Stages, name: str):
+        self.owner = owner
+        self.name = name
+        self.span = None
+
+    def __enter__(self):
+        if _profiler._is_profiler_enabled:
+            self.span = torch.profiler.record_function(
+                f"sqz.{self.owner.layer}.{self.name}")
+            self.span.__enter__()
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        st = self.owner
+        if st.stats is not None and exc[0] is None:
+            if st.sync is not None:
+                torch.cuda.current_stream(st.sync).synchronize()
+            key = f"{self.name}_s"
+            st.stats[key] = st.stats.get(key, 0.0) + time.perf_counter() \
+                - self.t0
+        if self.span is not None:
+            self.span.__exit__(*exc)
+        return False
+
+
+_NO_STAGE = contextlib.nullcontext()
+
+# the sqzt container's stages around the codec (``api.compress`` /
+# ``decompress``, the joins of blocks in ``engine``; profiler ranges only)
+CONTAINER = Stages("container")

@@ -32,7 +32,8 @@ from __future__ import annotations
 
 import torch
 
-from sqz_tpu_torch.ops.resident import (_cols, mark, run_decoder,
+from sqz_tpu_torch.ops import launch
+from sqz_tpu_torch.ops.resident import (SPANS, _cols, run_decoder,
                                         words_to_bytes)
 
 I64 = torch.int64
@@ -140,16 +141,17 @@ def token_bits_read(counts, tw: int) -> int:
     return min(tw * 32, max(1024, 1 << (max_ntok + 1).bit_length()))
 
 
-def decode_lz_group(buf, plens, sizes, dargs: dict, bs: int, st=None):
+def decode_lz_group(buf, plens, sizes, dargs: dict, bs: int,
+                    st: launch.Stages = SPANS):
     """Resident decode of any sqz4 payloads: the decoder kernel, then the
     general assembly. Same contract as ``resident.decode_rle_group``:
-    ([B, bs] u8 blocks, counts [1, 8, B], bad [B]); ``st`` marks kernel_s
-    and general_s."""
-    lit, tok, mrec, counts = run_decoder(buf, plens, sizes, dargs)
-    mark(st, "kernel_s")
-    T = token_bits_read(counts, dargs["tw"])
-    blocks, bad = _assemble_stage(_cols(lit), _cols(tok), _cols(mrec),
-                                  _cols(counts), sizes, T,
-                                  min(dargs["mw"], T), bs)
-    mark(st, "general_s")
+    ([B, bs] u8 blocks, counts [1, 8, B], bad [B]); ``st`` times and names
+    the stages kernel and general."""
+    with st.stage("kernel"):
+        lit, tok, mrec, counts = run_decoder(buf, plens, sizes, dargs)
+    with st.stage("general"):
+        T = token_bits_read(counts, dargs["tw"])
+        blocks, bad = _assemble_stage(_cols(lit), _cols(tok), _cols(mrec),
+                                      _cols(counts), sizes, T,
+                                      min(dargs["mw"], T), bs)
     return blocks, counts, bad

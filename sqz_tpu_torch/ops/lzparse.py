@@ -31,10 +31,10 @@ from __future__ import annotations
 
 import torch
 
-from sqz_tpu_torch.ops import sqz4_cuda, sqz4_host as host
-from sqz_tpu_torch.ops.resident import (EOS_TOKEN, _round_up,
+from sqz_tpu_torch.ops import launch, sqz4_cuda, sqz4_host as host
+from sqz_tpu_torch.ops.resident import (EOS_TOKEN, SPANS, _round_up,
                                         _tokens_from_lengths, bit_length,
-                                        in_groups, mark)
+                                        in_groups)
 from sqz_tpu_torch.ops.sqz4_ref import M32, to_u32
 
 I64 = torch.int64
@@ -225,15 +225,16 @@ def lz_group_args(blk_bits: int) -> dict:
                 cap_words=host.cap_words_for(bs + 2048))
 
 
-def encode_lz_group(blocks, lengths, Tt: int, cap_words: int, st=None,
-                    groups: int = 1):
+def encode_lz_group(blocks, lengths, Tt: int, cap_words: int,
+                    st: launch.Stages = SPANS, groups: int = 1):
     """``groups`` lane groups through the device parse and one launch of
     the lit_skip token kernel over the raw blocks -> (words, lens); the
     pair budget is the longest lane's count (one int read back). ``st``
-    marks parse_s."""
-    toks, pairs, _dem = lz_plan_device(blocks, lengths, Tt)
-    t_max = int(pairs.max())
-    mark(st, "parse_s")
-    return sqz4_cuda.encode_tok(in_groups(toks, groups),
-                                in_groups(blocks, groups), t_max, cap_words,
-                                lit_skip=True)
+    times and names the stages parse and kernel."""
+    with st.stage("parse"):
+        toks, pairs, _dem = lz_plan_device(blocks, lengths, Tt)
+        t_max = int(pairs.max())
+    with st.stage("kernel"):
+        return sqz4_cuda.encode_tok(in_groups(toks, groups),
+                                    in_groups(blocks, groups), t_max,
+                                    cap_words, lit_skip=True)

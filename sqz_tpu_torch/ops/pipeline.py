@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from sqz_tpu_torch import convert, native
-from sqz_tpu_torch.ops import sqz4_cuda, sqz4_host as host
+from sqz_tpu_torch.ops import launch, sqz4_cuda, sqz4_host as host
 
 
 def _transport(parse: str, transport: str) -> str:
@@ -81,15 +81,18 @@ def encode_data_pipelined(data: bytes, blk_bits: int, window: int, lz: bool,
     (blocks over it take the op-stream kernel); SQZ_FAST_DEPTH and
     SQZ_FETCH as in ``sqz4_cuda``.
 
-    ``stats`` (optional dict) gets the active wall seconds of each stage:
-    plan_s (planner thread), wait_plan_s (main thread waiting for a plan),
-    dispatch_s (uploads and kernel launches), fence_s (waiting for the
-    kernel), fetch_s (payload download and unpacking) and wall_s. The
-    stages overlap: a sum above wall_s measures the overlap."""
-    st = stats if stats is not None else {}
-    for k in ("plan_s", "wait_plan_s", "dispatch_s", "fence_s", "fetch_s"):
-        st[k] = 0.0
-    t_wall = time.perf_counter()
+    ``stats`` (optional dict) gets the active wall seconds of each stage
+    (the stages ``sqz.pipeline.<stage>`` of a profile): plan_s (planner
+    thread), wait_plan_s (main thread waiting for a plan), dispatch_s
+    (uploads and kernel launches), fence_s (waiting for the kernel),
+    fetch_s (payload download and unpacking) and wall_s. The stages
+    overlap: a sum above wall_s measures the overlap. No stage waits for
+    the card: the fence is where the main thread does."""
+    if stats is not None:
+        stats.update(dict.fromkeys(("plan_s", "wait_plan_s", "dispatch_s",
+                                    "fence_s", "fetch_s"), 0.0))
+        t_wall = time.perf_counter()
+    st = launch.Stages("pipeline", stats)
     sqz4_cuda.check_main_blk_bits(blk_bits)
     dev = torch.device(device)
     parse = host.parse_mode(parse)
@@ -110,15 +113,14 @@ def encode_data_pipelined(data: bytes, blk_bits: int, window: int, lz: bool,
             for g in range(groups):
                 if stop.is_set():
                     break
-                t0 = time.perf_counter()
-                chunk = data[g * gbytes:(g + 1) * gbytes]
-                if transport == "tok":
-                    plan = sqz4_cuda.plan_tok_group(chunk, blk_bits, window,
-                                                    lz, tok_cap, pin)
-                else:
-                    plan = _plan_ops(chunk, blk_bits, window, lz, parse,
-                                     lanes, pin)
-                st["plan_s"] += time.perf_counter() - t0
+                with st.stage("plan"):
+                    chunk = data[g * gbytes:(g + 1) * gbytes]
+                    if transport == "tok":
+                        plan = sqz4_cuda.plan_tok_group(
+                            chunk, blk_bits, window, lz, tok_cap, pin)
+                    else:
+                        plan = _plan_ops(chunk, blk_bits, window, lz, parse,
+                                         lanes, pin)
                 q.put((chunk, plan))
         except BaseException as e:           # surface planner errors
             q.put(e)
@@ -135,9 +137,8 @@ def encode_data_pipelined(data: bytes, blk_bits: int, window: int, lz: bool,
     try:
         with torch.cuda.stream(stream):
             while True:
-                t0 = time.perf_counter()
-                item = q.get()
-                st["wait_plan_s"] += time.perf_counter() - t0
+                with st.stage("wait_plan"):
+                    item = q.get()
                 if item is None:
                     break
                 if isinstance(item, BaseException):
@@ -161,19 +162,20 @@ def encode_data_pipelined(data: bytes, blk_bits: int, window: int, lz: bool,
                 pass
         raise
     thread.join()
-    st["wall_s"] = time.perf_counter() - t_wall
+    if stats is not None:
+        stats["wall_s"] = time.perf_counter() - t_wall
     return payloads
 
 
 def _encode_ops_group(plan, chunk: bytes, blk_bits: int, cap: int, dev,
-                      fetch: str, st: dict) -> List[bytes]:
+                      fetch: str, st: launch.Stages) -> List[bytes]:
     """One planned group of op streams through the op-stream kernel."""
     nb = max(1, -(-len(chunk) // (1 << blk_bits)))
-    t = time.perf_counter()
-    m, s = (x.to(dev, non_blocking=True).view(torch.uint32) for x in plan)
-    words, lens = sqz4_cuda.encode_full(m, s, host.cap_words_for(cap))
-    t = sqz4_cuda.add_stage(st, "dispatch_s", t)
-    return sqz4_cuda.collect_group(words, lens, nb, fetch, st, t)
+    with st.stage("dispatch"):
+        m, s = (x.to(dev, non_blocking=True).view(torch.uint32)
+                for x in plan)
+        words, lens = sqz4_cuda.encode_full(m, s, host.cap_words_for(cap))
+    return sqz4_cuda.collect_group(words, lens, nb, fetch, st)
 
 
 def decode_data_pipelined(payloads, sizes, blk_bits: int, device="cuda",

@@ -249,37 +249,40 @@ def in_groups(x, groups: int):
     return x.view(groups, x.shape[0] // groups, *x.shape[1:])
 
 
+# the resident layer's stages where no stage times are kept
+SPANS = launch.Stages("resident")
+
+
 def encode_literal_group(blocks, lengths, Tt: int, t_max: int,
-                         cap_words: int, st=None, groups: int = 1):
+                         cap_words: int, st: launch.Stages = SPANS,
+                         groups: int = 1):
     """``groups`` lane groups, literal-only: raw [groups * B, bs] u8
     blocks and their valid lengths [groups * B] -> (payload words uint32
     [groups, cap_words, B], lens int32 [groups, 8, B]) from one launch of
-    the cold token kernel. ``st`` (launch.Stages) marks parse_s before
-    the kernel."""
-    toks = to_u32(_tokens_from_lengths(lengths, Tt)).contiguous()
-    mark(st, "parse_s")
-    return sqz4_cuda.encode_tok(in_groups(toks, groups),
-                                in_groups(blocks, groups), t_max, cap_words)
+    the cold token kernel. ``st`` times and names the stages parse and
+    kernel."""
+    with st.stage("parse"):
+        toks = to_u32(_tokens_from_lengths(lengths, Tt)).contiguous()
+    with st.stage("kernel"):
+        return sqz4_cuda.encode_tok(in_groups(toks, groups),
+                                    in_groups(blocks, groups), t_max,
+                                    cap_words)
 
 
-def encode_rle_group(blocks, lengths, Tt: int, cap_words: int, st=None,
-                     groups: int = 1):
+def encode_rle_group(blocks, lengths, Tt: int, cap_words: int,
+                     st: launch.Stages = SPANS, groups: int = 1):
     """``groups`` lane groups through the cell parse and one launch of
     the lit_skip token kernel over the raw blocks; the pair budget is the
     longest lane's count (one int read back): a lane codes the same ops
-    under any budget it does not reach."""
-    toks, pairs = rle_plan_device(blocks, lengths, Tt)
-    t_max = int(pairs.max())
-    mark(st, "parse_s")
-    return sqz4_cuda.encode_tok(in_groups(toks, groups),
-                                in_groups(blocks, groups), t_max, cap_words,
-                                lit_skip=True)
-
-
-def mark(st, name: str):
-    """st.mark(name) when stage times are kept (st a launch.Stages)."""
-    if st is not None:
-        st.mark(name)
+    under any budget it does not reach. ``st`` as in
+    ``encode_literal_group``."""
+    with st.stage("parse"):
+        toks, pairs = rle_plan_device(blocks, lengths, Tt)
+        t_max = int(pairs.max())
+    with st.stage("kernel"):
+        return sqz4_cuda.encode_tok(in_groups(toks, groups),
+                                    in_groups(blocks, groups), t_max,
+                                    cap_words, lit_skip=True)
 
 
 def _prep_blocks(data, blk_bits: int, lanes: int, dev):
@@ -334,13 +337,16 @@ def resident_coder(blk_bits: int, mode: str, lanes: int = None):
     return group, args(blk_bits), lanes, 1 if mode == "lz" else LAUNCH_GROUPS
 
 
-def encode_rows(data, blk_bits: int, coder, dev, st=None):
+def encode_rows(data, blk_bits: int, coder, dev,
+                st: launch.Stages = SPANS):
     """``data`` (bytes or a uint8 tensor) -> one payload per block through
     ``coder`` (``resident_coder``'s tuple), a launch per ``per`` groups of
     its lanes, the payloads fetched group by group (compacted on the card
-    by SQZ_FETCH's default)."""
+    by SQZ_FETCH's default). ``st`` times and names the stages parse (the
+    blocks' layout counts in it), kernel and fetch."""
     group, gargs, lanes, per = coder
-    blocks, lengths, nb = _prep_blocks(data, blk_bits, lanes, dev)
+    with st.stage("parse"):
+        blocks, lengths, nb = _prep_blocks(data, blk_bits, lanes, dev)
     payloads: list = []
     step = lanes * per
     for g0 in range(0, blocks.shape[0], step):
@@ -348,12 +354,11 @@ def encode_rows(data, blk_bits: int, coder, dev, st=None):
         G = rows.shape[0] // lanes
         words, lens = group(rows, lengths[g0:g0 + step], st=st, groups=G,
                             **gargs)
-        mark(st, "kernel_s")
-        for g in range(G):
-            payloads += sqz4_cuda.fetch_payloads(
-                words[g:g + 1], lens[g:g + 1],
-                min(lanes, nb - g0 - g * lanes), sqz4_cuda.fetch_mode())
-        mark(st, "fetch_s")
+        with st.stage("fetch"):
+            for g in range(G):
+                payloads += sqz4_cuda.fetch_payloads(
+                    words[g:g + 1], lens[g:g + 1],
+                    min(lanes, nb - g0 - g * lanes), sqz4_cuda.fetch_mode())
     return payloads
 
 
@@ -368,7 +373,7 @@ def encode_resident_blocks(data, blk_bits: int, mode: str = "rle",
     kernel_s and fetch_s."""
     dev = torch.device(device)
     return encode_rows(data, blk_bits, resident_coder(blk_bits, mode, lanes),
-                       dev, launch.Stages(stats, dev))
+                       dev, launch.Stages("resident", stats, dev))
 
 
 # ------------------------------------------------- restore (cell assembly)
@@ -571,14 +576,15 @@ def assemble_cells_ref(lit, tok, mrec, counts, sizes, bs: int):
     return blocks, bad
 
 
-def decode_rle_group(buf, plens, sizes, dargs: dict, bs: int, st=None):
+def decode_rle_group(buf, plens, sizes, dargs: dict, bs: int,
+                     st: launch.Stages = SPANS):
     """Resident decode of cell-parsed sqz4 payloads: the decoder kernel,
     then the cell assembly. Returns ([B, bs] u8 blocks, counts [1, 8, B],
-    bad [B]). ``st`` (launch.Stages) marks kernel_s and cell_s."""
-    lit, tok, mrec, counts = run_decoder(buf, plens, sizes, dargs)
-    mark(st, "kernel_s")
-    blocks, bad = assemble_cells(lit, tok, mrec, counts, sizes, bs)
-    mark(st, "cell_s")
+    bad [B]). ``st`` times and names the stages kernel and cell."""
+    with st.stage("kernel"):
+        lit, tok, mrec, counts = run_decoder(buf, plens, sizes, dargs)
+    with st.stage("cell"):
+        blocks, bad = assemble_cells(lit, tok, mrec, counts, sizes, bs)
     return blocks, counts, bad
 
 
@@ -638,10 +644,11 @@ def decompress_resident(blob: bytes, lanes: int = None,
     lanes of each route count in ``route_lanes``. ``stats`` accumulates
     pack_s, upload_s, kernel_s, cell_s, general_s and host_s."""
     check_assembly(assembly)
-    blk_bits, osize, payloads, sizes = unpack_cold_container(blob)
+    with SPANS.stage("unpack"):
+        blk_bits, osize, payloads, sizes = unpack_cold_container(blob)
     dev = launch.resolve_device(device)
     return restore_blocks(payloads, sizes, blk_bits, lanes or host.LANES,
-                          assembly, dev, launch.Stages(stats, dev))
+                          assembly, dev, launch.Stages("resident", stats, dev))
 
 
 def check_assembly(assembly: str):
@@ -650,11 +657,12 @@ def check_assembly(assembly: str):
 
 
 def restore_blocks(payloads, sizes, blk_bits: int, lanes: int,
-                   assembly: str, dev, st=None):
+                   assembly: str, dev, st: launch.Stages = SPANS):
     """Consecutive blocks of a cold sqz4 container (their payloads and
     sizes, only the last short) -> their bytes, a 1-D uint8 tensor on
     ``dev`` (``decompress_resident``'s routes, ``lanes`` blocks a
-    launch)."""
+    launch). ``st`` times and names the stages pack, upload, kernel,
+    cell, general and host."""
     from sqz_tpu_torch.ops import lz_restore
     bs = 1 << blk_bits
     nb = len(payloads)
@@ -672,12 +680,13 @@ def restore_blocks(payloads, sizes, blk_bits: int, lanes: int,
     for g0 in range(0, nb, lanes):
         grp, gsz = payloads[g0:g0 + lanes], sizes[g0:g0 + lanes]
         n = len(grp)
-        buf, plens, szs, over = pack_payload_group(grp, gsz, dargs["Pw"],
-                                                   lanes)
-        mark(st, "pack_s")
-        bufd = convert.to_device(buf, dev)
-        plensd, szsd = (torch.from_numpy(a).to(dev) for a in (plens, szs))
-        mark(st, "upload_s")
+        with st.stage("pack"):
+            buf, plens, szs, over = pack_payload_group(grp, gsz,
+                                                       dargs["Pw"], lanes)
+        with st.stage("upload"):
+            bufd = convert.to_device(buf, dev)
+            plensd, szsd = (torch.from_numpy(a).to(dev)
+                            for a in (plens, szs))
         if assembly == "general":
             blocks, _c, bad = lz_restore.decode_lz_group(
                 bufd, plensd, szsd, dargs, bs, st=st)
@@ -702,11 +711,11 @@ def restore_blocks(payloads, sizes, blk_bits: int, lanes: int,
         if bad_np.any():
             # kernel-flagged (corrupt: the host codec raises its error) or
             # oversized lanes
-            fixed = convert.to_numpy(blocks[:n]).copy()
-            host_decode_blocks(grp, gsz, np.nonzero(bad_np)[0], fixed)
-            blocks = torch.from_numpy(fixed).to(dev)
+            with st.stage("host"):
+                fixed = convert.to_numpy(blocks[:n]).copy()
+                host_decode_blocks(grp, gsz, np.nonzero(bad_np)[0], fixed)
+                blocks = torch.from_numpy(fixed).to(dev)
             count_route("host", int(bad_np.sum()))
-            mark(st, "host_s")
         # only the last block can be short: flatten and trim
         outs.append(blocks[:n].reshape(-1))
     return torch.cat(outs)[:total]

@@ -97,22 +97,21 @@ def squeeze_encode_data(data: bytes, blk_bits: int, win_bits: int, cap: int,
     dev = torch.device(device)
     parse = host.parse_mode(parse)
     nb = max(1, -(-len(data) // (1 << blk_bits)))
-    st = launch.Stages(stats, dev)
-    words, mx = native.squeeze_plan_pack(
-        data, win_bits, blk_bits, host.LANES, record_cap(blk_bits),
-        warm=warm, parse=parse, depth=fast_depth())
+    st = launch.Stages("squeeze", stats, dev)
+    with st.stage("plan"):
+        words, mx = native.squeeze_plan_pack(
+            data, win_bits, blk_bits, host.LANES, record_cap(blk_bits),
+            warm=warm, parse=parse, depth=fast_depth())
     rows = max(-(-int(mx) // ROW_CHUNK) * ROW_CHUNK, ROW_CHUNK)
-    st.mark("plan_s")
-    ops = upload_rows(words, rows, dev)
+    with st.stage("upload"):
+        ops = upload_rows(words, rows, dev)
     del words
-    st.mark("upload_s")
     cap_words = host.cap_words_for(cap)
-    out, lens = bitpack(ops, cap_words)
-    lens = convert.to_numpy(lens)
-    st.mark("kernel_s")
+    with st.stage("kernel"):
+        out, lens = bitpack(ops, cap_words)
+        lens = convert.to_numpy(lens)
     if int(lens[:, 0].max(initial=0)) > cap_words * 4:
         raise ValueError("compressed block exceeded the output capacity")
-    out = convert.to_numpy(out[:, :host.trimmed_rows(lens)])
-    payloads = host.unpack_group_payloads(out, lens, nb)
-    st.mark("fetch_s")
-    return payloads
+    with st.stage("fetch"):
+        out = convert.to_numpy(out[:, :host.trimmed_rows(lens)])
+        return host.unpack_group_payloads(out, lens, nb)

@@ -24,7 +24,6 @@ launch a group of ``sqz4_host.group_lanes`` blocks); its decode is
 from __future__ import annotations
 
 import os
-import time
 from typing import NamedTuple
 
 import numpy as np
@@ -367,42 +366,43 @@ def encode_data_full(data: bytes, blk_bits: int, window: int, lz: bool,
     nb = max(1, -(-len(data) // bs))
     warm = warm and nb > 1
     tp_cap = host.op_stream_cap(blk_bits)
-    st = launch.Stages(stats, dev)
-    if parse == "fast":
-        plan = native.sqz4_fast_plan(data, window, blk_bits, lz, tp_cap,
-                                     warm=warm, depth=fast_depth())
-        m8, s8, mx = plan[:3]
-        rows = -(-int(mx) // 4)
-        st.mark("plan_s")
-        m_u8, s_u8 = convert.fast_plan_inputs(m8, s8, lanes, rows, dev)
-        m_ops, s_ops = pack_ops_words(m_u8), pack_ops_words(s_u8)
-    else:
-        plan = native.sqz4_plan_pack(data, window, blk_bits, lz, lanes,
-                                     tp_cap, warm=warm)
-        mw, sw, mx = plan[:3]
-        rows = -(-int(mx) // 4)
-        st.mark("plan_s")
-        m_ops, s_ops = convert.encoder_inputs(mw, sw, rows, dev)
-    seed = plan[3] if warm else None
-    seed_t = (convert.to_device(host.seed_column(seed), dev) if warm
-              else None)
-    st.mark("upload_s")
+    st = launch.Stages("encode", stats, dev)
+    with st.stage("plan"):
+        if parse == "fast":
+            plan = native.sqz4_fast_plan(data, window, blk_bits, lz, tp_cap,
+                                         warm=warm, depth=fast_depth())
+        else:
+            plan = native.sqz4_plan_pack(data, window, blk_bits, lz, lanes,
+                                         tp_cap, warm=warm)
+    # fast: a row of ops a block (u8); exact: the kernel's words
+    m, s, mx = plan[:3]
+    rows = -(-int(mx) // 4)
+    with st.stage("upload"):
+        if parse == "fast":
+            m_u8, s_u8 = convert.fast_plan_inputs(m, s, lanes, rows, dev)
+            m_ops, s_ops = pack_ops_words(m_u8), pack_ops_words(s_u8)
+        else:
+            m_ops, s_ops = convert.encoder_inputs(m, s, rows, dev)
+        seed = plan[3] if warm else None
+        seed_t = (convert.to_device(host.seed_column(seed), dev) if warm
+                  else None)
     cap_words = host.cap_words_for(cap + bs // 4 if warm else cap)
-    words, lens = encode_full(m_ops, s_ops, cap_words, seed_t,
-                              0 if warm else -1)
-    lens = convert.to_numpy(lens)
-    st.mark("kernel_s")
+    with st.stage("kernel"):
+        words, lens = encode_full(m_ops, s_ops, cap_words, seed_t,
+                                  0 if warm else -1)
+        lens = convert.to_numpy(lens)
     over = np.nonzero(lens[:, 0].reshape(-1)[:nb] > cap_words * 4)[0]
     if over.size and not warm:
         raise ValueError("compressed block exceeded the output capacity")
-    words = convert.to_numpy(words[:, :host.trimmed_rows(lens)])
-    payloads = host.unpack_group_payloads(words, lens, nb)
-    dictionary = data[:bs][-window:] if lz else b""
-    for b in over.tolist():
-        payloads[b] = native.sqz4_compress_payload(
-            data[b * bs:(b + 1) * bs], window, lz=lz,
-            seed=seed if b else None, dictionary=dictionary if b else b"")
-    st.mark("fetch_s")
+    with st.stage("fetch"):
+        words = convert.to_numpy(words[:, :host.trimmed_rows(lens)])
+        payloads = host.unpack_group_payloads(words, lens, nb)
+        dictionary = data[:bs][-window:] if lz else b""
+        for b in over.tolist():
+            payloads[b] = native.sqz4_compress_payload(
+                data[b * bs:(b + 1) * bs], window, lz=lz,
+                seed=seed if b else None,
+                dictionary=dictionary if b else b"")
     return payloads
 
 
@@ -440,15 +440,14 @@ def fetch_payloads(words, lens, nb: int, mode: str = "compact"):
         convert.to_numpy(words[:, :host.trimmed_rows(lens_np)]), lens_np, nb)
 
 
-def collect_group(words, lens, nb: int, fetch: str, stats, t0: float):
-    """Wait for a group's kernel (fence_s since ``t0``), then download its
-    payloads (fetch_s)."""
-    if words.is_cuda:
-        torch.cuda.current_stream(words.device).synchronize()
-    t = add_stage(stats, "fence_s", t0)
-    out = fetch_payloads(words, lens, nb, fetch)
-    add_stage(stats, "fetch_s", t)
-    return out
+def collect_group(words, lens, nb: int, fetch: str, st: launch.Stages):
+    """Wait for a group's kernel (the stage ``fence`` of ``st``), then
+    download its payloads (``fetch``)."""
+    with st.stage("fence"):
+        if words.is_cuda:
+            torch.cuda.current_stream(words.device).synchronize()
+    with st.stage("fetch"):
+        return fetch_payloads(words, lens, nb, fetch)
 
 
 class TokGroup(NamedTuple):
@@ -482,33 +481,30 @@ def plan_tok_group(chunk: bytes, blk_bits: int, window: int, lz: bool,
     return TokGroup(counts.shape[0], fit, over, t_max, tt, lt)
 
 
-def add_stage(stats, key, t0):
-    """Add the seconds since ``t0`` to ``stats[key]``; returns now."""
-    now = time.perf_counter()
-    if stats is not None:
-        stats[key] = stats.get(key, 0.0) + now - t0
-    return now
+# the encode layer's stages where no caller's are given: named, untimed
+ENCODE = launch.Stages("encode")
 
 
 def encode_tok_group(grp: TokGroup, chunk: bytes, blk_bits: int,
                      window: int, lz: bool, cap: int, device="cuda",
-                     fetch: str = "compact", stats: dict = None):
+                     fetch: str = "compact", st: launch.Stages = None):
     """One planned group on ``device``: upload (asynchronous from pinned
     memory), the token kernel, the lengths (the fence), the payloads by
     ``fetch``; blocks over the token caps re-route through the op-stream
-    kernel (sqz4_pallas.py:1476-1483). ``stats`` accumulates dispatch_s,
-    fence_s and fetch_s. Returns the group's payloads in block order."""
+    kernel (sqz4_pallas.py:1476-1483). ``st`` (the pipeline's stages;
+    by default the encode layer's, untimed) times and names dispatch,
+    fence and fetch. Returns the group's payloads in block order."""
     dev = torch.device(device)
+    st = st or ENCODE
     payloads = [None] * grp.nb
     if grp.fit:
-        t = time.perf_counter()
-        toks = grp.toks.to(dev, non_blocking=True).view(torch.uint32)
-        lits = grp.lits.to(dev, non_blocking=True)
-        words, lens = encode_tok(toks, lits, grp.t_max,
-                                 host.cap_words_for(cap))
-        t = add_stage(stats, "dispatch_s", t)
+        with st.stage("dispatch"):
+            toks = grp.toks.to(dev, non_blocking=True).view(torch.uint32)
+            lits = grp.lits.to(dev, non_blocking=True)
+            words, lens = encode_tok(toks, lits, grp.t_max,
+                                     host.cap_words_for(cap))
         for b, p in zip(grp.fit, collect_group(words, lens, len(grp.fit),
-                                               fetch, stats, t)):
+                                               fetch, st)):
             payloads[b] = p
     if grp.over:
         bs = 1 << blk_bits
@@ -586,25 +582,25 @@ def decode_groups(payloads, sizes, blk_bits: int, device="cuda",
     # only the rows the longest payload fills are packed and uploaded: the
     # decoder reads bytes past its buffer as zeros, as it does the padding
     pw = min(plan["Pw"], host.payload_rows(max(map(len, pls))))
-    st = launch.Stages(stats, dev)
-    buf, meta = host.pack_decode_chunk(pls, szs, lanes, plan["G"], pw,
-                                       len(dictionary))
-    st.mark("pack_s")
-    payload_t, meta_t = convert.decoder_inputs(buf, meta, dev)
-    seed_t = (convert.to_device(host.seed_column(seed), dev)
-              if seed is not None else None)
-    st.mark("upload_s")
-    res = decode(payload_t, meta_t, plan["t_max"], plan["lw"], plan["tw"],
-                 plan["mw"], seed_t)
-    st.mark("kernel_s")
-    lt, tt, mt, cnt = fetch_decode_host(*res)
-    st.mark("fetch_s")
-    dec = host.postprocess_decode(lt, tt, mt, cnt, pls, szs,
-                                  host.block_bytes(blk_bits, largest),
-                                  block_ids=[ids[b] for b in order],
-                                  transposed=True, seed=seed,
-                                  dictionary=dictionary)
-    st.mark("assemble_s")
+    st = launch.Stages("decode", stats, dev)
+    with st.stage("pack"):
+        buf, meta = host.pack_decode_chunk(pls, szs, lanes, plan["G"], pw,
+                                           len(dictionary))
+    with st.stage("upload"):
+        payload_t, meta_t = convert.decoder_inputs(buf, meta, dev)
+        seed_t = (convert.to_device(host.seed_column(seed), dev)
+                  if seed is not None else None)
+    with st.stage("kernel"):
+        res = decode(payload_t, meta_t, plan["t_max"], plan["lw"],
+                     plan["tw"], plan["mw"], seed_t)
+    with st.stage("fetch"):
+        lt, tt, mt, cnt = fetch_decode_host(*res)
+    with st.stage("assemble"):
+        dec = host.postprocess_decode(lt, tt, mt, cnt, pls, szs,
+                                      host.block_bytes(blk_bits, largest),
+                                      block_ids=[ids[b] for b in order],
+                                      transposed=True, seed=seed,
+                                      dictionary=dictionary)
     for pos, b in enumerate(order):
         outs[b] = dec[pos]
     return outs
@@ -638,21 +634,22 @@ def encode_data_stats(data: bytes, blk_bits: int, window: int, lz: bool,
     check_block_bytes(largest)
     cap_words = host.cap_words_for(2 * largest + 4096)
     lanes = host.group_lanes(len(idx))
+    st = launch.Stages("encode", stats, dev)
     payloads = []
     for g0 in range(0, len(idx), lanes):
         grp = idx[g0:g0 + lanes]
-        st = launch.Stages(stats, dev)
-        chunk = (data[:bs] if warm else b"") + b"".join(
-            data[b * bs:(b + 1) * bs] for b in grp)
-        cols = host.op_stream_stats(chunk, window, blk_bits, lz, warm)
-        if warm:   # block 0 planned for its tail and seed only
-            t = int(np.flatnonzero(cols[2][1:].any(0)).max(initial=0)) + 1
-            cols = [c[1:, :t] for c in cols]
-        st.mark("stats_s")
-        inputs = pack_group_stats(cols, dev, lanes)
-        st.mark("upload_s")
-        words, lens = encode_stats(*inputs, cap_words)
-        st.mark("kernel_s")
-        payloads += fetch_payloads(words, lens, len(grp), fetch_mode())
-        st.mark("fetch_s")
+        with st.stage("stats"):
+            chunk = (data[:bs] if warm else b"") + b"".join(
+                data[b * bs:(b + 1) * bs] for b in grp)
+            cols = host.op_stream_stats(chunk, window, blk_bits, lz, warm)
+            if warm:   # block 0 planned for its tail and seed only
+                t = int(np.flatnonzero(cols[2][1:].any(0))
+                        .max(initial=0)) + 1
+                cols = [c[1:, :t] for c in cols]
+        with st.stage("upload"):
+            inputs = pack_group_stats(cols, dev, lanes)
+        with st.stage("kernel"):
+            words, lens = encode_stats(*inputs, cap_words)
+        with st.stage("fetch"):
+            payloads += fetch_payloads(words, lens, len(grp), fetch_mode())
     return payloads

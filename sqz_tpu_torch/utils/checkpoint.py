@@ -40,9 +40,13 @@ import torch
 
 from sqz_tpu_torch.formats import container as sqzt
 from sqz_tpu_torch.formats.constants import SQZT_FORMAT_SQZ4
-from sqz_tpu_torch.ops.launch import resolve_device
+from sqz_tpu_torch.ops.launch import Stages, resolve_device
 
 MAGIC = b"SQZCKPT1"
+# the checkpoint layer's own stages: profiler ranges only, so that a
+# ``stats`` dict holds the codec's stages and the call's wall time less
+# them is this layer's
+SPANS = Stages("checkpoint")
 
 
 def _flatten(tree, leaves: list):
@@ -211,7 +215,9 @@ def save_pytree(tree, path, blk_bits: int = 16, mode: str = "rle",
     from sqz_tpu_torch.ops import resident
     resident.check_resident_blk_bits(blk_bits)
     dev = _device(device, mesh)
-    stream, metas, structure = filtered_stream(tree, shuffle, delta, dev)
+    with SPANS.stage("filter"):
+        stream, metas, structure = filtered_stream(tree, shuffle, delta,
+                                                   dev)
     raw = int(stream.numel())
     if mesh is not None:
         from sqz_tpu_torch.parallel.shard import encode_resident_sharded
@@ -224,14 +230,16 @@ def save_pytree(tree, path, blk_bits: int = 16, mode: str = "rle",
     del stream
     if payloads is None:                    # not rank 0 of the mesh
         return None
-    blob = sqzt.pack(SQZT_FORMAT_SQZ4, 15, blk_bits, raw, payloads, None)
-    meta = pickle.dumps(dict(tree=structure, leaves=metas,
-                             blk_bits=blk_bits))
-    with open(path, "wb") as f:
-        f.write(MAGIC)
-        f.write(struct.pack("<I", len(meta)))
-        f.write(meta)
-        f.write(blob)
+    with SPANS.stage("write"):
+        blob = sqzt.pack(SQZT_FORMAT_SQZ4, 15, blk_bits, raw, payloads,
+                         None)
+        meta = pickle.dumps(dict(tree=structure, leaves=metas,
+                                 blk_bits=blk_bits))
+        with open(path, "wb") as f:
+            f.write(MAGIC)
+            f.write(struct.pack("<I", len(meta)))
+            f.write(meta)
+            f.write(blob)
     return dict(raw_bytes=raw, compressed_bytes=len(blob),
                 ratio=len(blob) / raw if raw else 0.0)
 
@@ -271,7 +279,8 @@ def load_pytree(path, mesh=None, lanes: int = None, device="cuda",
     back on the mesh's first local device, on every rank."""
     from sqz_tpu_torch.ops import resident
     dev = _device(device, mesh)
-    meta, blob = read_checkpoint(path)
+    with SPANS.stage("read"):
+        meta, blob = read_checkpoint(path)
     if mesh is not None:
         from sqz_tpu_torch.parallel.shard import decompress_resident_sharded
         stream = decompress_resident_sharded(blob, mesh, lanes)
@@ -279,5 +288,6 @@ def load_pytree(path, mesh=None, lanes: int = None, device="cuda",
         stream = resident.decompress_resident(blob, lanes=lanes, device=dev,
                                               stats=stats)
     del blob
-    leaves = [_restore_leaf(stream, m, dev) for m in meta["leaves"]]
-    return _unflatten(meta["tree"], iter(leaves))
+    with SPANS.stage("leaves"):
+        leaves = [_restore_leaf(stream, m, dev) for m in meta["leaves"]]
+        return _unflatten(meta["tree"], iter(leaves))

@@ -168,6 +168,17 @@ Phases (any failure exits non-zero):
      (world size 1: NCCL takes one rank a card) through the same run.
      Both workers of a run must exit 0.
 
+ 17. the decoder's payload packing on the card (``csrc/sqz4_pack.cu``):
+     one ``load_pytree`` of phase 13's state saved with the checkpoint's
+     defaults must launch it once a 512-lane group (45) and one
+     ``decompress`` of 10^8 B of texty once (three groups in one
+     launch), both round trips exact; then the kernel on the load's
+     first and last groups (512 payloads of 64 KiB blocks) and on the
+     decompress's three groups must equal its plain version and the
+     native host packer word for word, with its CUDA-event time, its
+     bound and the plain version's and the host packer's times
+     (``python3 chip_smoke.py --pack`` runs only the build and this).
+
 The second-to-last line is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
 """
@@ -257,6 +268,25 @@ def mean_events_ms(fn, n):
     fn()
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(n):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / n
+
+
+def queued_events_ms(fn, n):
+    """Mean device time of ``n`` calls of fn (after one warm call) queued
+    behind a sleep of the stream, by CUDA events: the host enqueues them
+    while the card sleeps, so a wrapper's host time, longer than a short
+    kernel's, stays out of the figure."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)   # ~50 ms of the SM clock
     a.record()
     for _ in range(n):
         fn()
@@ -2284,7 +2314,8 @@ COUNTERS = {"sqz4_encode": ("sqz4_cuda", "encode_full", "launches"),
             "sqz4_decode_seeded": ("sqz4_cuda", "decode", "seeded_launches"),
             "sqz4_compact": ("sqz4_cuda", "compact_words", "launches"),
             "sqz4_cell_assembly": ("resident", "assemble_cells",
-                                   "launches")}
+                                   "launches"),
+            "sqz4_pack": ("sqz4_cuda", "pack_payloads", "launches")}
 
 
 def _counter(mod, fn):
@@ -2302,6 +2333,121 @@ def read_launches() -> dict:
     got = {k: getattr(_counter(mod, fn), attr)
            for k, (mod, fn, attr) in COUNTERS.items()}
     return {k: v for k, v in got.items() if v}
+
+
+TEXT_BYTES = 10 ** 8     # phase 17's text (enwik8's size)
+PACK_REPS = 20           # phase 17's launches a timing
+
+
+def pack_vs_plain(payloads, lanes, pw):
+    """Phase 17's check of the payload packing kernel on one call's
+    payloads (``lanes`` a group): the words equal the plain version's (on
+    CPU copies) and the native host packer's, tolerance 0. Returns the
+    kernel table's (err, ms, plain ms, bound ms, bound by, library ms) and
+    the host packer's ms. The kernel's time is queued launches'
+    (``queued_events_ms``); one launch timed alone carries the wrapper's
+    host time, which is logged beside it."""
+    import numpy as np
+    import torch
+    from sqz_tpu_torch import convert, native
+    from sqz_tpu_torch.ops import sqz4_cuda, sqz4_ref
+    dev = torch.device("cuda")
+    G = -(-len(payloads) // lanes)
+    data, offs, lens = sqz4_cuda.upload_payloads(payloads, G, lanes, dev)
+    got = sqz4_cuda.pack_payloads(data, offs, lens, pw)
+    ms = queued_events_ms(
+        lambda: sqz4_cuda.pack_payloads(data, offs, lens, pw), PACK_REPS)
+    launched_ms = events_ms(
+        lambda: sqz4_cuda.pack_payloads(data, offs, lens, pw), REPS)
+    cpu = [t.cpu() for t in (data, offs, lens)]
+    t = time.perf_counter()
+    want = sqz4_ref.pack_payloads_ref(*cpu, pw)
+    plain_ms = (time.perf_counter() - t) * 1e3
+    t = time.perf_counter()
+    host = native.sqz4_pack_payloads(payloads, lanes, pw)
+    host_ms = (time.perf_counter() - t) * 1e3
+    host = np.concatenate([host, np.zeros((G - host.shape[0],)
+                                          + host.shape[1:], np.uint32)])
+    err = max_abs_err([got.cpu()], [want])
+    if err or not np.array_equal(convert.to_numpy(got), host):
+        raise AssertionError(f"payload pack at {G} x {pw} x {lanes}: the "
+                             f"kernel differs (err {err})")
+    # the payload bytes and the lanes' offsets and lengths read, every
+    # word written
+    b_ms, by = bound(data.numel() + 16 * offs.numel() + 4 * got.numel(), 0)
+    log(f"payload pack at {G} x {pw} x {lanes}: {ms:.4f} ms a launch "
+        f"queued, {launched_ms:.4f} ms one launch from the host")
+    return (err, ms, plain_ms, b_ms, by, None), host_ms
+
+
+def pack_path(card):
+    """Phase 17: the payload packing kernel's launches over one
+    ``load_pytree`` of GPT-2 small's state and one ``decompress`` of
+    10^8 B of texty, then the kernel against its plain version and the
+    host packer on their groups. Returns (the kernel table's entry at the
+    load's first group, launches, figures)."""
+    import tempfile
+    import torch
+    import sqz_tpu_torch
+    from sqz_tpu_torch.formats import container
+    from sqz_tpu_torch.ops import resident, sqz4_cuda, sqz4_host
+    from sqz_tpu_torch.utils import checkpoint, corpus
+    dev = torch.device("cuda")
+    lanes = sqz4_host.LANES
+    state = gpt2_small_state(dev)
+    with tempfile.TemporaryDirectory(prefix="sqz_pack_") as work:
+        path = os.path.join(work, "gpt2s.sqzckpt")
+        checkpoint.save_pytree(state, path)
+        reset_launches()
+        back = checkpoint.load_pytree(path)
+        torch.cuda.synchronize()
+        load_launches = read_launches().get("sqz4_pack", 0)
+        if not leaves_equal(back, state):
+            raise AssertionError("load_pytree differs from the saved state")
+        del back, state
+        _meta, blob = checkpoint.read_checkpoint(path)
+    blk_bits, _osize, payloads, sizes = resident.unpack_cold_container(blob)
+    del blob
+    groups = -(-len(payloads) // lanes)
+    if load_launches != groups:
+        raise AssertionError(f"payload pack launches over a load: "
+                             f"{load_launches}, not one a group ({groups})")
+    Pw = resident.decoder_args(blk_bits, lanes)["Pw"]
+    fig, rows = {}, {}
+    for name, g0 in (("first", 0), ("last", (groups - 1) * lanes)):
+        fit, _pl, _sz, _over, pw = resident.fit_payload_group(
+            payloads[g0:g0 + lanes], sizes[g0:g0 + lanes], Pw, lanes)
+        rows[name], host_ms = pack_vs_plain(fit, lanes, pw)
+        fig[f"pack_load_{name}_ms"] = rows[name][1]
+        fig[f"pack_load_{name}_host_ms"] = host_ms
+        log(f"payload pack, the load's {name} group ({lanes} lanes, pw "
+            f"{pw}, {sum(map(len, fit))} B; {card}): kernel "
+            f"{rows[name][1]:.4f} ms, bound {rows[name][3]:.4f} ms, plain "
+            f"{rows[name][2]:.1f} ms, host packer {host_ms:.1f} ms")
+    del payloads
+    data = corpus.texty(TEXT_BYTES, seed=1)
+    blob = sqz_tpu_torch.compress(data)
+    reset_launches()
+    back = sqz_tpu_torch.decompress(blob)
+    text_launches = read_launches().get("sqz4_pack", 0)
+    if back != data or text_launches != 1:
+        raise AssertionError(f"decompress of {TEXT_BYTES} B: round trip "
+                             f"{back == data}, {text_launches} pack launches")
+    del back, data
+    _c, _w, blk_bits, _o, payloads, _cs, _f, _a = container.unpack(blob)
+    plan = sqz4_host.plan_decode_dispatch(len(payloads), blk_bits, lanes)
+    pw = min(plan["Pw"], sqz4_host.payload_rows(max(map(len, payloads))))
+    text, host_ms = pack_vs_plain(payloads, lanes, pw)
+    fig.update(pack_text_ms=text[1], pack_text_host_ms=host_ms,
+               pack_text_plain_ms=text[2], pack_text_bound_ms=text[3],
+               pack_load_plain_ms=rows["first"][2],
+               pack_load_bound_ms=rows["first"][3])
+    log(f"payload pack, the decompress's {plan['G']} groups ({lanes} lanes,"
+        f" pw {pw}, {sum(map(len, payloads))} B; {card}): kernel "
+        f"{text[1]:.4f} ms, bound {text[3]:.4f} ms, plain {text[2]:.1f} ms,"
+        f" host packer {host_ms:.1f} ms; launches: load {load_launches}, "
+        f"decompress {text_launches}")
+    return rows["first"], load_launches + text_launches, fig
 
 
 def mesh_checkpoint(card, state, path, work):
@@ -2507,6 +2653,8 @@ KERNELS = (   # name, source, the TPU kernel it replaces
     ("probe", "probe.cu", "tools/pallas_probe.py:13"),
     ("sqz4_cell_assembly", "sqz4_cell.cu",
      "sqz_tpu/ops/resident.py:422,498 (jax.lax.scan, not a Pallas kernel)"),
+    ("sqz4_pack", "sqz4_pack.cu",
+     "not a Pallas kernel: the host's sqz4_pack_payloads"),
 )
 
 
@@ -2527,6 +2675,11 @@ def main() -> int:
     build()
     if sys.argv[1:] == ["--chain"]:
         chain_figures(chain_inputs(), MAIN_BITS, MAIN_WIN_BITS, REPS)
+        return 0
+    if sys.argv[1:] == ["--pack"]:
+        _row, _n, fig = pack_path(card)
+        log(json.dumps({"card": card, **{k: round(v, 4)
+                                         for k, v in fig.items()}}))
         return 0
     from sqz_tpu_torch.ops import sqz4_host
     from sqz_tpu_torch.utils import corpus
@@ -2594,6 +2747,8 @@ def main() -> int:
     we2e.update(tools_path(card))
     we2e.update(mesh_path(card))
     we2e.update(two_process_path(card))
+    full["sqz4_pack"], launches["sqz4_pack"], pfig = pack_path(card)
+    we2e.update(pfig)
     if any(m.split(".")[0] in ("jax", "sqz_tpu") for m in sys.modules):
         raise AssertionError("the port imported jax or the JAX package")
     kernels = []
@@ -2607,6 +2762,8 @@ def main() -> int:
               "sqz4_cell_assembly": f"{RESIDENT_BLOCKS} blocks x "
                                     f"{1 << MAIN_BITS} B of the resident "
                                     f"mix, the rle container's group",
+              "sqz4_pack": f"the first {sqz4_host.LANES} payloads of "
+                           f"phase 17's checkpoint",
               "probe": "the 8 of the 14 probes one torch call computes, "
                        "in one launch, at the reference's inputs, [1, 128] "
                        "and [256, 128]"}

@@ -600,10 +600,10 @@ def unpack_cold_container(blob: bytes):
     return blk_bits, osize, payloads, sizes
 
 
-def pack_payload_group(grp, gsz, Pw: int, lanes: int):
-    """Payload bytes -> ([1, pw, lanes] u32 big-endian words, plens, szs,
-    oversized mask), pw the rows the longest payload that fits needs (the
-    decoder reads zeros past its buffer, as it reads the padding). A
+def fit_payload_group(grp, gsz, Pw: int, lanes: int):
+    """A group's lanes -> (the payloads each lane packs, plens, szs,
+    oversized mask, pw), pw the rows the longest payload that fits needs
+    (the decoder reads zeros past its buffer, as it reads the padding). A
     payload longer than Pw words gets an empty lane, which the decoder
     flags; the host codec decodes its real bytes."""
     n = len(grp)
@@ -617,6 +617,15 @@ def pack_payload_group(grp, gsz, Pw: int, lanes: int):
         plens[i] = 0 if over[i] else len(p)
     szs[:n] = gsz
     pw = min(Pw, host.payload_rows(max(map(len, fit), default=0)))
+    return fit, plens, szs, over, pw
+
+
+def pack_payload_group(grp, gsz, Pw: int, lanes: int):
+    """Payload bytes -> ([1, pw, lanes] u32 big-endian words, plens, szs,
+    oversized mask) on the host (``fit_payload_group``'s lanes through the
+    native packer): the reference of the card's pack in
+    ``restore_blocks``."""
+    fit, plens, szs, over, pw = fit_payload_group(grp, gsz, Pw, lanes)
     buf = native.sqz4_pack_payloads(fit, lanes, pw)[:1]
     return buf, plens, szs, over
 
@@ -661,8 +670,9 @@ def restore_blocks(payloads, sizes, blk_bits: int, lanes: int,
     """Consecutive blocks of a cold sqz4 container (their payloads and
     sizes, only the last short) -> their bytes, a 1-D uint8 tensor on
     ``dev`` (``decompress_resident``'s routes, ``lanes`` blocks a
-    launch). ``st`` times and names the stages pack, upload, kernel,
-    cell, general and host."""
+    launch: a group's payload bytes upload as one range and the card
+    packs them into the decoder's words). ``st`` times and names the
+    stages upload, pack, kernel, cell, general and host."""
     from sqz_tpu_torch.ops import lz_restore
     bs = 1 << blk_bits
     nb = len(payloads)
@@ -680,13 +690,13 @@ def restore_blocks(payloads, sizes, blk_bits: int, lanes: int,
     for g0 in range(0, nb, lanes):
         grp, gsz = payloads[g0:g0 + lanes], sizes[g0:g0 + lanes]
         n = len(grp)
-        with st.stage("pack"):
-            buf, plens, szs, over = pack_payload_group(grp, gsz,
-                                                       dargs["Pw"], lanes)
         with st.stage("upload"):
-            bufd = convert.to_device(buf, dev)
-            plensd, szsd = (torch.from_numpy(a).to(dev)
-                            for a in (plens, szs))
+            fit, _plens, szs, over, pw = fit_payload_group(
+                grp, gsz, dargs["Pw"], lanes)
+            data, offs, lens = sqz4_cuda.upload_payloads(fit, 1, lanes, dev)
+            plensd, szsd = lens[0], torch.from_numpy(szs).to(dev)
+        with st.stage("pack"):
+            bufd = sqz4_cuda.pack_payloads(data, offs, lens, pw)
         if assembly == "general":
             blocks, _c, bad = lz_restore.decode_lz_group(
                 bufd, plensd, szsd, dargs, bs, st=st)

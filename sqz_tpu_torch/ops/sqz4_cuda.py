@@ -1,18 +1,20 @@
 """sqz4 kernel wrappers and the whole-buffer device encode and decode.
 
-``encode_full``, ``encode_tok``, ``encode_stats``, ``decode`` and
-``compact_words`` launch the CUDA kernels (``csrc/``) for tensors on a
-CUDA device and run the plain versions (``sqz4_ref``) for tensors on the
-CPU; any other device raises. Each counts its kernel launches in its
-``launches`` attribute; ``encode_full`` and ``decode`` count their seeded
-(warm-start) launches apart, in ``seeded_launches``, and ``encode_tok``
-its lit_skip launches (the resident paths) in ``lit_skip_launches``.
+``encode_full``, ``encode_tok``, ``encode_stats``, ``decode``,
+``compact_words`` and ``pack_payloads`` launch the CUDA kernels
+(``csrc/``) for tensors on a CUDA device and run the plain versions
+(``sqz4_ref``) for tensors on the CPU; any other device raises. Each
+counts its kernel launches in its ``launches`` attribute; ``encode_full``
+and ``decode`` count their seeded (warm-start) launches apart, in
+``seeded_launches``, and ``encode_tok`` its lit_skip launches (the
+resident paths) in ``lit_skip_launches``.
 
 ``encode_data_full``, ``encode_data_tok`` and ``decode_groups`` are the
 main path around them: the native host planner -> op streams or tokens
 -> encoder kernel -> payloads (downloaded trimmed, or compacted on the
-card), and payloads -> decoder kernel -> token records -> native host
-assembly. ``encode_groups`` codes per-op statistics computed on the host
+card), and payloads (one upload, packed into the decoder's words on the
+card) -> decoder kernel -> token records -> native host assembly.
+``encode_groups`` codes per-op statistics computed on the host
 (``native.sqz4_model_stats``) through the stats-fed encoder, and
 ``encode_data_stats`` is the route above 64 KiB blocks around it (the
 reference's scan route: exact tokens and statistics on the host, one
@@ -330,6 +332,63 @@ def compact_words(words: torch.Tensor, lens: torch.Tensor, nb: int):
 compact_words.launches = 0
 
 
+def pack_payloads(data: torch.Tensor, offsets: torch.Tensor,
+                  lengths: torch.Tensor, pw: int):
+    """The decoder's payload words: data uint8 [n] (payloads back to
+    back), offsets and lengths int64 [G, lanes] (lane b of group g holds
+    data[off:off + len]) -> uint32 [G, pw, lanes], each lane's bytes as
+    big-endian words, zero past them. A lane longer than 4 * pw bytes, or
+    outside the data, gets an all-zero column, as an empty lane. The
+    kernel (``csrc/sqz4_pack.cu``) for tensors on the card, its plain
+    version (``sqz4_ref.pack_payloads_ref``) for tensors on the CPU; its
+    launches count in ``pack_payloads.launches``."""
+    launch.check_tensor(data, "data", torch.uint8, ndim=1)
+    launch.check_tensor(offsets, "offsets", torch.int64, ndim=2)
+    launch.check_tensor(lengths, "lengths", torch.int64, ndim=2)
+    if offsets.shape != lengths.shape or pw < 1:
+        raise ValueError("payload packing takes offsets and lengths of one "
+                         "[G, lanes] shape and pw >= 1")
+    dev = launch.kernel_device(data, offsets, lengths)
+    if dev.type == "cpu":
+        return sqz4_ref.pack_payloads_ref(data, offsets, lengths, pw)
+    from sqz_tpu_torch.ops import _build
+    G, lanes = offsets.shape
+    out = torch.empty((G, pw, lanes), dtype=torch.int32,
+                      device=dev).view(torch.uint32)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = _build.library().sqz4_pack_launch(
+            data.data_ptr(), data.shape[0], offsets.data_ptr(),
+            lengths.data_ptr(), G, lanes, pw, out.data_ptr(), stream)
+    launch.launched(rc, "sqz4_pack")
+    launch.count(pack_payloads)
+    return out
+
+
+pack_payloads.launches = 0
+
+
+def upload_payloads(payloads, groups: int, lanes: int, dev):
+    """Payload byte strings, ``payloads[g * lanes + b]`` on lane b of group
+    g (lanes past the list empty) -> ``pack_payloads``' inputs on ``dev``:
+    the bytes joined back to back by one host copy (into pinned memory
+    for the card, uploaded asynchronously), offsets and lengths."""
+    lens = np.zeros(groups * lanes, np.int64)
+    lens[:len(payloads)] = [len(p) for p in payloads]
+    offs = np.zeros_like(lens)
+    np.cumsum(lens[:-1], out=offs[1:])
+    staged = torch.empty(int(lens.sum()), dtype=torch.uint8,
+                         pin_memory=dev.type == "cuda")
+    flat = staged.numpy()
+    for p, o in zip(payloads, offs.tolist()):
+        flat[o:o + len(p)] = np.frombuffer(p, np.uint8)
+    lay = torch.from_numpy(np.stack([offs, lens]).reshape(2, groups, lanes))
+    if dev.type != "cuda":
+        return staged, lay[0], lay[1]
+    lay = lay.to(dev)
+    return staged.to(dev, non_blocking=True), lay[0], lay[1]
+
+
 def pack_ops_words(x8: torch.Tensor) -> torch.Tensor:
     """Op-stream relayout: [G, B, R] uint8 (one contiguous row per block,
     as ``native.sqz4_fast_plan`` emits them) -> the kernel's [G, R/4, B]
@@ -579,17 +638,18 @@ def decode_groups(payloads, sizes, blk_bits: int, device="cuda",
     plan = host.plan_decode_dispatch(len(order), blk_bits, lanes, largest)
     pls = [payloads[b] for b in order]
     szs = [sizes[b] for b in order]
-    # only the rows the longest payload fills are packed and uploaded: the
-    # decoder reads bytes past its buffer as zeros, as it does the padding
+    # only the rows the longest payload fills are packed: the decoder
+    # reads bytes past its buffer as zeros, as it does the padding
     pw = min(plan["Pw"], host.payload_rows(max(map(len, pls))))
     st = launch.Stages("decode", stats, dev)
-    with st.stage("pack"):
-        buf, meta = host.pack_decode_chunk(pls, szs, lanes, plan["G"], pw,
-                                           len(dictionary))
     with st.stage("upload"):
-        payload_t, meta_t = convert.decoder_inputs(buf, meta, dev)
+        data, offs, lens = upload_payloads(pls, plan["G"], lanes, dev)
+        meta_t = convert.to_device(host.decode_meta(
+            pls, szs, lanes, plan["G"], pw, len(dictionary)), dev)
         seed_t = (convert.to_device(host.seed_column(seed), dev)
                   if seed is not None else None)
+    with st.stage("pack"):
+        payload_t = pack_payloads(data, offs, lens, pw)
     with st.stage("kernel"):
         res = decode(payload_t, meta_t, plan["t_max"], plan["lw"],
                      plan["tw"], plan["mw"], seed_t)

@@ -189,11 +189,11 @@ def seed_column(seed) -> np.ndarray:
     return col
 
 
-def pack_decode_chunk(payloads, sizes, lanes: int, groups: int, pw: int,
-                      dlen: int = 0):
-    """Payload bytes -> ([groups, pw, lanes] big-endian u32 words, zero
-    padded; [groups, 8, lanes] i32 meta: rows payload length, original
-    size, dictionary length ``dlen`` (0: cold blocks))."""
+def decode_meta(payloads, sizes, lanes: int, groups: int, pw: int,
+                dlen: int = 0) -> np.ndarray:
+    """The decoder's [groups, 8, lanes] i32 meta for payloads of at most
+    ``4 * pw`` bytes (ValueError past it): rows payload length, original
+    size, dictionary length ``dlen``."""
     meta = np.zeros((groups, 8, lanes), dtype=np.int32)
     for i, p in enumerate(payloads):
         if len(p) > 4 * pw:
@@ -203,6 +203,15 @@ def pack_decode_chunk(payloads, sizes, lanes: int, groups: int, pw: int,
         meta[g, 0, lane] = len(p)
         meta[g, 1, lane] = sizes[i]
         meta[g, 2, lane] = dlen
+    return meta
+
+
+def pack_decode_chunk(payloads, sizes, lanes: int, groups: int, pw: int,
+                      dlen: int = 0):
+    """Payload bytes -> ([groups, pw, lanes] big-endian u32 words, zero
+    padded; [groups, 8, lanes] i32 meta: rows payload length, original
+    size, dictionary length ``dlen`` (0: cold blocks))."""
+    meta = decode_meta(payloads, sizes, lanes, groups, pw, dlen)
     buf = native.sqz4_pack_payloads(payloads, lanes, pw)
     if buf.shape[0] < groups:
         buf = np.concatenate(

@@ -6,9 +6,11 @@ token step (decoder) per Python iteration, with the same inputs and
 outputs as their CUDA kernels (``csrc/sqz4_encode.cu``,
 ``csrc/sqz4_encode_stats.cu``, ``csrc/sqz4_encode_tok.cu``,
 ``csrc/sqz4_decode.cu``) and as the reference's Pallas launchers; the
-compaction is a concatenation (``csrc/sqz4_compact.cu``). They run on
-any device; the wrappers in ``sqz4_cuda`` use them for CPU tensors, and
-``chip_smoke.py`` holds each kernel against them on the card.
+compaction is a concatenation (``csrc/sqz4_compact.cu``), the decoder's
+payload packing a copy a lane and a shift (``csrc/sqz4_pack.cu``). They
+run on any device; the wrappers in ``sqz4_cuda`` use them for CPU
+tensors, and ``chip_smoke.py`` holds each kernel against them on the
+card.
 
 A u64 coder register is an int64 tensor holding the same 64 bits: add,
 subtract, multiply and left shift wrap identically, and the helpers below
@@ -405,6 +407,29 @@ def compact_ref(words, lens, nb: int):
     cols = words[0].view(torch.int32).t()
     return torch.cat([cols[b, :off[b + 1] - off[b]] for b in range(nb)]
                      or [cols.new_zeros(0)]).view(torch.uint32)
+
+
+def pack_payloads_ref(data, offsets, lengths, pw: int):
+    """data uint8 [n] (payloads back to back), offsets / lengths int64
+    [G, lanes] -> uint32 [G, pw, lanes]: lane b of group g holds bytes
+    data[off:off + len] as big-endian words, zero past them; a lane longer
+    than 4 * pw bytes or outside the data is all zeros (the kernel's
+    output, csrc/sqz4_pack.cu)."""
+    G, lanes = offsets.shape
+    n = data.shape[0]
+    cols = torch.zeros((G * lanes, 4 * pw), dtype=torch.uint8,
+                       device=data.device)
+    for i, (o, ln) in enumerate(zip(offsets.reshape(-1).tolist(),
+                                    lengths.reshape(-1).tolist())):
+        if 0 < ln <= 4 * pw and 0 <= o <= n - ln:
+            cols[i, :ln] = data[o:o + ln]
+    out = []
+    for g in range(G):
+        x = cols[g * lanes:(g + 1) * lanes].to(I64).reshape(lanes, pw, 4)
+        w = (x[..., 0] << 24) | (x[..., 1] << 16) | (x[..., 2] << 8) \
+            | x[..., 3]
+        out.append(to_u32(w.t()))
+    return torch.stack(out)
 
 
 class _Stream:

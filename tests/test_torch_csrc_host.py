@@ -130,6 +130,23 @@ extern "C" int host_bitpack(const uint32_t* ops, int G, int T, int B,
     return -1;
 }
 
+// data4: the payload bytes as words, the first at byte `base`;
+// offsets, lengths [G * lanes] -> out [G, pw, lanes], every word through
+// the pack kernel's device functions
+extern "C" void host_pack(const uint32_t* data4, long long base,
+                          long long nbytes, const long long* offsets,
+                          const long long* lengths, int G, int lanes,
+                          int pw, uint32_t* out) {
+    for (long long i = 0; i < static_cast<long long>(G) * lanes; ++i) {
+        const long long len = sqz4::pack_len(offsets[i], lengths[i],
+                                             nbytes, pw);
+        const long long g = i / lanes, b = i % lanes;
+        for (long long r = 0; r < pw; ++r)
+            out[(g * pw + r) * lanes + b] =
+                sqz4::pack_word(data4, base + offsets[i], len, r);
+    }
+}
+
 // words [1, R, B], offsets [nb + 1] -> out [offsets[nb]]
 extern "C" void host_compact(const uint32_t* words, int B,
                              const long long* offsets, int nb,
@@ -251,6 +268,7 @@ HARNESS = r"""
 #include "sqz4_decode.cu"
 #include "sqz4_encode_tok.cu"
 #include "sqz4_compact.cu"
+#include "sqz4_pack.cu"
 #include "squeeze_bitpack.cu"
 #include "sqz4_encode_stats.cu"
 #include "probe.cu"
@@ -466,6 +484,7 @@ inline int lowest(unsigned x) { return x ? __builtin_ctz(x) : kLanes; }
 #include "sqz4_encode_tok.cu"
 #include "sqz4_decode.cu"
 #include "sqz4_compact.cu"
+#include "sqz4_pack.cu"
 #include "squeeze_bitpack.cu"
 
 """ + CTA_SHIM + r"""
@@ -593,6 +612,8 @@ def _coder_argtypes(lib):
 def _tile_argtypes(lib):
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.host_compact.argtypes = [p, i, p, i, p, i]
+    lib.host_pack.argtypes = [p, ctypes.c_longlong, ctypes.c_longlong, p,
+                              p, i, i, i, p]
     lib.host_bitpack.argtypes = [p, i, i, i, p, i, p, i]
     lib.host_bitpack.restype = i
     lib.host_cell.argtypes = [p, i, p, i, p, i, p, p, i, i, p, p, i, i]
@@ -1259,6 +1280,34 @@ def test_compaction_lanes_equal_plain_version(lanes_lib, nb):
                            sqz4_cuda.COMPACT_ROWS)
     np.testing.assert_array_equal(
         out, convert.to_numpy(sqz4_ref.compact_ref(wt, lt, nb)))
+
+
+@pytest.mark.parametrize("base", [0, 1, 2, 3])
+def test_payload_pack_words_equal_plain_version(lanes_lib, base):
+    # the data's first byte at each offset in its word; lanes of 0-9
+    # bytes and random lengths, one of exactly 4 * pw bytes, oversized,
+    # before the data and past its end, three groups, the last short
+    rng = np.random.default_rng(base)
+    G, lanes, pw, nb = 3, 24, 12, 61
+    lens = rng.integers(0, 4 * pw + 3, G * lanes)
+    lens[:12] = (0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 4 * pw, 4 * pw + 1)
+    lens[nb:] = 0
+    offs = np.zeros(G * lanes, np.int64)
+    np.cumsum(lens[:-1] + rng.integers(0, 4, G * lanes - 1),
+              out=offs[1:])
+    nbytes = int(offs[-1] + lens[-1]) + 5
+    offs[12], offs[13] = -2, nbytes - 3
+    raw = np.zeros(base + nbytes + 8, np.uint8)
+    raw[base:base + nbytes] = rng.integers(0, 256, nbytes)
+    data4 = raw[:(base + nbytes + 3) // 4 * 4].view(np.uint32)
+    out = np.zeros((G, pw, lanes), np.uint32)
+    lanes_lib.host_pack(_ptr(data4), base, nbytes, _ptr(offs),
+                        _ptr(lens), G, lanes, pw, _ptr(out))
+    want = sqz4_ref.pack_payloads_ref(
+        torch.from_numpy(raw[base:base + nbytes].copy()),
+        torch.from_numpy(offs).view(G, lanes),
+        torch.from_numpy(lens).view(G, lanes), pw)
+    np.testing.assert_array_equal(out, convert.to_numpy(want))
 
 
 @pytest.mark.parametrize("tile_rows", [32, 64])

@@ -454,6 +454,65 @@ def test_cell_assembly_kernel_equals_plain_version(cuda, blk):
     assert resident.assemble_cells.launches == before + 1
 
 
+@pytest.mark.parametrize("shape", ["load", "decompress"])
+def test_payload_pack_kernel_equals_plain_version(cuda, shape):
+    # the load's shape: one group of 512 resident rle payloads of 64 KiB
+    # blocks; the text decompress's: three groups of texty payloads, the
+    # last short. Equal to the plain version and the host packer, word
+    # for word, from an aligned and an unaligned start of the data
+    bs, lanes = 1 << 16, host.LANES
+    if shape == "load":
+        data = synthetic.resident_mix(lanes, 16, seed=5)
+        x = torch.frombuffer(bytearray(data), dtype=torch.uint8).to(cuda)
+        payloads = container.unpack(sqz_tpu_torch.compress_resident(
+            x, blk_bits=16, mode="rle"))[4]
+    else:
+        data = corpus.texty(2 * lanes * bs + 37 * bs + 999, seed=8)
+        payloads = container.unpack(sqz_tpu_torch.compress(data))[4]
+    G = -(-len(payloads) // lanes)
+    pw = host.payload_rows(max(map(len, payloads)))
+    d, offs, lens = sqz4_cuda.upload_payloads(payloads, G, lanes, cuda)
+    before = sqz4_cuda.pack_payloads.launches
+    got = sqz4_cuda.pack_payloads(d, offs, lens, pw)
+    assert sqz4_cuda.pack_payloads.launches == before + 1
+    want = sqz4_ref.pack_payloads_ref(d.cpu(), offs.cpu(), lens.cpu(), pw)
+    assert got.shape == (G, pw, lanes)
+    assert torch.equal(got.view(torch.int32).cpu(), want.view(torch.int32))
+    words = native.sqz4_pack_payloads(payloads, lanes, pw)
+    assert np.array_equal(convert.to_numpy(got)[:words.shape[0]], words)
+    shifted = torch.cat([torch.zeros(3, dtype=torch.uint8, device=cuda),
+                         d])[1:]
+    again = sqz4_cuda.pack_payloads(shifted, offs + 2, lens, pw)
+    assert torch.equal(again.view(torch.int32), got.view(torch.int32))
+
+
+def test_payload_pack_launches_once_a_call_group(cuda, tmp_path,
+                                                 monkeypatch):
+    # the restore packs on the card once a group, decode_groups once a
+    # call, and no host pack runs on either route
+    from sqz_tpu_torch.utils import checkpoint
+    g = torch.Generator(device="cpu").manual_seed(6)
+    tree = {"w": torch.randn(10_000, generator=g).to(cuda)}
+    path = tmp_path / "w.ckpt"
+    checkpoint.save_pytree(tree, path, blk_bits=BLK)
+    nb = len(container.unpack(checkpoint.read_checkpoint(path)[1])[4])
+    data = corpus.texty(5 * (1 << BLK) + 100, seed=2)
+    blob = sqz_tpu_torch.compress(data, blk_bits=BLK)
+    calls = []
+    monkeypatch.setattr(native, "sqz4_pack_payloads",
+                        lambda *a, **k: calls.append(a))
+    lanes = 16
+    before = sqz4_cuda.pack_payloads.launches
+    back = checkpoint.load_pytree(path, lanes=lanes)
+    assert sqz4_cuda.pack_payloads.launches == before + -(-nb // lanes) == \
+        before + 3
+    assert torch.equal(back["w"], tree["w"])
+    before = sqz4_cuda.pack_payloads.launches
+    assert sqz_tpu_torch.decompress(blob) == data
+    assert sqz4_cuda.pack_payloads.launches == before + 1
+    assert calls == []
+
+
 def test_checkpoint_round_trips_on_the_card(cuda, tmp_path):
     # a mixed-dtype tree on the card: the same file as the plain versions
     # write on the CPU, restored bit for bit into CUDA tensors through

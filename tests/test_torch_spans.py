@@ -93,7 +93,7 @@ def test_decode_groups_spans_nest_in_the_call(tmp_path):
         payloads, sizes, BLK, device="cpu", lanes=LANES), tmp_path)
     assert b"".join(out) == data
     names = _check_nested(spans)
-    stages = ["sqz.decode.pack", "sqz.decode.upload", "sqz.decode.kernel",
+    stages = ["sqz.decode.upload", "sqz.decode.pack", "sqz.decode.kernel",
               "sqz.decode.fetch", "sqz.decode.assemble"]
     assert names == stages
 
@@ -112,8 +112,8 @@ def test_compress_and_decompress_spans_nest_in_the_call(tmp_path):
         blob, device="cpu"), tmp_path)
     assert back == data
     names = _check_nested(spans)
-    assert names == ["sqz.container.unpack", "sqz.decode.pack",
-                     "sqz.decode.upload", "sqz.decode.kernel",
+    assert names == ["sqz.container.unpack", "sqz.decode.upload",
+                     "sqz.decode.pack", "sqz.decode.kernel",
                      "sqz.decode.fetch", "sqz.decode.assemble",
                      "sqz.container.join", "sqz.container.checksum"]
 
@@ -137,7 +137,7 @@ def test_checkpoint_spans_nest_in_the_call(tmp_path):
     assert all(torch.equal(back[k], tree[k]) for k in tree)
     names = _check_nested(spans)
     assert names == ["sqz.checkpoint.read", "sqz.resident.unpack",
-                     "sqz.resident.pack", "sqz.resident.upload",
+                     "sqz.resident.upload", "sqz.resident.pack",
                      "sqz.resident.kernel", "sqz.resident.cell",
                      "sqz.checkpoint.leaves"]
 

@@ -684,8 +684,9 @@ def encode_data_stats(data: bytes, blk_bits: int, window: int, lz: bool,
     final state (sqz4_jax.seed_from_tokens). ``blocks``: the indices of
     the blocks to code (default all; the warm pass codes the warm gate's
     candidates, which are not block 0). ``stats`` (optional dict)
-    accumulates the stage times stats_s (tokens and statistics),
-    upload_s, kernel_s and fetch_s."""
+    accumulates the stage times plan_s (the exact tokens,
+    ``sqz4_host.exact_op_streams``), model_s (the per-op statistics,
+    ``sqz4_host.op_stats``), upload_s, kernel_s and fetch_s."""
     dev = torch.device(device)
     bs = 1 << blk_bits
     nb = max(1, -(-len(data) // bs))
@@ -698,10 +699,13 @@ def encode_data_stats(data: bytes, blk_bits: int, window: int, lz: bool,
     payloads = []
     for g0 in range(0, len(idx), lanes):
         grp = idx[g0:g0 + lanes]
-        with st.stage("stats"):
+        with st.stage("plan"):
             chunk = (data[:bs] if warm else b"") + b"".join(
                 data[b * bs:(b + 1) * bs] for b in grp)
-            cols = host.op_stream_stats(chunk, window, blk_bits, lz, warm)
+            streams = host.exact_op_streams(chunk, window, blk_bits, lz,
+                                            warm)
+        with st.stage("model"):
+            cols = host.op_stats(streams)
             if warm:   # block 0 planned for its tail and seed only
                 t = int(np.flatnonzero(cols[2][1:].any(0))
                         .max(initial=0)) + 1

@@ -60,13 +60,22 @@ def op_stream_stats(data: bytes, window: int, blk_bits: int,
                     lz: bool = True, warm: bool = False):
     """The stats-fed encoder's input for ``data`` (the reference's scan
     route, sqz4_jax.encode_blocks and stats_for_ops): every block's
-    exact-parse op stream (``native.sqz4_plan_pack``, one block a row)
-    turned into per-op coder statistics (``native.sqz4_model_stats``).
-    ``warm`` (sqzt v2, FORMAT.md §3.1): blocks 1+ match into block 0's
-    tail and start their models from its rescaled final state, which the
-    planner returns; block 0 stays cold. Returns (start, size, total),
-    each u32 [nblocks, T]: a flush as (0, 0, 1), since the model stats
-    give it (0, 0, 0), which the encoder reads as a pad; pads (0, 0, 0)."""
+    exact-parse op stream (``exact_op_streams``) turned into per-op coder
+    statistics (``op_stats``). ``warm`` (sqzt v2, FORMAT.md §3.1): blocks
+    1+ match into block 0's tail and start their models from its rescaled
+    final state, which the planner returns; block 0 stays cold. Returns
+    (start, size, total), each u32 [nblocks, T]: a flush as (0, 0, 1),
+    since the model stats give it (0, 0, 0), which the encoder reads as a
+    pad; pads (0, 0, 0)."""
+    return op_stats(exact_op_streams(data, window, blk_bits, lz, warm))
+
+
+def exact_op_streams(data: bytes, window: int, blk_bits: int,
+                     lz: bool = True, warm: bool = False):
+    """Every block's exact-parse op stream (``native.sqz4_plan_pack``, one
+    block a row), as ``op_stream_stats`` takes it: (m_words, s_words
+    [nblocks, R, 1] u32, the longest stream's ops, the warm seed or None
+    where the pass is cold)."""
     nb = max(1, -(-len(data) // (1 << blk_bits)))
     warm = warm and nb > 1
     # one block shorter than 2^blk_bits plans at the bits that hold it:
@@ -74,14 +83,21 @@ def op_stream_stats(data: bytes, window: int, blk_bits: int,
     bits = min(blk_bits, max(len(data) - 1, 1).bit_length())
     plan = native.sqz4_plan_pack(data, window, bits, lz, 1,
                                  op_stream_cap(bits, len(data)), warm=warm)
-    mw, sw, mx = plan[:3]
-    rows = -(-int(mx) // 4)
+    return plan[0], plan[1], int(plan[2]), plan[3] if warm else None
+
+
+def op_stats(streams):
+    """``exact_op_streams``' op streams -> the per-op coder statistics
+    (start, size, total) of ``op_stream_stats``, one
+    ``native.sqz4_model_stats`` call a block, and the flush marks."""
+    mw, sw, mx, seed = streams
+    nb, rows = mw.shape[0], -(-mx // 4)
     out = np.zeros((3, nb, rows * 4), np.uint32)
     for b in range(nb):
         m = mw[b, :rows, 0].astype(">u4").view(np.uint8)
         s = sw[b, :rows, 0].astype(">u4").view(np.uint8)
         out[:, b] = native.sqz4_model_stats(
-            m, s, seed=plan[3] if warm and b else None)
+            m, s, seed=seed if b else None)
         out[2, b, m == OP_FLUSH] = 1
     return out[0], out[1], out[2]
 

@@ -178,6 +178,15 @@ Phases (any failure exits non-zero):
      native host packer word for word, with its CUDA-event time, its
      bound and the plain version's and the host packer's times
      (``python3 chip_smoke.py --pack`` runs only the build and this).
+ 18. the per-op model statistics on the card (``csrc/sqz4_model_stats.cu``,
+     run after phase 11): one compress of 10^8 B of texty at 1 MiB
+     blocks must launch them once (one group of 96 lanes) and never call
+     the host's per-block walk (``sqz4_host.op_stats``), its round trip
+     exact; then the kernels at that shape and at 512 x 64 KiB of the
+     same text must equal the native walk and their plain version
+     element for element, with their CUDA-event time, their bound and
+     the plain version's and the host walk's times (``python3
+     chip_smoke.py --model-stats`` runs only the build and this).
 
 The second-to-last line is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
@@ -2315,7 +2324,8 @@ COUNTERS = {"sqz4_encode": ("sqz4_cuda", "encode_full", "launches"),
             "sqz4_compact": ("sqz4_cuda", "compact_words", "launches"),
             "sqz4_cell_assembly": ("resident", "assemble_cells",
                                    "launches"),
-            "sqz4_pack": ("sqz4_cuda", "pack_payloads", "launches")}
+            "sqz4_pack": ("sqz4_cuda", "pack_payloads", "launches"),
+            "sqz4_model_stats": ("sqz4_cuda", "model_stats", "launches")}
 
 
 def _counter(mod, fn):
@@ -2448,6 +2458,86 @@ def pack_path(card):
         f" host packer {host_ms:.1f} ms; launches: load {load_launches}, "
         f"decompress {text_launches}")
     return rows["first"], load_launches + text_launches, fig
+
+
+MODEL_BITS = 20   # phase 18: the wide cell's blocks (10^8 B, 96 lanes)
+
+
+def model_stats_vs_plain(pool, data, blk_bits):
+    """Phase 18's check of the model statistics kernels on the exact
+    parse of ``data`` at ``blk_bits``, one group of the route's
+    ``group_lanes`` (as ``encode_data_stats`` uploads it): the statistics
+    equal the native per-block walk's (``sqz4_host.op_stats``, timed) and
+    the plain version's (in a worker of ``pool``, on CPU copies),
+    tolerance 0. Returns the PlainCheck, the bound (ms, by: the op words
+    read once and the statistics written once) and the host walk's ms."""
+    import numpy as np
+    from sqz_tpu_torch import convert
+    from sqz_tpu_torch.ops import sqz4_cuda, sqz4_host as host, sqz4_ref
+    streams = host.exact_op_streams(data, 1 << MAIN_WIN_BITS, blk_bits)
+    mw, sw, mx, _ = streams
+    rows = -(-mx // 4)
+    m, s = (convert.to_device(w[:, :rows, 0], "cuda") for w in (mw, sw))
+    n = m.shape[0]
+    chk = PlainCheck(pool, sqz4_cuda.model_stats, sqz4_ref.model_stats_ref,
+                     (m, s, host.group_lanes(n)), REPS)
+    t = time.perf_counter()
+    want = host.op_stats(streams)
+    host_ms = (time.perf_counter() - t) * 1e3
+    for got, w in zip(chk.got, want):
+        by_lane = convert.to_numpy(got).transpose(0, 2, 1).reshape(
+            -1, 4 * rows)
+        if not np.array_equal(by_lane[:n], w) or by_lane[n:].any():
+            raise AssertionError(f"model statistics at {n} x 2^{blk_bits}"
+                                 f" B differ from the native walk")
+    return (chk, bound(2 * m.numel() * 4 + 3 * chk.got[0].numel() * 4, 0),
+            host_ms)
+
+
+def model_stats_path(card, pool):
+    """Phase 18: the model statistics kernels at the wide cell's shape
+    (10^8 B of texty at 1 MiB blocks, 96 lanes) and at 512 x 64 KiB,
+    against the native walk and their plain version; their launches over
+    one wide compress of 10^8 B (one a group, and the host walk never
+    called). Returns (the kernel table's entry at the wide cell's shape,
+    launches, figures)."""
+    import sqz_tpu_torch
+    from sqz_tpu_torch.ops import sqz4_host as host
+    from sqz_tpu_torch.utils import corpus
+    text = corpus.texty(TEXT_BYTES, seed=1)
+    kw = dict(blk_bits=MODEL_BITS, win_bits=MAIN_WIN_BITS)
+    walk = host.op_stats
+
+    def no_walk(*a, **k):
+        raise AssertionError("the wide route called sqz4_host.op_stats")
+
+    host.op_stats = no_walk
+    try:
+        reset_launches()
+        blob = sqz_tpu_torch.compress(text, **kw)
+        launches = read_launches().get("sqz4_model_stats", 0)
+    finally:
+        host.op_stats = walk
+    groups = -(-len(text) // (host.LANES << MODEL_BITS))
+    if launches != groups or sqz_tpu_torch.decompress(blob) != text:
+        raise AssertionError(f"wide compress of {TEXT_BYTES} B: {launches} "
+                             f"model statistics launches, not {groups}, or "
+                             f"no round trip")
+    fig, rows = {}, {}
+    for name, data, bits in (("wide", text, MODEL_BITS),
+                             ("main", text[:MAIN_BYTES], MAIN_BITS)):
+        chk, (b_ms, by), host_ms = model_stats_vs_plain(pool, data, bits)
+        err, ms, plain_ms = chk.result()
+        rows[name] = (err, ms, plain_ms, b_ms, by, None)
+        fig.update({f"model_stats_{name}_ms": ms,
+                    f"model_stats_{name}_bound_ms": b_ms,
+                    f"model_stats_{name}_plain_ms": plain_ms,
+                    f"model_stats_{name}_host_ms": host_ms})
+        log(f"model statistics, {chk.got[0].shape[2]} lanes x 2^{bits} B "
+            f"of texty ({card}): kernels {ms:.3f} ms, bound {b_ms:.4f} ms "
+            f"({by}), plain {plain_ms:.1f} ms, the host walk "
+            f"{host_ms:.1f} ms")
+    return rows["wide"], launches, fig
 
 
 def mesh_checkpoint(card, state, path, work):
@@ -2655,6 +2745,9 @@ KERNELS = (   # name, source, the TPU kernel it replaces
      "sqz_tpu/ops/resident.py:422,498 (jax.lax.scan, not a Pallas kernel)"),
     ("sqz4_pack", "sqz4_pack.cu",
      "not a Pallas kernel: the host's sqz4_pack_payloads"),
+    ("sqz4_model_stats", "sqz4_model_stats.cu",
+     "not a Pallas kernel: the host loop of sqz_tpu/ops/sqz4_jax.py:367 "
+     "stats_for_ops (native sqz4_model_stats a block)"),
 )
 
 
@@ -2681,6 +2774,13 @@ def main() -> int:
         log(json.dumps({"card": card, **{k: round(v, 4)
                                          for k, v in fig.items()}}))
         return 0
+    if sys.argv[1:] == ["--model-stats"]:
+        with ProcessPoolExecutor(
+                2, mp_context=multiprocessing.get_context("spawn")) as pool:
+            _row, _n, fig = model_stats_path(card, pool)
+        log(json.dumps({"card": card, **{k: round(v, 4)
+                                         for k, v in fig.items()}}))
+        return 0
     from sqz_tpu_torch.ops import sqz4_host
     from sqz_tpu_torch.utils import corpus
     pool = ProcessPoolExecutor(
@@ -2699,6 +2799,9 @@ def main() -> int:
         we2e.update(anchored_path())
         _wlaunches, wide_e2e, wide_checks = wide_path(data, pool)
         we2e.update(wide_e2e)
+        mrow, launches["sqz4_model_stats"], mfig = model_stats_path(card,
+                                                                     pool)
+        we2e.update(mfig)
         t = time.perf_counter()
         we2e.update(huge_block_path(pool))
         log(f"blk_bits {HUGE_BITS} phase: {time.perf_counter() - t:.1f} s")
@@ -2716,6 +2819,7 @@ def main() -> int:
         full = kernels_vs_plain(data, MAIN_BITS, MAIN_WIN_BITS,
                                 sqz4_host.LANES, REPS, STATS_BITS, pool)
         full["sqz4_encode_tok_lit_skip"] = rchk.result() + rextra
+        full["sqz4_model_stats"] = mrow
         kres = kchk.result() + kextra
         we2e.update(lit_skip_ckpt_group_plain_ms=kres[2],
                     lit_skip_ckpt_group_bound_ms=kres[3])
@@ -2764,6 +2868,9 @@ def main() -> int:
                                     f"mix, the rle container's group",
               "sqz4_pack": f"the first {sqz4_host.LANES} payloads of "
                            f"phase 17's checkpoint",
+              "sqz4_model_stats": f"{TEXT_BYTES} B of texty at "
+                                  f"2^{MODEL_BITS} B blocks, one group of "
+                                  f"96 lanes",
               "probe": "the 8 of the 14 probes one torch call computes, "
                        "in one launch, at the reference's inputs, [1, 128] "
                        "and [256, 128]"}

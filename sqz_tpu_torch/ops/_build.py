@@ -1,8 +1,8 @@
 """Build the CUDA sources under ``csrc/`` with nvcc and load them (ctypes).
 
 The kernels (the sqz4 coders, compaction and the decoder's payload
-packing, the resident restore's cell assembly, the squeeze bit-packer,
-the primitive probes) have a plain C
+packing, the per-op model statistics, the resident restore's cell
+assembly, the squeeze bit-packer, the primitive probes) have a plain C
 interface (``extern "C"`` launchers taking device pointers, sizes and a
 stream), so they compile in seconds without PyTorch's headers. Each
 source compiles in its own nvcc process, all started together, and one
@@ -32,9 +32,11 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("sqz4_encode.cu", "sqz4_decode.cu", "sqz4_encode_tok.cu",
            "sqz4_compact.cu", "squeeze_bitpack.cu", "sqz4_encode_stats.cu",
-           "probe.cu", "sqz4_cell.cu", "sqz4_pack.cu")
+           "probe.cu", "sqz4_cell.cu", "sqz4_pack.cu",
+           "sqz4_model_stats.cu")
 HEADERS = ("sqz4_coder.cuh", "sqz4_div.cuh", "sqz4_warp.cuh",
-           "sqz4_chain.cuh", "sqz4_pair.cuh", "sqz_tile.cuh")
+           "sqz4_chain.cuh", "sqz4_pair.cuh", "sqz_tile.cuh",
+           "sqz4_window.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "sqz_tpu_torch"
 LIB = BUILD_DIR / "libsqz4cuda.so"
 ARCH = "arch=compute_90a,code=sm_90a"
@@ -133,5 +135,10 @@ def library() -> ctypes.CDLL:
             lib.sqz4_pack_launch.restype = i
             lib.sqz4_pack_launch.argtypes = [p, ctypes.c_longlong, p, p, i,
                                              i, i, p, p]
+            lib.sqz4_model_hist_launch.restype = i
+            lib.sqz4_model_hist_launch.argtypes = [p, p, i, i, p, p]
+            lib.sqz4_model_stats_launch.restype = i
+            lib.sqz4_model_stats_launch.argtypes = [p, p, i, i, i, p, p, p,
+                                                    p, p]
             _lib = lib
         return _lib

@@ -1,13 +1,13 @@
 """sqz4 kernel wrappers and the whole-buffer device encode and decode.
 
-``encode_full``, ``encode_tok``, ``encode_stats``, ``decode``,
-``compact_words`` and ``pack_payloads`` launch the CUDA kernels
-(``csrc/``) for tensors on a CUDA device and run the plain versions
-(``sqz4_ref``) for tensors on the CPU; any other device raises. Each
-counts its kernel launches in its ``launches`` attribute; ``encode_full``
-and ``decode`` count their seeded (warm-start) launches apart, in
-``seeded_launches``, and ``encode_tok`` its lit_skip launches (the
-resident paths) in ``lit_skip_launches``.
+``encode_full``, ``encode_tok``, ``encode_stats``, ``model_stats``,
+``decode``, ``compact_words`` and ``pack_payloads`` launch the CUDA
+kernels (``csrc/``) for tensors on a CUDA device and run the plain
+versions (``sqz4_ref``) for tensors on the CPU; any other device raises.
+Each counts its kernel launches in its ``launches`` attribute;
+``encode_full`` and ``decode`` count their seeded (warm-start) launches
+apart, in ``seeded_launches``, and ``encode_tok`` its lit_skip launches
+(the resident paths) in ``lit_skip_launches``.
 
 ``encode_data_full``, ``encode_data_tok`` and ``decode_groups`` are the
 main path around them: the native host planner -> op streams or tokens
@@ -17,10 +17,10 @@ card) -> decoder kernel -> token records -> native host assembly.
 ``encode_groups`` codes per-op statistics computed on the host
 (``native.sqz4_model_stats``) through the stats-fed encoder, and
 ``encode_data_stats`` is the route above 64 KiB blocks around it (the
-reference's scan route: exact tokens and statistics on the host, one
-launch a group of ``sqz4_host.group_lanes`` blocks); its decode is
-``decode_groups`` at that group width. Blocks ride lanes of
-``[groups, rows, lanes]`` arrays, as in the reference.
+reference's scan route: exact tokens on the host, the per-op statistics
+from them on the card, one launch a group of ``sqz4_host.group_lanes``
+blocks); its decode is ``decode_groups`` at that group width. Blocks
+ride lanes of ``[groups, rows, lanes]`` arrays, as in the reference.
 """
 
 from __future__ import annotations
@@ -299,6 +299,55 @@ def encode_groups(start: np.ndarray, size: np.ndarray, total: np.ndarray,
     return host.unpack_group_payloads(
         convert.to_numpy(words[:, :host.trimmed_rows(lens)]), lens,
         start.shape[0])
+
+
+def model_stats(m_words: torch.Tensor, s_words: torch.Tensor, lanes: int,
+                seed: torch.Tensor = None):
+    """Per-op coder statistics of packed op streams: m_words / s_words
+    uint32 [n, rows], block i's ops in row i (four big-endian u8 ops a
+    word, as ``sqz4_host.exact_op_streams`` plans them), ``seed`` None
+    (cold) or the seed column, int32 [SEED_WORDS]
+    (``sqz4_host.seed_column``), from which every block starts -> (start,
+    size, total) uint32 [G, 4 * rows, lanes], ``encode_stats``' inputs:
+    block i on lane i % lanes of group i // lanes, each op's statistics
+    before its model's update, a flush (0, 0, 1), a pad and every lane
+    past n (0, 0, 0), as ``sqz4_host.op_stats`` gives them. The kernels
+    (``csrc/sqz4_model_stats.cu``: each chunk's counts, each chunk's base
+    state summed here, each chunk's statistics) for tensors on the card,
+    the plain version (``sqz4_ref.model_stats_ref``) for tensors on the
+    CPU; a call counts once in ``model_stats.launches``."""
+    launch.check_tensor(m_words, "m_words", torch.uint32, ndim=2)
+    launch.check_tensor(s_words, "s_words", torch.uint32, ndim=2)
+    if m_words.shape != s_words.shape or lanes < 1:
+        raise ValueError("model statistics take m_words and s_words of one "
+                         "[n, rows] shape and lanes >= 1")
+    dev = launch.kernel_device(m_words, s_words)
+    _seed_arg(seed, dev)
+    if dev.type == "cpu":
+        return sqz4_ref.model_stats_ref(m_words, s_words, lanes, seed)
+    from sqz_tpu_torch.ops import _build
+    n, rows = m_words.shape
+    chunks = -(-4 * rows // sqz4_ref.MODEL_CHUNK_OPS)
+    hist = torch.empty((n, chunks, sqz4_ref.SEED_WORDS), dtype=torch.int32,
+                       device=dev)
+    out = launch.zeros((3, -(-n // lanes), 4 * rows, lanes), torch.uint32,
+                       dev)
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        launch.launched(lib.sqz4_model_hist_launch(
+            m_words.data_ptr(), s_words.data_ptr(), n, rows,
+            hist.data_ptr(), stream), "sqz4_model_hist")
+        base = sqz4_ref.chunk_bases(hist, seed)
+        launch.launched(lib.sqz4_model_stats_launch(
+            m_words.data_ptr(), s_words.data_ptr(), n, rows, lanes,
+            base.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
+            out[2].data_ptr(), stream), "sqz4_model_stats")
+    launch.count(model_stats)
+    return out[0], out[1], out[2]
+
+
+model_stats.launches = 0
 
 
 def compact_words(words: torch.Tensor, lens: torch.Tensor, nb: int):
@@ -672,10 +721,10 @@ def encode_data_stats(data: bytes, blk_bits: int, window: int, lz: bool,
     """Whole-buffer encode through the stats-fed encoder -> one payload a
     block: the reference's scan route (sqz4_jax.encode_blocks), which the
     engine takes above 64 KiB blocks. Each group of
-    ``sqz4_host.group_lanes`` blocks is tokenized exactly on the host and
-    its per-op model statistics computed there
-    (``sqz4_host.op_stream_stats``), then coded in one launch; payloads
-    equal the native engine's exact parse. The capacity is the
+    ``sqz4_host.group_lanes`` blocks is tokenized exactly on the host, its
+    op words uploaded, its per-op model statistics computed from them
+    (``model_stats``: the kernels on the card) and coded in one launch;
+    payloads equal the native engine's exact parse. The capacity is the
     reference's, twice the largest block plus 4096 bytes (ValueError past
     it).
 
@@ -685,8 +734,8 @@ def encode_data_stats(data: bytes, blk_bits: int, window: int, lz: bool,
     the blocks to code (default all; the warm pass codes the warm gate's
     candidates, which are not block 0). ``stats`` (optional dict)
     accumulates the stage times plan_s (the exact tokens,
-    ``sqz4_host.exact_op_streams``), model_s (the per-op statistics,
-    ``sqz4_host.op_stats``), upload_s, kernel_s and fetch_s."""
+    ``sqz4_host.exact_op_streams``), upload_s (the op words), model_s
+    (the per-op statistics, ``model_stats``), kernel_s and fetch_s."""
     dev = torch.device(device)
     bs = 1 << blk_bits
     nb = max(1, -(-len(data) // bs))
@@ -702,18 +751,25 @@ def encode_data_stats(data: bytes, blk_bits: int, window: int, lz: bool,
         with st.stage("plan"):
             chunk = (data[:bs] if warm else b"") + b"".join(
                 data[b * bs:(b + 1) * bs] for b in grp)
-            streams = host.exact_op_streams(chunk, window, blk_bits, lz,
-                                            warm)
-        with st.stage("model"):
-            cols = host.op_stats(streams)
-            if warm:   # block 0 planned for its tail and seed only
-                t = int(np.flatnonzero(cols[2][1:].any(0))
-                        .max(initial=0)) + 1
-                cols = [c[1:, :t] for c in cols]
+            mw, sw, mx, seed = host.exact_op_streams(chunk, window, blk_bits,
+                                                     lz, warm)
         with st.stage("upload"):
-            inputs = pack_group_stats(cols, dev, lanes)
+            # block 0 of the warm pass is planned for its tail and seed
+            # only
+            first, rows = int(warm), -(-mx // 4)
+            m_t, s_t = (convert.to_device(w[first:, :rows, 0], dev)
+                        for w in (mw, sw))
+            seed_t = (convert.to_device(host.seed_column(seed), dev)
+                      if warm else None)
+        with st.stage("model"):
+            cols = model_stats(m_t, s_t, lanes, seed_t)
+            if warm:   # up to the last op of any block: pads code nothing
+                used = (cols[2].view(torch.int32) != 0).any(2).any(0)
+                last = used.nonzero()
+                t = int(last.max()) + 1 if last.numel() else 1
+                cols = tuple(c[:, :t] for c in cols)
         with st.stage("kernel"):
-            words, lens = encode_stats(*inputs, cap_words)
+            words, lens = encode_stats(*cols, cap_words)
         with st.stage("fetch"):
             payloads += fetch_payloads(words, lens, len(grp), fetch_mode())
     return payloads

@@ -7,10 +7,11 @@ outputs as their CUDA kernels (``csrc/sqz4_encode.cu``,
 ``csrc/sqz4_encode_stats.cu``, ``csrc/sqz4_encode_tok.cu``,
 ``csrc/sqz4_decode.cu``) and as the reference's Pallas launchers; the
 compaction is a concatenation (``csrc/sqz4_compact.cu``), the decoder's
-payload packing a copy a lane and a shift (``csrc/sqz4_pack.cu``). They
-run on any device; the wrappers in ``sqz4_cuda`` use them for CPU
-tensors, and ``chip_smoke.py`` holds each kernel against them on the
-card.
+payload packing a copy a lane and a shift (``csrc/sqz4_pack.cu``), the
+per-op model statistics a window of ops at a time, every block side by
+side (``csrc/sqz4_model_stats.cu``). They run on any device; the
+wrappers in ``sqz4_cuda`` use them for CPU tensors, and
+``chip_smoke.py`` holds each kernel against them on the card.
 
 A u64 coder register is an int64 tensor holding the same 64 bits: add,
 subtract, multiply and left shift wrap identically, and the helpers below
@@ -430,6 +431,103 @@ def pack_payloads_ref(data, offsets, lengths, pw: int):
             | x[..., 3]
         out.append(to_u32(w.t()))
     return torch.stack(out)
+
+
+# ops of a chunk of the model statistics kernel (csrc/sqz4_model_stats.cu
+# kChunkOps)
+MODEL_CHUNK_OPS = 1 << 13
+# the seed column's running-sum segments: byte, size and bits models
+_SEGMENTS = ((0, 256), (256, 512), (512, 544))
+
+
+def chunk_bases(hist, seed=None):
+    """Each chunk's starting models, int32 [n, chunks, SEED_WORDS] in the
+    seed column's form, from each chunk's counts ``hist`` in the same form
+    and shape: the blocks' starting column (cold, or ``seed``'s) plus the
+    sum over the block's earlier chunks (the step between the model
+    statistics kernel's passes)."""
+    start = _start_counts(1, hist.device, seed)[0].to(torch.int32)
+    return torch.cumsum(hist, 1, dtype=torch.int32) - hist + start
+
+
+def _model_of(m, s):
+    """Packed op codes m and symbols s (int64) -> (coded, the model 0..35,
+    the op's seed-column count slot 0..609; pads and flushes model 36 and
+    slot 610)."""
+    coded = m < 36
+    bits = s.clamp(max=31)
+    slot = torch.where(m == 2, s, torch.where(
+        m == 1, 256 + s, torch.where(
+            m == 3, 512 + bits, torch.where(
+                m == 0, 544 + (s != 0).to(I64),
+                torch.where(s != 0, 578, 546) + m - 4))))
+    return coded, torch.where(coded, m, 36), torch.where(coded, slot, 610)
+
+
+def model_stats_ref(m_words, s_words, lanes: int, seed=None):
+    """m_words / s_words: uint32 [n, rows], block i's ops in row i (four
+    big-endian u8 ops a word); ``seed``: None (cold) or the seed column,
+    int32 [SEED_WORDS], from which every block starts. Returns (start,
+    size, total) uint32 [G, 4 * rows, lanes]: each op's statistics before
+    its model's update (block i on lane i % lanes of group i // lanes), a
+    flush (0, 0, 1), a pad and every lane past n (0, 0, 0), as
+    csrc/sqz4_model_stats.cu and ``sqz4_host.op_stats`` give them. The
+    blocks step side by side a window of ops at a time (128 ops for up to
+    8 blocks, else 32: the fastest on the CPU): the models' counts at the
+    window's start plus each op's earlier ops in the window."""
+    n, rows = m_words.shape
+    window = 128 if n <= 8 else 32
+    dev = m_words.device
+    T = 4 * rows
+    shifts = torch.tensor([24, 16, 8, 0], dtype=I64, device=dev)
+
+    def ops(w):
+        return ((w.view(torch.int32).to(I64)[:, :, None] >> shifts)
+                & 0xFF).reshape(n, T)
+
+    m, s = ops(m_words), ops(s_words)
+    coded, model, slot = _model_of(m, s)
+    sym = torch.where((m == 1) | (m == 2), s, torch.where(
+        m == 3, s.clamp(max=31), (s != 0).to(I64)))
+    key = model * 256 + sym
+    # the counts, a trash slot for pads: the column's running sums undone
+    cnt = torch.zeros((n, SEED_WORDS + 1), dtype=I64, device=dev)
+    cnt[:, :SEED_WORDS] = _start_counts(n, dev, seed)
+    for lo, hi in _SEGMENTS:
+        cnt[:, lo + 1:hi] -= cnt[:, lo:hi - 1].clone()
+    out = torch.zeros((3, n, T), dtype=I64, device=dev)
+    later = torch.ones((window, window), dtype=torch.bool,
+                       device=dev).tril(-1)   # [i, j]: j before i
+    for o in range(0, T, window):
+        mo, ko, so = (x[:, o:o + window] for x in (model, key, slot))
+        w = mo.shape[1]
+        # each slot's counts below it in its model, each model's total
+        below = torch.zeros_like(cnt)
+        for lo, hi in _SEGMENTS:
+            below[:, lo:hi] = cnt[:, lo:hi].cumsum(1) - cnt[:, lo:hi]
+        below[:, 545] = cnt[:, 544]
+        below[:, 578:610] = cnt[:, 546:578]
+        tot = torch.stack(
+            [cnt[:, 544] + cnt[:, 545], cnt[:, 256:512].sum(1),
+             cnt[:, 0:256].sum(1), cnt[:, 512:544].sum(1)], 1)
+        tot = torch.cat([tot, cnt[:, 546:578] + cnt[:, 578:610],
+                         torch.zeros((n, 1), dtype=I64, device=dev)], 1)
+        same = (mo[:, :, None] == mo[:, None, :]) & later[:w, :w] \
+            & (mo < 36)[:, None, :]
+        lt = (same & (ko[:, None, :] < ko[:, :, None])).sum(2)
+        eq = (same & (ko[:, None, :] == ko[:, :, None])).sum(2)
+        c = coded[:, o:o + w]
+        out[0, :, o:o + w] = torch.where(c, below.gather(1, so) + lt, 0)
+        out[1, :, o:o + w] = torch.where(c, cnt.gather(1, so) + eq, 0)
+        out[2, :, o:o + w] = torch.where(
+            c, tot.gather(1, mo) + same.sum(2),
+            (m[:, o:o + w] == MOP_FLUSH).to(I64))
+        cnt.scatter_add_(1, so, torch.ones_like(so))
+    G = -(-n // lanes)
+    full = torch.zeros((3, G * lanes, T), dtype=I64, device=dev)
+    full[:, :n] = out
+    cols = full.reshape(3, G, lanes, T).transpose(2, 3)
+    return tuple(to_u32(c.contiguous()) for c in cols)
 
 
 class _Stream:

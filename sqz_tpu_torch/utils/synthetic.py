@@ -90,6 +90,26 @@ def one_model(op: int, reps: int, seed: int):
     return pack_words(m, 1), pack_words(s, 1)
 
 
+def planned_streams(lengths, seed: int, model: int = None):
+    """Op streams of ``len(lengths)`` blocks with the given op counts, as
+    the exact planner lays them out (``sqz4_host.exact_op_streams``, the
+    model statistics' input): ``op_codes`` with the symbols a planner
+    writes (bits up to 31, binary ones 0 or 1), every coded op of
+    ``model`` where it is given, pads past each block's count. Returns
+    m_words, s_words uint32 [nb, T/4], block b's ops in row b."""
+    rng = np.random.default_rng(seed)
+    lengths = np.asarray(lengths)
+    t = max(4, -(-int(lengths.max()) // 4) * 4)
+    m, s = op_codes(rng, (lengths.size, t))
+    if model is not None:
+        m = np.where(m < 36, model, m)
+    binary = (m == 0) | ((m >= 4) & (m < 36))
+    s = np.where(m == 3, np.minimum(s, 31), np.where(binary, s != 0, s))
+    m = np.where(np.arange(t)[None, :] < lengths[:, None], m, PAD)
+    return tuple(pack_words(x.astype(np.uint8), lengths.size)[0].T.copy()
+                 for x in (m, s))
+
+
 def stats_stream(nb: int, max_rows: int, seed: int, lanes: int = None):
     """Statistics of ``nb`` blocks (``encode_stats``'s start, size,
     total): per row 10% pads (total 0), 3% flushes (size 0), the rest a

@@ -260,6 +260,57 @@ inline void cta_sync() { t_cta->sync(); }
 }  // namespace sqz4_cell
 """
 
+
+# The model statistics kernel's two passes as its warps run them, chunk
+# after chunk: pass 1 counts every chunk of every block into hist [n,
+# chunks, kSeedWords]; pass 2, from each chunk's base state
+# (sqz4_ref.chunk_bases of hist), writes the statistics of the chunks
+# listed in sel (nsel < 0: all).
+MODEL_HOSTS = r"""
+extern "C" int host_model_chunk_ops() { return sqz4::kChunkOps; }
+
+extern "C" void host_model_hist(const uint32_t* m, const uint32_t* s, int n,
+                                int rows, int32_t* hist) {
+    constexpr int chunk = sqz4::kChunkOps;
+    const long long ops = 4LL * rows;
+    const long long chunks = (ops + chunk - 1) / chunk;
+    std::vector<int> h(sqz4::kSeedWords);
+    for (long long b = 0; b < n; ++b)
+        for (long long c = 0; c < chunks; ++c)
+            on_warp([&] {
+                sqz4::count_chunk(m + b * rows, s + b * rows, c * chunk,
+                                  static_cast<int>(std::min<long long>(
+                                      chunk, ops - c * chunk)),
+                                  h.data(),
+                                  hist + (b * chunks + c) * sqz4::kSeedWords);
+            });
+}
+
+extern "C" void host_model_stats(const uint32_t* m, const uint32_t* s,
+                                 int n, int rows, int lanes,
+                                 const int32_t* base, const int* sel,
+                                 int nsel, uint32_t* start, uint32_t* size,
+                                 uint32_t* total) {
+    constexpr int chunk = sqz4::kChunkOps;
+    const long long ops = 4LL * rows;
+    const long long chunks = (ops + chunk - 1) / chunk;
+    std::vector<int> h(sqz4::kHist);
+    for (long long b = 0; b < n; ++b)
+        for (long long k = 0; k < (nsel < 0 ? chunks : nsel); ++k) {
+            const long long c = nsel < 0 ? k : sel[k];
+            const long long out = b / lanes * ops * lanes + b % lanes;
+            on_warp([&] {
+                sqz4::stats_chunk(m + b * rows, s + b * rows, c * chunk,
+                                  static_cast<int>(std::min<long long>(
+                                      chunk, ops - c * chunk)),
+                                  base + (b * chunks + c) * sqz4::kSeedWords,
+                                  h.data(), start + out, size + out,
+                                  total + out, lanes);
+            });
+        }
+}
+"""
+
 HARNESS = r"""
 #define SQZ_DEVICE inline
 #define __clzll(x) __builtin_clzll(x)
@@ -272,6 +323,7 @@ HARNESS = r"""
 #include "squeeze_bitpack.cu"
 #include "sqz4_encode_stats.cu"
 #include "probe.cu"
+#include "sqz4_model_stats.cu"
 """ + CTA_SHIM + r"""
 #include "sqz4_cell.cu"
 #include <algorithm>
@@ -412,7 +464,7 @@ static void on_tile(int warps, F body) {
         });
     for (auto& t : th) t.join();
 }
-""" + TILE_HOSTS + CELL_HOSTS
+""" + TILE_HOSTS + CELL_HOSTS + MODEL_HOSTS
 
 
 WARP_HARNESS = r"""
@@ -486,6 +538,7 @@ inline int lowest(unsigned x) { return x ? __builtin_ctz(x) : kLanes; }
 #include "sqz4_compact.cu"
 #include "sqz4_pack.cu"
 #include "squeeze_bitpack.cu"
+#include "sqz4_model_stats.cu"
 
 """ + CTA_SHIM + r"""
 #include "sqz4_cell.cu"
@@ -582,7 +635,7 @@ extern "C" void host_decode(const uint32_t* p, const int32_t* meta, int G,
                                   counts + g * 8 * B + b, sm.get());
             });
 }
-""" + TILE_HOSTS + CELL_HOSTS
+""" + TILE_HOSTS + CELL_HOSTS + MODEL_HOSTS
 
 
 def _build(tmp_path_factory, name, source, std):
@@ -606,6 +659,8 @@ def _coder_argtypes(lib):
                                 p, i, p]
     lib.host_encode_tok.argtypes = [p, i, p, i, i, i, i, p, i, p, i]
     lib.host_encode_stats.argtypes = [p, p, p, i, i, i, p, i, p]
+    lib.host_model_hist.argtypes = [p, p, i, i, p]
+    lib.host_model_stats.argtypes = [p, p, i, i, i, p, p, i, p, p, p]
     return lib
 
 
@@ -2037,3 +2092,110 @@ def test_probe_batch_equals_plain_version(lanes_lib):
         np.testing.assert_array_equal(out, probe.expected(name))
         want = probe.plain(name, *probe.probe_tensors(name, "cpu"))
         np.testing.assert_array_equal(out, convert.to_numpy(want))
+
+
+# The model statistics kernel's passes (count_chunk, the base states of
+# sqz4_ref.chunk_bases, stats_chunk) and its plain version against the
+# native per-block loop (``sqz4_host.op_stats``: sqz4_model_stats with
+# the flush marks), element for element.
+
+CHUNK = sqz4_ref.MODEL_CHUNK_OPS
+MODEL_LANES = 4   # lanes a group: the synthetic cases' five blocks fill two
+
+
+def _planned(data, blk, win, warm=False):
+    """The exact parse's op streams of ``data`` as the route uploads them:
+    (m, s [n, rows] u32, the native seed or None, op_stats' statistics
+    [n, T] each); the warm pass without block 0."""
+    streams = host.exact_op_streams(data, 1 << win, blk, True, warm)
+    mw, sw, mx, seed = streams
+    rows, first = -(-mx // 4), int(warm)
+    want = [w[first:] for w in host.op_stats(streams)]
+    return (*(np.ascontiguousarray(w[first:, :rows, 0]) for w in (mw, sw)),
+            seed, want)
+
+
+def _synthetic(lengths, seed, model=None):
+    """``synthetic.planned_streams`` as ``_planned`` returns them."""
+    m, s = synthetic.planned_streams(lengths, seed, model)
+    t = 4 * m.shape[1]
+    return m, s, None, list(host.op_stats((m[..., None], s[..., None], t,
+                                           None)))
+
+
+MODEL_CASES = {
+    # two blocks of pseudo-text at 1 MiB blocks, the second short
+    "texty-20": lambda: _planned(corpus.texty((1 << 20) + (1 << 17),
+                                              seed=41), 20, 15),
+    # one block of random bytes: literals, a flag and a byte an op pair
+    "random-18": lambda: _planned(corpus.random_bytes(1 << 18, seed=42),
+                                  18, 15),
+    # the warm pass: blocks 1+ from block 0's final state
+    "warm": lambda: _planned(_data(1 << 10), 10, 10, warm=True),
+    "shorter-than-a-chunk": lambda: _synthetic(
+        [CHUNK - 37, 0, 1, 900, CHUNK - 40], 43),
+    "one-chunk": lambda: _synthetic([CHUNK, 17, CHUNK - 1, 5, 3000], 44),
+    "one-past-a-chunk": lambda: _synthetic([CHUNK, CHUNK + 1, 9, 0, 4], 45),
+    # every coded op of the byte model: each window's ops share it
+    "one-model": lambda: _synthetic([CHUNK + 100, 70, 33, 0, 1], 46,
+                                    model=2),
+}
+
+
+def _model_inputs(case):
+    m, s, seed, want = MODEL_CASES[case]()
+    col = (None if seed is None
+           else torch.from_numpy(host.seed_column(seed)))
+    return m, s, col, want
+
+
+def _model_stats_host(lib, m, s, col, sel=None):
+    """The kernel's two passes on the host harness ``lib``: the statistics
+    [G, T, MODEL_LANES] of the chunks in ``sel`` (default all)."""
+    n, rows = m.shape
+    chunks = -(-4 * rows // CHUNK)
+    hist = np.zeros((n, chunks, sqz4_ref.SEED_WORDS), np.int32)
+    lib.host_model_hist(_ptr(m), _ptr(s), n, rows, _ptr(hist))
+    base = np.ascontiguousarray(
+        sqz4_ref.chunk_bases(torch.from_numpy(hist), col).numpy())
+    out = np.zeros((3, -(-n // MODEL_LANES), 4 * rows, MODEL_LANES),
+                   np.uint32)
+    sel_a = np.asarray(sel if sel is not None else [], np.int32)
+    lib.host_model_stats(_ptr(m), _ptr(s), n, rows, MODEL_LANES, _ptr(base),
+                         _ptr(sel_a), -1 if sel is None else len(sel),
+                         *(_ptr(out[k]) for k in range(3)))
+    return out
+
+
+@pytest.mark.parametrize("impl", ["lane", "warp", "plain"])
+@pytest.mark.parametrize("case", list(MODEL_CASES))
+def test_model_stats_equal_native(request, case, impl):
+    # each chunk's counts, the base states summed over the chunks before
+    # it and each chunk's statistics from them (on a warp of one lane and
+    # of 32 host threads; there, past two chunks, the last chunk alone,
+    # from the counts of all before it), and the plain version, against
+    # the native per-block walk
+    m, s, col, want = _model_inputs(case)
+    n, rows = m.shape
+    T = 4 * rows
+    chunks = -(-T // CHUNK)
+    sel = None
+    if impl == "plain":
+        got = np.stack([convert.to_numpy(x) for x in sqz4_ref.model_stats_ref(
+            *(convert.to_device(x, "cpu") for x in (m, s)), MODEL_LANES,
+            col)])
+    else:
+        lib = request.getfixturevalue("lanes_lib" if impl == "lane"
+                                      else "warp_lib")
+        assert lib.host_model_chunk_ops() == CHUNK
+        if impl == "warp" and chunks > 2:
+            sel = [chunks - 1]
+        got = _model_stats_host(lib, m, s, col, sel)
+    lanes = got.transpose(0, 1, 3, 2).reshape(3, -1, T)
+    cols = np.zeros(T, bool)
+    for c in range(chunks) if sel is None else sel:
+        cols[c * CHUNK:(c + 1) * CHUNK] = True
+    for k in range(3):
+        np.testing.assert_array_equal(lanes[k, :n][:, cols],
+                                      want[k][:, cols])
+    assert not lanes[:, n:].any()

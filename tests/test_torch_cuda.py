@@ -346,6 +346,72 @@ def test_wide_route_codes_literal_models_past_two_to_the_17(cuda):
                                    lanes=host.group_lanes(1)) == [data]
 
 
+def _model_stats_inputs(case):
+    """(m, s [n, rows] u32, seed column or None, lanes, the native
+    statistics [n, T] each) of one case: planned text or random bytes
+    (every block cold), a warm pass (blocks 1+ seeded), or synthetic
+    streams whose lengths meet the kernel's chunk boundaries."""
+    chunk = sqz4_ref.MODEL_CHUNK_OPS
+    if case == "synthetic":
+        m, s = synthetic.planned_streams([chunk - 1, chunk, 2 * chunk + 1,
+                                          0, 5], 7)
+        return m, s, None, 4, host.op_stats((m[..., None], s[..., None],
+                                             4 * m.shape[1], None))
+    warm = case == "warm"
+    data, blk = {"texty": (corpus.texty(3 << 17, seed=8), 17),
+                 "random": (corpus.random_bytes(1 << 18, seed=9), 18),
+                 "warm": (corpus.texty(6 << 12, seed=10)
+                          + corpus.random_bytes(3 << 12, seed=11), 12)}[case]
+    streams = host.exact_op_streams(data, 1 << 15, blk, True, warm)
+    mw, sw, mx, seed = streams
+    first, rows = int(warm), -(-mx // 4)
+    m, s = (np.ascontiguousarray(w[first:, :rows, 0]) for w in (mw, sw))
+    col = None if seed is None else torch.from_numpy(host.seed_column(seed))
+    return (m, s, col, host.group_lanes(m.shape[0]),
+            [w[first:] for w in host.op_stats(streams)])
+
+
+@pytest.mark.parametrize("case", ["texty", "random", "warm", "synthetic"])
+def test_model_stats_kernel_equals_plain_version(cuda, case):
+    # the per-op statistics on the card (each chunk's counts, the chunks'
+    # base states, each chunk's statistics) equal the plain version's and
+    # the native per-block walk's element for element, cold and warm
+    m, s, col, lanes, want = _model_stats_inputs(case)
+    n, rows = m.shape
+    before = sqz4_cuda.model_stats.launches
+    got = sqz4_cuda.model_stats(
+        *(convert.to_device(x, cuda) for x in (m, s)), lanes,
+        None if col is None else col.to(cuda))
+    assert sqz4_cuda.model_stats.launches == before + 1
+    plain = sqz4_ref.model_stats_ref(
+        *(convert.to_device(x, "cpu") for x in (m, s)), lanes, col)
+    for a, b, w in zip(got, plain, want):
+        a = convert.to_numpy(a)
+        assert np.array_equal(a, convert.to_numpy(b))
+        by_lane = a.transpose(0, 2, 1).reshape(-1, 4 * rows)
+        assert np.array_equal(by_lane[:n], w)
+        assert not by_lane[n:].any()
+
+
+def test_wide_compress_launches_model_stats_once_a_group(cuda,
+                                                         monkeypatch):
+    # one compress above 64 KiB blocks (three blocks, one group): one
+    # launch set of the model statistics, and never the host's per-block
+    # loop
+    def no_host_stats(*a, **k):
+        raise AssertionError("the route called sqz4_host.op_stats")
+
+    monkeypatch.setattr(host, "op_stats", no_host_stats)
+    data = corpus.texty(3 << 17, seed=12)
+    before = sqz4_cuda.model_stats.launches
+    blob = sqz_tpu_torch.compress(data, blk_bits=17, win_bits=15)
+    assert sqz4_cuda.model_stats.launches == before + 1
+    assert blob == sqz_tpu_torch.compress(data, engine="native",
+                                          blk_bits=17, win_bits=15,
+                                          parse="exact")
+    assert sqz_tpu_torch.decompress(blob) == data
+
+
 @pytest.mark.parametrize("mode", ["rle", "lz"])
 def test_lit_skip_kernel_equals_plain_version(cuda, mode):
     # the device parse's tokens over the raw blocks of 13 lanes (the last

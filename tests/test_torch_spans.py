@@ -119,15 +119,15 @@ def test_compress_and_decompress_spans_nest_in_the_call(tmp_path):
 
 
 def test_wide_route_spans_split_the_statistics(tmp_path):
-    # above 64 KiB blocks the host's exact tokens and its per-op
-    # statistics are sibling stages, one after the other
+    # above 64 KiB blocks the host's exact tokens and the per-op
+    # statistics are sibling stages, the op words' upload between them
     data = corpus.texty(1500, seed=3)
     blob, spans = _profiled(lambda: sqz_tpu_torch.compress(
         data, blk_bits=17, win_bits=10, device="cpu"), tmp_path)
     names = _check_nested(spans)
     assert names == ["sqz.container.split", "sqz.container.join",
-                     "sqz.encode.plan", "sqz.encode.model",
-                     "sqz.encode.upload", "sqz.encode.kernel",
+                     "sqz.encode.plan", "sqz.encode.upload",
+                     "sqz.encode.model", "sqz.encode.kernel",
                      "sqz.encode.fetch", "sqz.container.checksum",
                      "sqz.container.pack"]
     (p1,), (m0,) = ([e for n, _, e, _ in spans if n == "sqz.encode.plan"],

@@ -36,20 +36,23 @@ Phases (any failure exits non-zero):
      cycles per coded symbol, each checked against the native engine
      (``chain_figures``; ``python3 chip_smoke.py --chain`` runs only the
      build and this);
-  4. the serial main path: 32 MiB of pseudo-text in 64 KiB blocks (one
-     group), compressed and decompressed through ``sqz_tpu_torch.compress``
-     / ``decompress``. The exact-parse container must equal the native
-     engine's byte for byte; both parses must round-trip, and the native
-     engine must decode the fast-parse container. The op-stream encoder's
-     and the decoder's launch counts over this run must be > 0;
+  4. the one-group main path: 32 MiB of pseudo-text in 64 KiB blocks
+     (one group through the pipeline), compressed and decompressed
+     through ``sqz_tpu_torch.compress`` / ``decompress``. The exact-parse
+     container must equal the native engine's byte for byte; both parses
+     must round-trip, and the native engine must decode the fast-parse
+     container. The op-stream encoder's and the decoder's launch counts
+     over this run must be > 0;
   5. the pipelined main path: 128 MiB (4 groups) through ``compress`` /
      ``decompress`` with their defaults (fast parse, planner thread, token
-     kernel, compaction kernel). The container must equal the serial
-     path's (SQZ_PIPELINE=0), round-trip, and decode on the native engine;
-     the token kernel's and the compaction kernel's launch counts over
-     this run must be > 0. The pipeline (compact and trim fetch) and the
-     serial path are then timed in turns, and profiled once each for the
-     card's busy time; the pipeline's stage times are printed;
+     kernel, compaction kernel). The container's payloads must equal the
+     serial path's (``sqz4_cuda.encode_data_full``: the op-stream kernel
+     in one launch), and the container must round-trip and decode on the
+     native engine; its size and sha256 are printed; the token kernel's
+     and the compaction kernel's launch counts over this run must be > 0.
+     The pipeline and the serial path are then timed in turns, and
+     profiled once each for the card's busy time; the pipeline's stage
+     times are printed;
   6. the squeeze main path: the 32 MiB input through ``compress(fmt=
      "squeeze")`` / ``decompress``, cold exact, warm exact (sqzt v2) and
      cold fast. The exact containers, cold and warm, must equal the native
@@ -972,7 +975,7 @@ def chain_inputs(texty=None):
 
 
 def main_path():
-    """Phase 4: the serial (one group) main path through the public API."""
+    """Phase 4: the one-group main path through the public API."""
     import sqz_tpu_torch
     from sqz_tpu_torch import native
     from sqz_tpu_torch.formats import container
@@ -1017,12 +1020,12 @@ def main_path():
     if min(launches.values()) < 1:
         raise AssertionError(f"a kernel was not launched: {launches}")
     mb = len(data) / 1e6
-    log(f"serial main path, 32 MiB in 64 KiB blocks: exact enc {enc_s:.3f} "
-        f"s ({mb / enc_s:.1f} MB/s) dec {dec_s:.3f} s ({mb / dec_s:.1f} "
-        f"MB/s) ratio {len(blob) / len(data):.4f}; fast enc {fenc_s:.3f} s "
-        f"({mb / fenc_s:.1f} MB/s) dec {fdec_s:.3f} s "
+    log(f"one-group main path, 32 MiB in 64 KiB blocks: exact enc "
+        f"{enc_s:.3f} s ({mb / enc_s:.1f} MB/s) dec {dec_s:.3f} s "
+        f"({mb / dec_s:.1f} MB/s) ratio {len(blob) / len(data):.4f}; fast "
+        f"enc {fenc_s:.3f} s ({mb / fenc_s:.1f} MB/s) dec {fdec_s:.3f} s "
         f"({mb / fdec_s:.1f} MB/s) ratio {len(fblob) / len(data):.4f}")
-    log(f"launches over the serial main path: {launches}")
+    log(f"launches over the one-group main path: {launches}")
     return data, blob, fblob, launches, dict(
         exact_enc_MBps=mb / enc_s, exact_dec_MBps=mb / dec_s,
         fast_enc_MBps=mb / fenc_s, fast_dec_MBps=mb / fdec_s,
@@ -1044,51 +1047,43 @@ def stage_times(data):
         + json.dumps({k: round(v, 4) for k, v in dec_st.items()}))
 
 
-def timed_compress(data, env, profiled=False, **kw):
-    """(container, wall seconds, card-busy ms or None) of one default
-    ``compress`` (64 KiB blocks, ``kw`` added) under the environment
-    ``env``; ``profiled``: the card's busy time (kernels and copies,
+def timed_call(fn, profiled=False):
+    """(``fn()``'s result, wall seconds, card-busy ms or None) of one
+    call; ``profiled``: the card's busy time (kernels and copies,
     torch.profiler) over the call."""
-    import sqz_tpu_torch
     import torch
     from torch.profiler import ProfilerActivity, profile
-    saved = {k: os.environ.get(k) for k in env}
-    os.environ.update(env)
-    try:
-        busy = None
-        if profiled:
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                t = time.perf_counter()
-                blob = sqz_tpu_torch.compress(data, blk_bits=MAIN_BITS,
-                                              win_bits=MAIN_WIN_BITS, **kw)
-                wall = time.perf_counter() - t
-            busy = sum(e.self_device_time_total for e in prof.key_averages()
-                       if e.device_type == torch.autograd.DeviceType.CUDA
-                       ) / 1e3
-        else:
-            t = time.perf_counter()
-            blob = sqz_tpu_torch.compress(data, blk_bits=MAIN_BITS,
-                                          win_bits=MAIN_WIN_BITS, **kw)
-            wall = time.perf_counter() - t
-        return blob, wall, busy
-    finally:
-        for k, v in saved.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
+    if not profiled:
+        t = time.perf_counter()
+        out = fn()
+        return out, time.perf_counter() - t, None
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        out = fn()
+        wall = time.perf_counter() - t
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    return out, wall, busy
 
 
-# the pipelined phase's configurations, timed in turns (A B C C B A)
-PIPE_RUNS = {"pipeline": {}, "serial": {"SQZ_PIPELINE": "0"},
-             "trim": {"SQZ_FETCH": "trim"}}
-PIPE_ORDER = ("pipeline", "serial", "trim", "trim", "serial", "pipeline")
+def timed_compress(data, profiled=False, **kw):
+    """``timed_call`` of one default ``compress`` (64 KiB blocks, ``kw``
+    added)."""
+    import sqz_tpu_torch
+    return timed_call(lambda: sqz_tpu_torch.compress(
+        data, blk_bits=MAIN_BITS, win_bits=MAIN_WIN_BITS, **kw), profiled)
+
+
+# the pipelined phase's runs, timed in turns (A B B A)
+PIPE_ORDER = ("pipeline", "serial", "serial", "pipeline")
 
 
 def pipelined_path():
     """Phase 5: 128 MiB (4 groups) through the defaults: the pipeline with
-    the token and compaction kernels, against the serial path."""
+    the token and compaction kernels, against the serial path (the
+    op-stream kernel in one launch, ``sqz4_cuda.encode_data_full``)."""
+    import hashlib
     import sqz_tpu_torch
     from sqz_tpu_torch import native
     from sqz_tpu_torch.formats import container
@@ -1101,7 +1096,7 @@ def pipelined_path():
                 sqz4_cuda.compact_words, sqz4_cuda.decode)
     for c in counters:
         c.launches = 0
-    blob, _s, _b = timed_compress(data, {})
+    blob, _s, _b = timed_compress(data)
     t = time.perf_counter()
     out = sqz_tpu_torch.decompress(blob)
     dec_s = time.perf_counter() - t
@@ -1110,31 +1105,43 @@ def pipelined_path():
                 "sqz4_compact": sqz4_cuda.compact_words.launches,
                 "sqz4_decode": sqz4_cuda.decode.launches}
     log(f"launches over the pipelined main path: {launches}")
+    log(f"128 MiB container: {len(blob)} B, sha256 "
+        f"{hashlib.sha256(blob).hexdigest()}")
     if out != data:
         raise AssertionError("pipelined round trip failed")
     if min(launches["sqz4_encode_tok"], launches["sqz4_compact"]) < 1:
         raise AssertionError(f"a kernel was not launched: {launches}")
-    if native.blocks_decompress(container.unpack(blob)[4], len(data), 1,
-                                MAIN_BITS) != data:
+    payloads = container.unpack(blob)[4]
+    if native.blocks_decompress(payloads, len(data), 1, MAIN_BITS) != data:
         raise AssertionError("native engine cannot decode the pipelined "
                              "container")
-    walls = {k: [] for k in PIPE_RUNS}
+
+    def serial():
+        return sqz4_cuda.encode_data_full(
+            data, MAIN_BITS, 1 << MAIN_WIN_BITS, True,
+            (1 << MAIN_BITS) + 2048, parse="fast")
+
+    runs = {"pipeline": (lambda: sqz_tpu_torch.compress(
+                data, blk_bits=MAIN_BITS, win_bits=MAIN_WIN_BITS), blob),
+            "serial": (serial, payloads)}
+    walls = {k: [] for k in runs}
     for name in PIPE_ORDER:
-        other, wall, _b = timed_compress(data, PIPE_RUNS[name])
-        if other != blob:
-            raise AssertionError(f"the {name} container differs from the "
-                                 f"pipeline's")
+        fn, want = runs[name]
+        other, wall, _b = timed_call(fn)
+        if other != want:
+            raise AssertionError(f"the {name} payloads differ from the "
+                                 f"pipeline's container")
         walls[name].append(wall)
-    busy = {k: timed_compress(data, PIPE_RUNS[k], profiled=True)[1:]
-            for k in ("pipeline", "serial")}
+    busy = {k: timed_call(fn, profiled=True)[1:]
+            for k, (fn, _w) in runs.items()}
     st = {}
     pipeline.encode_data_pipelined(data, MAIN_BITS, 1 << MAIN_WIN_BITS,
                                    True, (1 << MAIN_BITS) + 2048, stats=st)
     mb = len(data) / 1e6
-    log("128 MiB compress wall (s), in turns "
+    log("128 MiB encode wall (s), in turns "
         + " ".join(PIPE_ORDER) + ": " + json.dumps(
             {k: [round(w, 4) for w in v] for k, v in walls.items()}))
-    log("128 MiB compress under torch.profiler (wall s, card busy ms, "
+    log("128 MiB encode under torch.profiler (wall s, card busy ms, "
         "idle share): " + json.dumps(
             {k: [round(w, 4), round(b, 2), round(1 - b / 1e3 / w, 4)]
              for k, (w, b) in busy.items()}))
@@ -1147,7 +1154,6 @@ def pipelined_path():
         {k: round(v, 4) for k, v in st.items()}))
     return blob, launches, dict(
         pipe_enc_MBps=mb / min(walls["pipeline"]),
-        pipe_trim_enc_MBps=mb / min(walls["trim"]),
         serial_enc_MBps=mb / min(walls["serial"]),
         pipe_dec_MBps=mb / dec_s, pipe_ratio=len(blob) / len(data))
 
@@ -1215,7 +1221,7 @@ def squeeze_path(data):
         {k: round(v, 4) for k, v in st.items()})
         + f"; the native engine's exact encode of the same blocks (host "
         f"threads, no write records): {native_s:.4f} s")
-    _b, wall, busy = timed_compress(data, {}, profiled=True, fmt="squeeze")
+    _b, wall, busy = timed_compress(data, profiled=True, fmt="squeeze")
     log(f"squeeze default compress under torch.profiler: wall {wall:.4f} "
         f"s, card busy {busy:.2f} ms, idle share "
         f"{1 - busy / 1e3 / wall:.4f}")

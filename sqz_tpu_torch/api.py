@@ -43,6 +43,7 @@ from sqz_tpu_torch.formats.constants import (SQZT_FORMAT_SQUEEZE,
                                              SQZT_FORMAT_SQZ4,
                                              warm_dictionary, warm_gate_mask)
 from sqz_tpu_torch.ops.launch import CONTAINER, resolve_device
+from sqz_tpu_torch.ops.sqz4_host import parse_mode
 
 
 class Format(str, enum.Enum):
@@ -60,13 +61,11 @@ def _host_parse(parse: str, engine: Engine) -> str:
     """The parse of the host planners and codecs (``sqz_tpu/api.py``'s
     ``_host_parse``): 'auto' is fast on the torch engine (its sqzt
     contract is round trip and ratio), exact on the host engines (their
-    containers equal across engines); SQZ_PARSE overrides."""
-    env = os.environ.get("SQZ_PARSE")
-    if env in ("fast", "exact"):
-        return env
-    if parse == "auto":
-        return "fast" if engine is Engine.TORCH else "exact"
-    return parse
+    containers equal across engines); SQZ_PARSE overrides
+    (``sqz4_host.parse_mode``)."""
+    if parse == "auto" and engine is not Engine.TORCH:
+        parse = "exact"
+    return parse_mode(parse)
 
 
 def _block_encoder(fmt: Format, engine: Engine, win_bits: int, lz: bool,

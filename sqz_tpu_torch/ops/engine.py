@@ -4,11 +4,10 @@ Counterpart of ``sqz_tpu/ops/engine.py`` (``compress_blocks`` and
 ``decompress_blocks``):
 
 - sqz4, cold: the host planner parses each block, the card codes and
-  decodes the blocks, and the host assembles the decoded bytes. Inputs of
-  more than one group (``LANES`` blocks) encode through the pipeline
-  (planner thread and card overlapped, ``ops/pipeline.py``) unless
-  SQZ_PIPELINE is "0"; smaller ones in one launch
-  (``sqz4_cuda.encode_data_full``). Both give the same payloads.
+  decodes the blocks, and the host assembles the decoded bytes. Every
+  cold input encodes through the pipeline (planner thread and card
+  overlapped, a launch a group of ``LANES`` blocks, ``ops/pipeline.py``),
+  and decodes through ``sqz4_cuda.decode_groups``.
 - sqz4, warm (sqzt v2): the cold pass, then, per the warm gate's
   candidates, a seeded pass (blocks 1+ start from block 0's final model
   state and match into its tail): on host threads when there are few
@@ -41,7 +40,6 @@ Anchored containers (sqzt v3) are planned on the host (``api.py``).
 
 from __future__ import annotations
 
-import os
 from typing import List, Sequence
 
 from sqz_tpu_torch import native
@@ -157,12 +155,9 @@ def _sqz4_blocks(parts, data, win_bits, lz, blk_bits, warm, parse, device):
     if blk_bits > sqz4_cuda.MAIN_BLK_BITS:
         return _sqz4_wide(parts, data, win_bits, lz, blk_bits, warm, device)
     bs = 1 << blk_bits
-    encode = (pipeline.encode_data_pipelined
-              if len(parts) > LANES
-              and os.environ.get("SQZ_PIPELINE", "1") != "0"
-              else sqz4_cuda.encode_data_full)
-    cold = encode(data, blk_bits, 1 << win_bits, lz, cap=bs + 2048,
-                  parse=parse, device=device)
+    cold = pipeline.encode_data_pipelined(data, blk_bits, 1 << win_bits, lz,
+                                          cap=bs + 2048, parse=parse,
+                                          device=device)
     if not warm:
         return cold
     return _warm_pass(
@@ -264,18 +259,12 @@ def decompress_blocks(payloads: Sequence[bytes], sizes: Sequence[int],
             return [decompress_payload(p, s, seed=seed,
                                        dictionary=dictionary)
                     for p, s in zip(pls, szs)]
-    elif wide:
+    else:
         def decode_batch(pls, szs, seed, dictionary, ids):
             return sqz4_cuda.decode_groups(
                 pls, szs, blk_bits, device=device,
-                lanes=group_lanes(len(pls)), block_ids=ids, seed=seed,
-                dictionary=dictionary)
-    else:
-        def decode_batch(pls, szs, seed, dictionary, ids):
-            decode = (pipeline.decode_data_pipelined if len(pls) > LANES
-                      else sqz4_cuda.decode_groups)
-            return decode(pls, szs, blk_bits, device=device, seed=seed,
-                          dictionary=dictionary, block_ids=ids)
+                lanes=group_lanes(len(pls)) if wide else LANES,
+                block_ids=ids, seed=seed, dictionary=dictionary)
     if not warm:
         outs = decode_batch(payloads, sizes, None, b"",
                             list(range(len(payloads))))

@@ -1,20 +1,24 @@
 """Pipelined sqz4 encode: overlap the host planner with the card
-(counterpart of ``sqz_tpu/ops/pipeline.py``).
+(counterpart of ``sqz_tpu/ops/pipeline.py``), the engine's cold encode at
+64 KiB blocks and below.
 
 The input is cut into groups of ``lanes`` blocks. A planner thread plans
 group k+1 (and k+2: the queue holds two) while the main thread uploads
 group k from pinned host memory, runs its kernel on a CUDA stream of its
-own and downloads its payloads, group after group in order. The native
-planner releases the GIL, so the two threads run at once.
+own and downloads its payloads compacted on the card, group after group
+in order. The native planner releases the GIL, so the two threads run at
+once. The parse picks the transport: the fast parse uploads one u32 token
+per parse decision plus packed literals (~1.1 B per input byte) to the
+token kernel; the exact parse uploads micro-op streams (~4.5 B/B) to the
+op-stream kernel.
 
-Payloads equal the serial path's (``sqz4_cuda.encode_data_full``) for the
-same parse: grouping only batches the launches, and every block is coded
-from its own op sequence and fresh models.
+Payloads equal ``sqz4_cuda.encode_data_full``'s for the same parse:
+grouping only batches the launches, and every block is coded from its own
+op sequence and fresh models.
 """
 
 from __future__ import annotations
 
-import os
 import queue
 import threading
 import time
@@ -23,44 +27,19 @@ from typing import List
 import numpy as np
 import torch
 
-from sqz_tpu_torch import convert, native
+from sqz_tpu_torch import native
 from sqz_tpu_torch.ops import launch, sqz4_cuda, sqz4_host as host
 
 
-def _transport(parse: str, transport: str) -> str:
-    """'tok' (one u32 token per parse decision plus packed literals, ~1.1 B
-    of upload per input byte; the fast parse's default) or 'ops' (micro-op
-    streams, ~4.5 B/B; the exact parse's). SQZ_TRANSPORT overrides."""
-    env = os.environ.get("SQZ_TRANSPORT")
-    if env in ("tok", "ops"):
-        transport = env
-    elif transport == "auto":
-        transport = "tok" if parse == "fast" else "ops"
-    if transport == "tok" and parse != "fast":
-        raise ValueError("the token transport carries the fast parse only")
-    return transport
-
-
 def _plan_ops(chunk: bytes, blk_bits: int, window: int, lz: bool,
-              parse: str, lanes: int, pin: bool):
-    """One group's op streams as uint32 [1, rows, lanes] host tensors (the
-    fast parse relaid on the host: its rows are contiguous per block)."""
-    tp_cap = host.op_stream_cap(blk_bits)
-    if parse == "fast":
-        m8, s8, mx = native.sqz4_fast_plan(chunk, window, blk_bits, lz,
-                                           tp_cap,
-                                           depth=sqz4_cuda.fast_depth())
-        rows = -(-int(mx) // 4)
-        m_u8, s_u8 = convert.fast_plan_inputs(m8, s8, lanes, rows, "cpu")
-        mw, sw = (convert.to_numpy(sqz4_cuda.pack_ops_words(x))
-                  for x in (m_u8, s_u8))
-    else:
-        mw, sw, mx = native.sqz4_plan_pack(chunk, window, blk_bits, lz,
-                                           lanes, tp_cap)
-        rows = -(-int(mx) // 4)
-        mw, sw = mw[:, :rows], sw[:, :rows]
+              lanes: int, pin: bool):
+    """One group's exact-parse op streams as int32 [1, rows, lanes] host
+    tensors (``native.sqz4_plan_pack``), in pinned memory if ``pin``."""
+    mw, sw, mx = native.sqz4_plan_pack(chunk, window, blk_bits, lz, lanes,
+                                       host.op_stream_cap(blk_bits))
+    rows = -(-int(mx) // 4)
     out = []
-    for a in (mw, sw):
+    for a in (mw[:, :rows], sw[:, :rows]):
         t = torch.empty(a.shape, dtype=torch.int32, pin_memory=pin)
         t.numpy()[...] = a.view(np.int32)
         out.append(t)
@@ -69,17 +48,15 @@ def _plan_ops(chunk: bytes, blk_bits: int, window: int, lz: bool,
 
 def encode_data_pipelined(data: bytes, blk_bits: int, window: int, lz: bool,
                           cap: int, parse: str = "auto", lanes: int = None,
-                          device="cuda", transport: str = "auto",
-                          tok_cap: int = None,
+                          device="cuda", tok_cap: int = None,
                           stats: dict = None) -> List[bytes]:
     """Whole-buffer sqz4 encode with host/device overlap; returns the
     per-block payloads (the contract of ``sqz4_cuda.encode_data_full``).
 
-    ``parse`` as in ``encode_data_full`` (SQZ_PARSE overrides);
-    ``transport`` 'tok', 'ops' or 'auto' (``_transport``); ``lanes``
+    ``parse`` as in ``encode_data_full`` (SQZ_PARSE overrides): 'fast'
+    takes the token kernel, 'exact' the op-stream kernel; ``lanes``
     blocks a group (default 512); ``tok_cap`` overrides the token cap
-    (blocks over it take the op-stream kernel); SQZ_FAST_DEPTH and
-    SQZ_FETCH as in ``sqz4_cuda``.
+    (blocks over it take the op-stream kernel).
 
     ``stats`` (optional dict) gets the active wall seconds of each stage
     (the stages ``sqz.pipeline.<stage>`` of a profile): plan_s (planner
@@ -95,9 +72,7 @@ def encode_data_pipelined(data: bytes, blk_bits: int, window: int, lz: bool,
     st = launch.Stages("pipeline", stats)
     sqz4_cuda.check_main_blk_bits(blk_bits)
     dev = torch.device(device)
-    parse = host.parse_mode(parse)
-    transport = _transport(parse, transport)
-    fetch = sqz4_cuda.fetch_mode()
+    tok = host.parse_mode(parse) == "fast"
     lanes = lanes or host.LANES
     pin = dev.type == "cuda"
     bs = 1 << blk_bits
@@ -115,12 +90,12 @@ def encode_data_pipelined(data: bytes, blk_bits: int, window: int, lz: bool,
                     break
                 with st.stage("plan"):
                     chunk = data[g * gbytes:(g + 1) * gbytes]
-                    if transport == "tok":
+                    if tok:
                         plan = sqz4_cuda.plan_tok_group(
                             chunk, blk_bits, window, lz, tok_cap, pin)
                     else:
-                        plan = _plan_ops(chunk, blk_bits, window, lz, parse,
-                                         lanes, pin)
+                        plan = _plan_ops(chunk, blk_bits, window, lz, lanes,
+                                         pin)
                 q.put((chunk, plan))
         except BaseException as e:           # surface planner errors
             q.put(e)
@@ -144,13 +119,12 @@ def encode_data_pipelined(data: bytes, blk_bits: int, window: int, lz: bool,
                 if isinstance(item, BaseException):
                     raise item
                 chunk, plan = item
-                if transport == "tok":
+                if tok:
                     payloads += sqz4_cuda.encode_tok_group(
-                        plan, chunk, blk_bits, window, lz, cap, dev, fetch,
-                        st)
+                        plan, chunk, blk_bits, window, lz, cap, dev, st)
                 else:
                     payloads += _encode_ops_group(plan, chunk, blk_bits, cap,
-                                                  dev, fetch, st)
+                                                  dev, st)
     except BaseException:
         # cancel and unblock the planner (bounded queue) so the thread
         # exits after at most its current group
@@ -168,25 +142,11 @@ def encode_data_pipelined(data: bytes, blk_bits: int, window: int, lz: bool,
 
 
 def _encode_ops_group(plan, chunk: bytes, blk_bits: int, cap: int, dev,
-                      fetch: str, st: launch.Stages) -> List[bytes]:
+                      st: launch.Stages) -> List[bytes]:
     """One planned group of op streams through the op-stream kernel."""
     nb = max(1, -(-len(chunk) // (1 << blk_bits)))
     with st.stage("dispatch"):
         m, s = (x.to(dev, non_blocking=True).view(torch.uint32)
                 for x in plan)
         words, lens = sqz4_cuda.encode_full(m, s, host.cap_words_for(cap))
-    return sqz4_cuda.collect_group(words, lens, nb, fetch, st)
-
-
-def decode_data_pipelined(payloads, sizes, blk_bits: int, device="cuda",
-                          stats: dict = None, seed=None,
-                          dictionary: bytes = b"",
-                          block_ids=None) -> List[bytes]:
-    """Whole-container decode: ``sqz4_cuda.decode_groups``, which takes
-    every block in one launch (the reference's default; its threaded
-    packer, SQZ_DEC_PIPE=thread, is not ported), warm with ``seed`` and
-    ``dictionary``."""
-    return sqz4_cuda.decode_groups(payloads, sizes, blk_bits, device=device,
-                                   stats=stats, seed=seed,
-                                   dictionary=dictionary,
-                                   block_ids=block_ids)
+    return sqz4_cuda.collect_group(words, lens, nb, st)

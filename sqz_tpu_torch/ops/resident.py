@@ -341,9 +341,9 @@ def encode_rows(data, blk_bits: int, coder, dev,
                 st: launch.Stages = SPANS):
     """``data`` (bytes or a uint8 tensor) -> one payload per block through
     ``coder`` (``resident_coder``'s tuple), a launch per ``per`` groups of
-    its lanes, the payloads fetched group by group (compacted on the card
-    by SQZ_FETCH's default). ``st`` times and names the stages parse (the
-    blocks' layout counts in it), kernel and fetch."""
+    its lanes, the payloads fetched group by group (compacted on the card,
+    ``sqz4_cuda.fetch_payloads``). ``st`` times and names the stages parse
+    (the blocks' layout counts in it), kernel and fetch."""
     group, gargs, lanes, per = coder
     with st.stage("parse"):
         blocks, lengths, nb = _prep_blocks(data, blk_bits, lanes, dev)
@@ -358,7 +358,7 @@ def encode_rows(data, blk_bits: int, coder, dev,
             for g in range(G):
                 payloads += sqz4_cuda.fetch_payloads(
                     words[g:g + 1], lens[g:g + 1],
-                    min(lanes, nb - g0 - g * lanes), sqz4_cuda.fetch_mode())
+                    min(lanes, nb - g0 - g * lanes))
     return payloads
 
 

@@ -20,7 +20,6 @@ import torch
 from sqz_tpu_torch import convert, native
 from sqz_tpu_torch.ops import sqz4_host as host
 from sqz_tpu_torch.ops import launch, squeeze_ref
-from sqz_tpu_torch.ops.sqz4_cuda import fast_depth
 
 # Record rows of a bit-packer tile (csrc/squeeze_bitpack.cu: 32 lanes x
 # this many rows a CTA; the launcher takes 128 or 256, and 256 measured
@@ -92,8 +91,8 @@ def squeeze_encode_data(data: bytes, blk_bits: int, win_bits: int, cap: int,
     planner seeds blocks 1+ from block 0's trees and tail dictionary; the
     packer holds no state). ``parse`` 'exact' gives the native engine's
     payloads; 'fast' (the 'auto' default, SQZ_PARSE overrides) the bounded
-    matcher's (SQZ_FAST_DEPTH links). ``stats`` (optional dict)
-    accumulates the stage times plan_s, upload_s, kernel_s and fetch_s."""
+    matcher's. ``stats`` (optional dict) accumulates the stage times
+    plan_s, upload_s, kernel_s and fetch_s."""
     dev = torch.device(device)
     parse = host.parse_mode(parse)
     nb = max(1, -(-len(data) // (1 << blk_bits)))
@@ -101,7 +100,7 @@ def squeeze_encode_data(data: bytes, blk_bits: int, win_bits: int, cap: int,
     with st.stage("plan"):
         words, mx = native.squeeze_plan_pack(
             data, win_bits, blk_bits, host.LANES, record_cap(blk_bits),
-            warm=warm, parse=parse, depth=fast_depth())
+            warm=warm, parse=parse)
     rows = max(-(-int(mx) // ROW_CHUNK) * ROW_CHUNK, ROW_CHUNK)
     with st.stage("upload"):
         ops = upload_rows(words, rows, dev)

@@ -9,11 +9,16 @@ Each counts its kernel launches in its ``launches`` attribute;
 apart, in ``seeded_launches``, and ``encode_tok`` its lit_skip launches
 (the resident paths) in ``lit_skip_launches``.
 
-``encode_data_full``, ``encode_data_tok`` and ``decode_groups`` are the
-main path around them: the native host planner -> op streams or tokens
--> encoder kernel -> payloads (downloaded trimmed, or compacted on the
-card), and payloads (one upload, packed into the decoder's words on the
-card) -> decoder kernel -> token records -> native host assembly.
+``plan_tok_group`` / ``encode_tok_group`` (the token transport) and
+``collect_group`` are the pipeline's (``ops/pipeline.py``) steps of a
+group: the native host planner -> tokens or op streams -> encoder kernel
+-> payloads compacted on the card (``fetch_payloads``).
+``encode_data_full`` is the whole-buffer encode through the op-stream
+kernel in one launch (payloads downloaded trimmed), which the warm
+containers' seeded pass and the reroute of blocks over the token caps
+take. ``decode_groups`` is the decode: payloads (one upload, packed into
+the decoder's words on the card) -> decoder kernel -> token records ->
+native host assembly.
 ``encode_groups`` codes per-op statistics computed on the host
 (``native.sqz4_model_stats``) through the stats-fed encoder, and
 ``encode_data_stats`` is the route above 64 KiB blocks around it (the
@@ -25,7 +30,6 @@ ride lanes of ``[groups, rows, lanes]`` arrays, as in the reference.
 
 from __future__ import annotations
 
-import os
 from typing import NamedTuple
 
 import numpy as np
@@ -456,9 +460,9 @@ def encode_data_full(data: bytes, blk_bits: int, window: int, lz: bool,
 
     ``parse`` 'exact' plans with ``native.sqz4_plan_pack`` (payloads equal
     the native engine's); 'fast' (the 'auto' default, SQZ_PARSE overrides)
-    with ``native.sqz4_fast_plan`` (SQZ_FAST_DEPTH hash-chain links) plus
-    the device relayout. ``stats`` (optional dict) accumulates the stage
-    times plan_s, upload_s, kernel_s and fetch_s.
+    with ``native.sqz4_fast_plan`` plus the device relayout. ``stats``
+    (optional dict) accumulates the stage times plan_s, upload_s,
+    kernel_s and fetch_s.
 
     ``warm`` (sqzt v2, FORMAT.md §3.1; the seeded device pass of
     sqz4_pallas.encode_data_full): blocks 1+ match into block 0's tail and
@@ -478,7 +482,7 @@ def encode_data_full(data: bytes, blk_bits: int, window: int, lz: bool,
     with st.stage("plan"):
         if parse == "fast":
             plan = native.sqz4_fast_plan(data, window, blk_bits, lz, tp_cap,
-                                         warm=warm, depth=fast_depth())
+                                         warm=warm)
         else:
             plan = native.sqz4_plan_pack(data, window, blk_bits, lz, lanes,
                                          tp_cap, warm=warm)
@@ -514,48 +518,28 @@ def encode_data_full(data: bytes, blk_bits: int, window: int, lz: bool,
     return payloads
 
 
-def fast_depth() -> int:
-    """Hash-chain links of the fast parse: SQZ_FAST_DEPTH, default 32."""
-    return int(os.environ.get("SQZ_FAST_DEPTH", "32"))
-
-
-def fetch_mode() -> str:
-    """How encoder payloads come to the host: SQZ_FETCH 'compact' (packed
-    on the card first, the default) or 'trim' (the rectangle cut at the
-    longest lane). Both give the same bytes."""
-    mode = os.environ.get("SQZ_FETCH", "compact")
-    if mode not in ("compact", "trim"):
-        raise ValueError(f"SQZ_FETCH must be 'compact' or 'trim', not "
-                         f"{mode!r}")
-    return mode
-
-
-def fetch_payloads(words, lens, nb: int, mode: str = "compact"):
+def fetch_payloads(words, lens, nb: int):
     """The first ``nb`` payload byte strings of one group (words uint32
-    [1, R, B], lens int32 [1, 8, B] on one device). ``mode`` 'compact'
-    packs them on the device first so only payload bytes are downloaded
-    (sqz4_pallas.py fetch_payloads_compact); 'trim' downloads the rows the
-    longest payload fills. Raises if a payload outgrew the R rows."""
+    [1, R, B], lens int32 [1, 8, B] on one device), packed on the device
+    first so only payload bytes are downloaded (``compact_words``;
+    sqz4_pallas.py fetch_payloads_compact). Raises if a payload outgrew
+    the R rows."""
     lens_np = convert.to_numpy(lens)
     if int(lens_np[0, 0, :nb].max(initial=0)) > 4 * words.shape[1]:
         raise ValueError("compressed block exceeded the output capacity")
-    if mode == "compact":
-        buf = convert.to_numpy(compact_words(words, lens, nb)).astype(
-            ">u4").tobytes()
-        return [buf[s:s + n]
-                for s, n in host.compact_byte_ranges(lens_np, nb)]
-    return host.unpack_group_payloads(
-        convert.to_numpy(words[:, :host.trimmed_rows(lens_np)]), lens_np, nb)
+    buf = convert.to_numpy(compact_words(words, lens, nb)).astype(
+        ">u4").tobytes()
+    return [buf[s:s + n] for s, n in host.compact_byte_ranges(lens_np, nb)]
 
 
-def collect_group(words, lens, nb: int, fetch: str, st: launch.Stages):
+def collect_group(words, lens, nb: int, st: launch.Stages):
     """Wait for a group's kernel (the stage ``fence`` of ``st``), then
-    download its payloads (``fetch``)."""
+    download its payloads (``fetch_payloads``)."""
     with st.stage("fence"):
         if words.is_cuda:
             torch.cuda.current_stream(words.device).synchronize()
     with st.stage("fetch"):
-        return fetch_payloads(words, lens, nb, fetch)
+        return fetch_payloads(words, lens, nb)
 
 
 class TokGroup(NamedTuple):
@@ -578,8 +562,7 @@ def plan_tok_group(chunk: bytes, blk_bits: int, window: int, lz: bool,
     asynchronous uploads). ``tok_cap`` overrides the token cap."""
     dflt_tok, lit_cap = host.tok_caps(blk_bits)
     toks, lits, counts, _mx = native.sqz4_tok_plan(
-        chunk, window, blk_bits, lz, tok_cap or dflt_tok, lit_cap,
-        depth=fast_depth())
+        chunk, window, blk_bits, lz, tok_cap or dflt_tok, lit_cap)
     fit, over, rows, lbytes, t_max = host.tok_group_slab(counts)
     tt = torch.empty((1, len(fit), rows), dtype=torch.int32, pin_memory=pin)
     lt = torch.empty((1, len(fit), lbytes), dtype=torch.uint8,
@@ -589,21 +572,16 @@ def plan_tok_group(chunk: bytes, blk_bits: int, window: int, lz: bool,
     return TokGroup(counts.shape[0], fit, over, t_max, tt, lt)
 
 
-# the encode layer's stages where no caller's are given: named, untimed
-ENCODE = launch.Stages("encode")
-
-
 def encode_tok_group(grp: TokGroup, chunk: bytes, blk_bits: int,
-                     window: int, lz: bool, cap: int, device="cuda",
-                     fetch: str = "compact", st: launch.Stages = None):
+                     window: int, lz: bool, cap: int, device,
+                     st: launch.Stages):
     """One planned group on ``device``: upload (asynchronous from pinned
-    memory), the token kernel, the lengths (the fence), the payloads by
-    ``fetch``; blocks over the token caps re-route through the op-stream
-    kernel (sqz4_pallas.py:1476-1483). ``st`` (the pipeline's stages;
-    by default the encode layer's, untimed) times and names dispatch,
-    fence and fetch. Returns the group's payloads in block order."""
+    memory), the token kernel, the lengths (the fence), the payloads
+    (``collect_group``); blocks over the token caps re-route through the
+    op-stream kernel (sqz4_pallas.py:1476-1483). ``st`` (the pipeline's
+    stages) times and names dispatch, fence and fetch. Returns the
+    group's payloads in block order."""
     dev = torch.device(device)
-    st = st or ENCODE
     payloads = [None] * grp.nb
     if grp.fit:
         with st.stage("dispatch"):
@@ -612,7 +590,7 @@ def encode_tok_group(grp: TokGroup, chunk: bytes, blk_bits: int,
             words, lens = encode_tok(toks, lits, grp.t_max,
                                      host.cap_words_for(cap))
         for b, p in zip(grp.fit, collect_group(words, lens, len(grp.fit),
-                                               fetch, st)):
+                                               st)):
             payloads[b] = p
     if grp.over:
         bs = 1 << blk_bits
@@ -622,19 +600,6 @@ def encode_tok_group(grp: TokGroup, chunk: bytes, blk_bits: int,
         for b, p in zip(grp.over, sub):
             payloads[b] = p
     return payloads
-
-
-def encode_data_tok(data: bytes, blk_bits: int, window: int, lz: bool,
-                    cap: int, device="cuda", tok_cap: int = None):
-    """Whole-buffer encode through the token kernel (fast parse), every
-    fitting block in one launch; payloads equal ``encode_data_full``'s
-    with ``parse="fast"`` (sqz4_pallas.py encode_data_tok)."""
-    check_main_blk_bits(blk_bits)
-    dev = torch.device(device)
-    grp = plan_tok_group(data, blk_bits, window, lz, tok_cap,
-                         pin=dev.type == "cuda")
-    return encode_tok_group(grp, data, blk_bits, window, lz, cap, dev,
-                            fetch_mode())
 
 
 def fetch_decode_host(lit, tok, mrec, counts):
@@ -771,5 +736,5 @@ def encode_data_stats(data: bytes, blk_bits: int, window: int, lz: bool,
         with st.stage("kernel"):
             words, lens = encode_stats(*cols, cap_words)
         with st.stage("fetch"):
-            payloads += fetch_payloads(words, lens, len(grp), fetch_mode())
+            payloads += fetch_payloads(words, lens, len(grp))
     return payloads

@@ -109,7 +109,7 @@ def test_slice_round_trips_on_the_card(cuda, monkeypatch):
     assert container.unpack(blob)[4] == native.blocks_compress(data, 1, 15,
                                                                12)
     assert sqz_tpu_torch.decompress(blob) == data
-    # more than one group (shrunk to 2 blocks): the pipeline's branch
+    # more than one group (shrunk to 2 blocks) through the pipeline
     monkeypatch.setattr(engine, "LANES", 2)
     monkeypatch.setattr(host, "LANES", 2)
     fast = sqz_tpu_torch.compress(data, blk_bits=12)

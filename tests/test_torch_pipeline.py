@@ -1,7 +1,8 @@
 """The port's pipelined encode (planner thread + per-group device work,
 plain PyTorch versions on the CPU) against the JAX package's pipeline in
-interpret mode and the port's serial path, and the engine's dispatch to
-it. Tolerance is zero: payloads and containers must be equal."""
+interpret mode, the port's serial path and the native engine, and the
+engine's route through it. Tolerance is zero: payloads and containers
+must be equal."""
 
 import threading
 
@@ -10,6 +11,7 @@ import torch
 
 import sqz_tpu_torch
 from sqz_tpu.ops.pipeline import encode_data_pipelined as ref_pipelined
+from sqz_tpu_torch import native
 from sqz_tpu_torch.formats import container
 from sqz_tpu_torch.ops import engine, pipeline, sqz4_cuda, sqz4_host
 from sqz_tpu_torch.utils import corpus
@@ -51,21 +53,29 @@ def test_pipelined_encode_equals_reference_and_serial_path():
     assert not _planner_threads()
 
 
-@pytest.mark.parametrize("transport,parse", [("ops", "fast"),
-                                             ("ops", "exact")])
-def test_op_stream_transport_equals_serial_path(transport, parse):
+def test_op_stream_transport_equals_serial_path():
     data = _data(2 * LANES + 3)
     got = pipeline.encode_data_pipelined(data, BLK, 1 << 10, True, CAP,
-                                         parse=parse, lanes=LANES,
-                                         device="cpu", transport=transport)
+                                         parse="exact", lanes=LANES,
+                                         device="cpu")
+    assert got == sqz4_cuda.encode_data_full(data, BLK, 1 << 10, True, CAP,
+                                             parse="exact", device="cpu")
+
+
+@pytest.mark.parametrize("parse", ["fast", "exact"])
+def test_one_group_equals_serial_path_and_native(parse):
+    # fewer blocks than a group's lanes: one plan, one launch
+    data = _data(7)
+    got = pipeline.encode_data_pipelined(data, BLK, 1 << 10, True, CAP,
+                                         parse=parse, device="cpu")
     assert got == sqz4_cuda.encode_data_full(data, BLK, 1 << 10, True, CAP,
                                              parse=parse, device="cpu")
+    assert got == [native.sqz4_compress_payload(data[o:o + BS], 1 << 10,
+                                                parse=parse)
+                   for o in range(0, len(data), BS)]
 
 
-@pytest.mark.parametrize("fetch", ["compact", "trim"])
-def test_overflow_blocks_reroute_through_the_op_stream_kernel(
-        monkeypatch, fetch):
-    monkeypatch.setenv("SQZ_FETCH", fetch)
+def test_overflow_blocks_reroute_through_the_op_stream_kernel():
     data = _data()
     grp = sqz4_cuda.plan_tok_group(data[:LANES * BS], BLK, 1 << 10, True,
                                    tok_cap=64)
@@ -105,47 +115,48 @@ def test_main_loop_error_stops_the_planner(monkeypatch):
     assert not _planner_threads()
 
 
-def test_token_transport_rejects_the_exact_parse(monkeypatch):
-    monkeypatch.setenv("SQZ_TRANSPORT", "tok")
-    with pytest.raises(ValueError):
-        pipeline.encode_data_pipelined(b"x" * 100, BLK, 1 << 10, True, CAP,
-                                       parse="exact", device="cpu")
-
-
-def _spy(monkeypatch, name, taken):
-    """Record each call of pipeline.<name> in ``taken``."""
-    fn = getattr(pipeline, name)
+def _spy(monkeypatch, module, name, taken):
+    """Record each call of <module>.<name> in ``taken``."""
+    fn = getattr(module, name)
 
     def spied(*a, **kw):
         taken.append(name)
         return fn(*a, **kw)
 
-    monkeypatch.setattr(pipeline, name, spied)
+    monkeypatch.setattr(module, name, spied)
 
 
-@pytest.mark.parametrize("env", [None, "0"])
+def test_exact_parse_takes_the_op_stream_kernel(monkeypatch):
+    taken = []
+    _spy(monkeypatch, pipeline, "_encode_ops_group", taken)
+    _spy(monkeypatch, sqz4_cuda, "encode_tok_group", taken)
+    data = _data(LANES + 3)
+    got = pipeline.encode_data_pipelined(data, BLK, 1 << 10, True, CAP,
+                                         parse="exact", lanes=LANES,
+                                         device="cpu")
+    assert taken == ["_encode_ops_group"] * 2
+    assert got == sqz4_cuda.encode_data_full(data, BLK, 1 << 10, True, CAP,
+                                             parse="exact", device="cpu")
+
+
+@pytest.mark.parametrize("nblocks,groups", [(40, 3), (5, 1)])
 def test_compress_round_trips_through_the_engines_pipeline_branch(
-        monkeypatch, env):
-    """Containers of more than one group (shrunk to 16 blocks here) encode
-    through the pipeline unless SQZ_PIPELINE=0; both give the same bytes
-    and decode through decode_data_pipelined."""
+        monkeypatch, nblocks, groups):
+    """Containers of any block count (groups shrunk to 16 blocks here)
+    encode through the pipeline, a plan a group, and decode through
+    decode_groups; the bytes are the serial path's."""
     monkeypatch.setattr(engine, "LANES", 16)
     monkeypatch.setattr(sqz4_host, "LANES", 16)
-    if env is None:
-        monkeypatch.delenv("SQZ_PIPELINE", raising=False)
-    else:
-        monkeypatch.setenv("SQZ_PIPELINE", env)
     taken = []
-    for name in ("encode_data_pipelined", "decode_data_pipelined"):
-        _spy(monkeypatch, name, taken)
-    data = _data(40)
+    _spy(monkeypatch, pipeline, "encode_data_pipelined", taken)
+    _spy(monkeypatch, sqz4_cuda, "plan_tok_group", taken)
+    _spy(monkeypatch, sqz4_cuda, "decode_groups", taken)
+    data = _data(nblocks)
     blob = sqz_tpu_torch.compress(data, blk_bits=BLK, win_bits=10,
                                   device="cpu")
     assert sqz_tpu_torch.decompress(blob, device="cpu") == data
-    want = ["decode_data_pipelined"]
-    if env is None:
-        want.insert(0, "encode_data_pipelined")
-    assert taken == want
+    assert taken == (["encode_data_pipelined"] + ["plan_tok_group"] * groups
+                     + ["decode_groups"])
     serial = sqz4_cuda.encode_data_full(data, BLK, 1 << 10, True, CAP,
                                         device="cpu")
     assert container.unpack(blob)[4] == serial

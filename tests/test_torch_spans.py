@@ -104,10 +104,13 @@ def test_compress_and_decompress_spans_nest_in_the_call(tmp_path):
     blob, spans = _profiled(lambda: sqz_tpu_torch.compress(data, **kw),
                             tmp_path)
     names = _check_nested(spans)
+    # one group through the pipeline: its plan runs on the planner thread,
+    # and the caller's second wait receives the planner's end
     assert names == ["sqz.container.split", "sqz.container.join",
-                     "sqz.encode.plan", "sqz.encode.upload",
-                     "sqz.encode.kernel", "sqz.encode.fetch",
-                     "sqz.container.checksum", "sqz.container.pack"]
+                     "sqz.pipeline.wait_plan", "sqz.pipeline.dispatch",
+                     "sqz.pipeline.fence", "sqz.pipeline.fetch",
+                     "sqz.pipeline.wait_plan", "sqz.container.checksum",
+                     "sqz.container.pack"]
     back, spans = _profiled(lambda: sqz_tpu_torch.decompress(
         blob, device="cpu"), tmp_path)
     assert back == data

@@ -13,7 +13,8 @@ import torch
 from sqz_tpu import native as ref_native
 from sqz_tpu.ops import sqz4_pallas as sp
 from sqz_tpu_torch import convert, native
-from sqz_tpu_torch.ops import sqz4_cuda, sqz4_host as host, sqz4_ref
+from sqz_tpu_torch.ops import pipeline, sqz4_cuda, sqz4_host as host
+from sqz_tpu_torch.ops import sqz4_ref
 from sqz_tpu_torch.utils import corpus, synthetic
 
 # the plain versions step over small tensors: one intra-op thread each,
@@ -109,8 +110,8 @@ def test_token_encoder_equals_op_stream_encoder(kind):
     data = INPUTS[kind](9 * BS + 123)
     want = sqz4_cuda.encode_data_full(data, BLK, 1 << 10, True, CAP,
                                       parse="fast", device="cpu")
-    assert sqz4_cuda.encode_data_tok(data, BLK, 1 << 10, True, CAP,
-                                     device="cpu") == want
+    assert pipeline.encode_data_pipelined(data, BLK, 1 << 10, True, CAP,
+                                          parse="fast", device="cpu") == want
     assert want == [ref_native.sqz4_compress_payload(
         data[o:o + BS], 1 << 10, parse="fast")
         for o in range(0, len(data), BS)]
@@ -120,8 +121,9 @@ def test_token_encoder_overflow_blocks_take_the_op_stream_kernel():
     data = _mixed(8)
     grp = sqz4_cuda.plan_tok_group(data, BLK, 1 << 10, True, tok_cap=64)
     assert grp.over and grp.fit
-    got = sqz4_cuda.encode_data_tok(data, BLK, 1 << 10, True, CAP,
-                                    device="cpu", tok_cap=64)
+    got = pipeline.encode_data_pipelined(data, BLK, 1 << 10, True, CAP,
+                                         parse="fast", device="cpu",
+                                         tok_cap=64)
     assert got == sqz4_cuda.encode_data_full(data, BLK, 1 << 10, True, CAP,
                                              parse="fast", device="cpu")
 
@@ -151,8 +153,7 @@ def test_compaction_matches_pallas(partial):
     want = sp.fetch_payloads_compact(jnp.asarray(words), lens, nb,
                                      interpret=True)
     wt, lt = convert.to_device(words, "cpu"), convert.to_device(lens, "cpu")
-    assert sqz4_cuda.fetch_payloads(wt, lt, nb, "compact") == want
-    assert sqz4_cuda.fetch_payloads(wt, lt, nb, "trim") == want
+    assert sqz4_cuda.fetch_payloads(wt, lt, nb) == want
     np.testing.assert_array_equal(
         convert.to_numpy(sqz4_ref.compact_ref(wt, lt, nb)),
         np.concatenate([words[0, :(int(lens[0, 0, b]) + 3) // 4, b]

@@ -41,7 +41,7 @@ def test_wide_route_codes_the_plain_exact_parse():
     inputs = sqz4_cuda.pack_group_stats(cols, torch.device("cpu"), 3)
     words, lens = sqz4_ref.encode_stats_ref(
         *inputs, host.cap_words_for(2 * BS + 4096))
-    got = sqz4_cuda.fetch_payloads(words, lens, 3, "trim")
+    got = sqz4_cuda.fetch_payloads(words, lens, 3)
     blocks = _blocks(data)
     assert [len(b) for b in blocks] == [BS, BS, 40_000]
     assert got == [sqz4_exact.encode_block(b, 1 << WIN) for b in blocks]

@@ -190,6 +190,14 @@ Phases (any failure exits non-zero):
      element for element, with their CUDA-event time, their bound and
      the plain version's and the host walk's times (``python3
      chip_smoke.py --model-stats`` runs only the build and this).
+ 19. the exact parse on the card (``csrc/sqz4_exact_parse.cu``): one
+     compress of 10^8 B of texty at 1 MiB blocks must launch it once
+     (one group of 96 lanes), its round trip exact; then the kernel at
+     that shape, on the texty and on as many random bytes (a find a
+     byte), must give the native planner's op words and counts word for
+     word, with its CUDA-event time, its bound and the host planner's
+     time (``python3 chip_smoke.py --exact-parse`` runs only the build
+     and this).
 
 The second-to-last line is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
@@ -2331,7 +2339,8 @@ COUNTERS = {"sqz4_encode": ("sqz4_cuda", "encode_full", "launches"),
             "sqz4_cell_assembly": ("resident", "assemble_cells",
                                    "launches"),
             "sqz4_pack": ("sqz4_cuda", "pack_payloads", "launches"),
-            "sqz4_model_stats": ("sqz4_cuda", "model_stats", "launches")}
+            "sqz4_model_stats": ("sqz4_cuda", "model_stats", "launches"),
+            "sqz4_exact_parse": ("sqz4_cuda", "exact_parse", "launches")}
 
 
 def _counter(mod, fn):
@@ -2546,6 +2555,72 @@ def model_stats_path(card, pool):
     return rows["wide"], launches, fig
 
 
+def exact_parse_vs_native(card, name, data, blk_bits):
+    """Phase 19's check of the exact parse kernel on ``data`` at
+    ``blk_bits``, a lane a block, cold: its op words and counts equal the
+    native planner's (``sqz4_host.exact_op_streams``, timed). Returns
+    (the kernel's ms, best of REPS by CUDA events; the bound, ms and by:
+    the bytes read once and both op word arrays written once; the host
+    planner's ms)."""
+    import numpy as np
+    import torch
+    from sqz_tpu_torch import convert
+    from sqz_tpu_torch.ops import sqz4_cuda, sqz4_host as host
+    window, bs = 1 << MAIN_WIN_BITS, 1 << blk_bits
+    offs = list(range(0, len(data), bs))
+    lens = [min(bs, len(data) - o) for o in offs]
+    rows = host.op_stream_cap(blk_bits, len(data)) // 4
+    flat = sqz4_cuda.upload_bytes(data, torch.device("cuda"))
+    out = []
+
+    def run():
+        out[:] = sqz4_cuda.exact_parse(flat, offs, lens, window, True, rows)
+
+    ms = events_ms(run, REPS)
+    t = time.perf_counter()
+    mw, sw, _mx, _ = host.exact_op_streams(data, window, blk_bits)
+    host_ms = (time.perf_counter() - t) * 1e3
+    m, s, counts = (convert.to_numpy(x) for x in out)
+    want = (mw[:, :, 0].astype(">u4").view(np.uint8) != 0xFF).sum(1)
+    if not (np.array_equal(m, mw[:, :, 0]) and np.array_equal(s, sw[:, :, 0])
+            and counts.tolist() == want.tolist()):
+        raise AssertionError(f"exact parse of {len(offs)} x 2^{blk_bits} B "
+                             f"of {name} differs from the native planner")
+    b_ms, by = bound(len(data) + 2 * m.size * 4, 0)
+    log(f"exact parse, {len(offs)} lanes x 2^{blk_bits} B of {name} "
+        f"({card}): kernel {ms:.3f} ms, bound {b_ms:.4f} ms ({by}), the "
+        f"host planner {host_ms:.1f} ms; {int(counts.sum())} ops")
+    return ms, b_ms, by, host_ms
+
+
+def exact_parse_path(card):
+    """Phase 19: the exact parse kernel's launches over one wide compress
+    of 10^8 B of texty (one a group), then the kernel at that shape on the
+    texty and on random bytes against the native planner. Returns (the
+    kernel table's entry on the texty, launches, figures)."""
+    import sqz_tpu_torch
+    from sqz_tpu_torch.utils import corpus
+    text = corpus.texty(TEXT_BYTES, seed=1)
+    reset_launches()
+    blob = sqz_tpu_torch.compress(text, blk_bits=MODEL_BITS,
+                                  win_bits=MAIN_WIN_BITS)
+    launches = read_launches().get("sqz4_exact_parse", 0)
+    if launches != 1 or sqz_tpu_torch.decompress(blob) != text:
+        raise AssertionError(f"wide compress of {TEXT_BYTES} B: {launches} "
+                             f"exact parse launches, not 1, or no round "
+                             f"trip")
+    fig, row = {}, None
+    for name, data in (("texty", text),
+                       ("random", corpus.random_bytes(TEXT_BYTES, seed=2))):
+        ms, b_ms, by, host_ms = exact_parse_vs_native(card, name, data,
+                                                      MODEL_BITS)
+        fig.update({f"exact_parse_{name}_ms": ms,
+                    f"exact_parse_{name}_bound_ms": b_ms,
+                    f"exact_parse_{name}_host_ms": host_ms})
+        row = row or (0, ms, None, b_ms, by, None)
+    return row, launches, fig
+
+
 def mesh_checkpoint(card, state, path, work):
     """Phase 13's distributed leg: ``save_pytree`` / ``load_pytree`` of
     ``state`` over CKPT_SHARDS virtual shards of the card; the file must
@@ -2754,6 +2829,9 @@ KERNELS = (   # name, source, the TPU kernel it replaces
     ("sqz4_model_stats", "sqz4_model_stats.cu",
      "not a Pallas kernel: the host loop of sqz_tpu/ops/sqz4_jax.py:367 "
      "stats_for_ops (native sqz4_model_stats a block)"),
+    ("sqz4_exact_parse", "sqz4_exact_parse.cu",
+     "not a Pallas kernel: the host's sqz4_plan_pack of the wide route "
+     "(sqz_tpu/ops/sqz4_jax.py encode_blocks)"),
 )
 
 
@@ -2787,6 +2865,11 @@ def main() -> int:
         log(json.dumps({"card": card, **{k: round(v, 4)
                                          for k, v in fig.items()}}))
         return 0
+    if sys.argv[1:] == ["--exact-parse"]:
+        _row, _n, fig = exact_parse_path(card)
+        log(json.dumps({"card": card, **{k: round(v, 4)
+                                         for k, v in fig.items()}}))
+        return 0
     from sqz_tpu_torch.ops import sqz4_host
     from sqz_tpu_torch.utils import corpus
     pool = ProcessPoolExecutor(
@@ -2808,6 +2891,8 @@ def main() -> int:
         mrow, launches["sqz4_model_stats"], mfig = model_stats_path(card,
                                                                      pool)
         we2e.update(mfig)
+        erow, launches["sqz4_exact_parse"], efig = exact_parse_path(card)
+        we2e.update(efig)
         t = time.perf_counter()
         we2e.update(huge_block_path(pool))
         log(f"blk_bits {HUGE_BITS} phase: {time.perf_counter() - t:.1f} s")
@@ -2826,6 +2911,7 @@ def main() -> int:
                                 sqz4_host.LANES, REPS, STATS_BITS, pool)
         full["sqz4_encode_tok_lit_skip"] = rchk.result() + rextra
         full["sqz4_model_stats"] = mrow
+        full["sqz4_exact_parse"] = erow
         kres = kchk.result() + kextra
         we2e.update(lit_skip_ckpt_group_plain_ms=kres[2],
                     lit_skip_ckpt_group_bound_ms=kres[3])
@@ -2877,6 +2963,8 @@ def main() -> int:
               "sqz4_model_stats": f"{TEXT_BYTES} B of texty at "
                                   f"2^{MODEL_BITS} B blocks, one group of "
                                   f"96 lanes",
+              "sqz4_exact_parse": f"{TEXT_BYTES} B of texty at "
+                                  f"2^{MODEL_BITS} B blocks, 96 lanes",
               "probe": "the 8 of the 14 probes one torch call computes, "
                        "in one launch, at the reference's inputs, [1, 128] "
                        "and [256, 128]"}

@@ -8,8 +8,8 @@ Engines:
     without a card it raises) or by their plain PyTorch versions on
     ``device="cpu"`` (for tests). sqz4 blocks above 64 KiB (``blk_bits``
     17..40) take the route above 64 KiB blocks on the card, the
-    reference's scan route (exact tokens and model statistics on the
-    host, the stats-fed encoder, the decoder; ``ops/engine.py``); the v3
+    reference's scan route (the exact parse and the model statistics,
+    the stats-fed encoder, the decoder; ``ops/engine.py``); the v3
     planner runs on the host, and its containers decode on the card.
   * ``native``: the port's copy of the C++ host runtime (``native/``),
     block-parallel on the host's cores.

@@ -1,7 +1,7 @@
 """Build the CUDA sources under ``csrc/`` with nvcc and load them (ctypes).
 
 The kernels (the sqz4 coders, compaction and the decoder's payload
-packing, the per-op model statistics, the resident restore's cell
+packing, the exact parse and the per-op model statistics, the resident restore's cell
 assembly, the squeeze bit-packer, the primitive probes) have a plain C
 interface (``extern "C"`` launchers taking device pointers, sizes and a
 stream), so they compile in seconds without PyTorch's headers. Each
@@ -33,7 +33,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("sqz4_encode.cu", "sqz4_decode.cu", "sqz4_encode_tok.cu",
            "sqz4_compact.cu", "squeeze_bitpack.cu", "sqz4_encode_stats.cu",
            "probe.cu", "sqz4_cell.cu", "sqz4_pack.cu",
-           "sqz4_model_stats.cu")
+           "sqz4_model_stats.cu", "sqz4_exact_parse.cu")
 HEADERS = ("sqz4_coder.cuh", "sqz4_div.cuh", "sqz4_warp.cuh",
            "sqz4_chain.cuh", "sqz4_pair.cuh", "sqz_tile.cuh",
            "sqz4_window.cuh")
@@ -140,5 +140,9 @@ def library() -> ctypes.CDLL:
             lib.sqz4_model_stats_launch.restype = i
             lib.sqz4_model_stats_launch.argtypes = [p, p, i, i, i, p, p, p,
                                                     p, p]
+            ll = ctypes.c_longlong
+            lib.sqz4_exact_parse_launch.restype = i
+            lib.sqz4_exact_parse_launch.argtypes = [p, p, i, ll, i, i, i, ll,
+                                                    p, p, p, p]
             _lib = lib
         return _lib

@@ -17,9 +17,9 @@ Counterpart of ``sqz_tpu/ops/engine.py`` (``compress_blocks`` and
   cold device batch and one seeded device batch per anchor
   (``_warm_scatter``, the seeded decoder).
 - sqz4 at ``blk_bits`` above 16 (17..40), the reference's scan route
-  (sqz_tpu/ops/engine.py:141-157, :257-271) on the port's kernels: exact
-  tokens and per-op model statistics on the host, whatever ``parse``
-  says, then one launch of the stats-fed encoder a group of blocks
+  (sqz_tpu/ops/engine.py:141-157, :257-271) on the port's kernels: the
+  exact parse, whatever ``parse`` says, and the per-op model statistics,
+  then one launch of the stats-fed encoder a group of blocks
   (``sqz4_cuda.encode_data_stats``); warm (v2) codes the warm gate's
   candidates again, seeded from block 0's rescaled final state, each
   block keeping the smaller payload. Decode is the decoder kernel, cold

@@ -1,9 +1,11 @@
 """sqz4 kernel wrappers and the whole-buffer device encode and decode.
 
 ``encode_full``, ``encode_tok``, ``encode_stats``, ``model_stats``,
-``decode``, ``compact_words`` and ``pack_payloads`` launch the CUDA
-kernels (``csrc/``) for tensors on a CUDA device and run the plain
-versions (``sqz4_ref``) for tensors on the CPU; any other device raises.
+``exact_parse``, ``decode``, ``compact_words`` and ``pack_payloads``
+launch the CUDA kernels (``csrc/``) for tensors on a CUDA device and run
+the plain versions (``sqz4_ref``) for tensors on the CPU, but for
+``exact_parse``, which runs the native planner there; any other device
+raises.
 Each counts its kernel launches in its ``launches`` attribute;
 ``encode_full`` and ``decode`` count their seeded (warm-start) launches
 apart, in ``seeded_launches``, and ``encode_tok`` its lit_skip launches
@@ -22,8 +24,8 @@ native host assembly.
 ``encode_groups`` codes per-op statistics computed on the host
 (``native.sqz4_model_stats``) through the stats-fed encoder, and
 ``encode_data_stats`` is the route above 64 KiB blocks around it (the
-reference's scan route: exact tokens on the host, the per-op statistics
-from them on the card, one launch a group of ``sqz4_host.group_lanes``
+reference's scan route: the exact parse and the per-op statistics from
+it on the card, one launch each a group of ``sqz4_host.group_lanes``
 blocks); its decode is ``decode_groups`` at that group width. Blocks
 ride lanes of ``[groups, rows, lanes]`` arrays, as in the reference.
 """
@@ -309,7 +311,7 @@ def model_stats(m_words: torch.Tensor, s_words: torch.Tensor, lanes: int,
                 seed: torch.Tensor = None):
     """Per-op coder statistics of packed op streams: m_words / s_words
     uint32 [n, rows], block i's ops in row i (four big-endian u8 ops a
-    word, as ``sqz4_host.exact_op_streams`` plans them), ``seed`` None
+    word, as ``exact_parse`` gives them), ``seed`` None
     (cold) or the seed column, int32 [SEED_WORDS]
     (``sqz4_host.seed_column``), from which every block starts -> (start,
     size, total) uint32 [G, 4 * rows, lanes], ``encode_stats``' inputs:
@@ -352,6 +354,86 @@ def model_stats(m_words: torch.Tensor, s_words: torch.Tensor, lanes: int,
 
 
 model_stats.launches = 0
+
+
+def exact_parse(data: torch.Tensor, offsets, lengths, window: int,
+                lz: bool, rows: int, warm: bool = False):
+    """The exact greedy parse of each lane's bytes as op streams: data
+    uint8 [N], lane b its bytes ``data[offsets[b]:offsets[b] +
+    lengths[b]]`` (host integers) -> (m_words, s_words uint32 [n, rows],
+    lane b's ops in row b, four big-endian ops a word, pads m 0xFF and
+    s 0; counts int64 [n], each lane's ops, past ``4 * rows`` where its
+    row overflowed), the native planner's (``native.sqz4_plan_pack``)
+    words. ``warm`` (sqzt v2, FORMAT.md §3.1; with ``lz`` and more than
+    one lane): lanes 1+ match into lane 0's last min(its length,
+    ``window``) bytes, as the warm pass's blocks 1+ into block 0's tail.
+    The kernel (``csrc/sqz4_exact_parse.cu``, a CTA a lane) for a tensor
+    on the card, counted in ``exact_parse.launches``; on the CPU the
+    native planner itself (``sqz4_host.exact_op_streams``), which takes
+    lanes of 2^k bytes back to back, the last shorter (ValueError
+    otherwise)."""
+    launch.check_tensor(data, "data", torch.uint8, ndim=1)
+    offs, lens = [int(o) for o in offsets], [int(x) for x in lengths]
+    n = len(offs)
+    if not n or len(lens) != n or rows < 1 or not 2 <= window <= 1 << 16 \
+            or any(o < 0 or x < 0 or o + x > data.shape[0]
+                   for o, x in zip(offs, lens)):
+        raise ValueError("the exact parse takes lanes inside the data, "
+                         "rows >= 1 and a window of 2 to 2^16 bytes")
+    dev = launch.kernel_device(data)
+    if dev.type == "cpu":
+        return _exact_parse_host(data, offs, lens, window, lz, rows, warm)
+    from sqz_tpu_torch.ops import _build
+    hist = min(lens[0], window) if warm and lz and n > 1 else 0
+    lay = torch.tensor(offs + lens, dtype=torch.int64).to(dev)
+    m = torch.empty((n, rows), dtype=torch.int32, device=dev)
+    s = torch.empty_like(m)
+    counts = torch.empty(n, dtype=torch.int64, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = _build.library().sqz4_exact_parse_launch(
+            data.data_ptr(), lay.data_ptr(), n, offs[0] + lens[0] - hist,
+            hist, window, int(lz), rows, m.data_ptr(), s.data_ptr(),
+            counts.data_ptr(), stream)
+    launch.launched(rc, "sqz4_exact_parse")
+    launch.count(exact_parse)
+    return m.view(torch.uint32), s.view(torch.uint32), counts
+
+
+exact_parse.launches = 0
+
+
+def _exact_parse_host(data, offs, lens, window, lz, rows, warm):
+    """``exact_parse`` on the CPU: the lanes joined, one native planner
+    call, its words cut or padded to ``rows``."""
+    n = len(offs)
+    bs = lens[0] if n > 1 else 1 << max(lens[0] - 1, 1).bit_length()
+    if bs < 1 or bs & (bs - 1) or any(x != bs for x in lens[:-1]) \
+            or lens[-1] > bs:
+        raise ValueError("the host planner takes lanes of 2^k bytes back "
+                         "to back, the last shorter")
+    flat = data.numpy()
+    chunk = b"".join(flat[o:o + x].tobytes() for o, x in zip(offs, lens))
+    mw, sw, _, _ = host.exact_op_streams(chunk, window, bs.bit_length() - 1,
+                                         lz, warm)
+    have = min(rows, mw.shape[1])
+    m = np.full((n, rows), 0xFFFFFFFF, np.uint32)
+    s = np.zeros((n, rows), np.uint32)
+    m[:, :have], s[:, :have] = mw[:, :have, 0], sw[:, :have, 0]
+    counts = (mw[:, :, 0].astype(">u4").view(np.uint8) != 0xFF).sum(1)
+    return (convert.to_device(m, data.device),
+            convert.to_device(s, data.device),
+            torch.from_numpy(counts.astype(np.int64)))
+
+
+def upload_bytes(data: bytes, dev) -> torch.Tensor:
+    """``data`` as uint8 [len(data)] on ``dev``: one host copy (into
+    pinned memory for the card) and an asynchronous upload."""
+    staged = torch.empty(len(data), dtype=torch.uint8,
+                         pin_memory=dev.type == "cuda")
+    staged.numpy()[:] = np.frombuffer(data, np.uint8)
+    return staged.to(dev, non_blocking=True) if dev.type == "cuda" \
+        else staged
 
 
 def compact_words(words: torch.Tensor, lens: torch.Tensor, nb: int):
@@ -685,22 +767,24 @@ def encode_data_stats(data: bytes, blk_bits: int, window: int, lz: bool,
                       stats: dict = None):
     """Whole-buffer encode through the stats-fed encoder -> one payload a
     block: the reference's scan route (sqz4_jax.encode_blocks), which the
-    engine takes above 64 KiB blocks. Each group of
-    ``sqz4_host.group_lanes`` blocks is tokenized exactly on the host, its
-    op words uploaded, its per-op model statistics computed from them
-    (``model_stats``: the kernels on the card) and coded in one launch;
-    payloads equal the native engine's exact parse. The capacity is the
-    reference's, twice the largest block plus 4096 bytes (ValueError past
-    it).
+    engine takes above 64 KiB blocks. The bytes go up as one range; each
+    group of ``sqz4_host.group_lanes`` blocks is parsed exactly
+    (``exact_parse``: the kernel on the card, a CTA a block), its per-op
+    model statistics computed from the op words (``model_stats``) and
+    coded in one launch; payloads equal the native engine's exact parse.
+    The capacity is the reference's, twice the largest block plus 4096
+    bytes (ValueError past it).
 
     ``warm`` (sqzt v2, FORMAT.md §3.1): the seeded pass, in which blocks
     match into block 0's tail and start their models from its rescaled
-    final state (sqz4_jax.seed_from_tokens). ``blocks``: the indices of
-    the blocks to code (default all; the warm pass codes the warm gate's
-    candidates, which are not block 0). ``stats`` (optional dict)
-    accumulates the stage times plan_s (the exact tokens,
-    ``sqz4_host.exact_op_streams``), upload_s (the op words), model_s
-    (the per-op statistics, ``model_stats``), kernel_s and fetch_s."""
+    final state (sqz4_jax.seed_from_tokens; ``sqz4_host.seed_from_ops``
+    of block 0's ops, which each group parses first). ``blocks``: the
+    indices of the blocks to code (default all; the warm pass codes the
+    warm gate's candidates, which are not block 0). ``stats`` (optional
+    dict) accumulates the stage times plan_s (the bytes' upload, the
+    exact parse, its op count's fetch), upload_s (the warm seed column),
+    model_s (the per-op statistics, ``model_stats``), kernel_s and
+    fetch_s."""
     dev = torch.device(device)
     bs = 1 << blk_bits
     nb = max(1, -(-len(data) // bs))
@@ -708,22 +792,31 @@ def encode_data_stats(data: bytes, blk_bits: int, window: int, lz: bool,
     largest = min(bs, len(data))
     check_block_bytes(largest)
     cap_words = host.cap_words_for(2 * largest + 4096)
+    rows = host.op_stream_cap(blk_bits, len(data)) // 4
     lanes = host.group_lanes(len(idx))
     st = launch.Stages("encode", stats, dev)
-    payloads = []
+    payloads, data_t = [], None
     for g0 in range(0, len(idx), lanes):
         grp = idx[g0:g0 + lanes]
         with st.stage("plan"):
-            chunk = (data[:bs] if warm else b"") + b"".join(
-                data[b * bs:(b + 1) * bs] for b in grp)
-            mw, sw, mx, seed = host.exact_op_streams(chunk, window, blk_bits,
-                                                     lz, warm)
+            if data_t is None:
+                data_t = upload_bytes(data, dev)
+            # block 0 of the warm pass is parsed for its tail and seed only
+            own = ([0] if warm else []) + grp
+            m, s, counts = exact_parse(
+                data_t, [b * bs for b in own],
+                [min(bs, len(data) - b * bs) for b in own], window, lz, rows,
+                warm)
+            mx = int(counts.max())
+            if mx > 4 * rows:
+                raise ValueError("a block's op stream exceeded its rows")
+            first, used = int(warm), -(-mx // 4)
+            m_t, s_t = (w.view(torch.int32)[first:, :used].contiguous()
+                        .view(torch.uint32) for w in (m, s))
+            seed = (host.seed_from_ops(
+                *(convert.to_numpy(w[0, :used]) for w in (m, s)),
+                int(counts[0])) if warm else None)
         with st.stage("upload"):
-            # block 0 of the warm pass is planned for its tail and seed
-            # only
-            first, rows = int(warm), -(-mx // 4)
-            m_t, s_t = (convert.to_device(w[first:, :rows, 0], dev)
-                        for w in (mw, sw))
             seed_t = (convert.to_device(host.seed_column(seed), dev)
                       if warm else None)
         with st.stage("model"):

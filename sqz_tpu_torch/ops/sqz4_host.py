@@ -86,6 +86,33 @@ def exact_op_streams(data: bytes, window: int, blk_bits: int,
     return plan[0], plan[1], int(plan[2]), plan[3] if warm else None
 
 
+SEED_LIMIT = 1 << 14   # a seeded model's total after the capture rescale
+
+
+def seed_from_ops(m_words: np.ndarray, s_words: np.ndarray,
+                  count: int) -> np.ndarray:
+    """The warm seed, u32[610] (literal[2], size[256], byte[256],
+    bits[32], dist0[32], dist1[32]), from block 0's first ``count`` ops,
+    packed four big-endian ops a u32 word: every count 1, one more a coded
+    op, then each model's counts halved, rounding up, until its total is
+    at most 2^14 (the native planner's seed4_from_ops; FORMAT.md §3.1)."""
+    m, s = (np.asarray(w, np.uint32).astype(">u4").view(np.uint8)[:count]
+            .astype(np.int64) for w in (m_words, s_words))
+    slot = np.select([m == 0, m == 1, m == 2, m == 3, (m >= 4) & (m < 36)],
+                     [s, 2 + s, 258 + s, 514 + s, 546 + 32 * s + m - 4],
+                     native.SEED4_WORDS)
+    f = 1 + np.bincount(slot, minlength=native.SEED4_WORDS + 1)[
+        :native.SEED4_WORDS]
+    models = [slice(0, 2), slice(2, 258), slice(258, 514), slice(514, 546)]
+    models += [[546 + b, 578 + b] for b in range(32)]
+    for k in models:
+        g = f[k]
+        while g.sum() > SEED_LIMIT:
+            g = (g + 1) >> 1   # a count is at least 1: none reaches 0
+        f[k] = g
+    return f.astype(np.uint32)
+
+
 def op_stats(streams):
     """``exact_op_streams``' op streams -> the per-op coder statistics
     (start, size, total) of ``op_stream_stats``, one

@@ -8,8 +8,9 @@ outputs as their CUDA kernels (``csrc/sqz4_encode.cu``,
 ``csrc/sqz4_decode.cu``) and as the reference's Pallas launchers; the
 compaction is a concatenation (``csrc/sqz4_compact.cu``), the decoder's
 payload packing a copy a lane and a shift (``csrc/sqz4_pack.cu``), the
-per-op model statistics a window of ops at a time, every block side by
-side (``csrc/sqz4_model_stats.cu``). They run on any device; the
+exact parse a find a token over the whole window
+(``csrc/sqz4_exact_parse.cu``), the per-op model statistics a window of
+ops at a time, every block side by side (``csrc/sqz4_model_stats.cu``). They run on any device; the
 wrappers in ``sqz4_cuda`` use them for CPU tensors, and
 ``chip_smoke.py`` holds each kernel against them on the card.
 
@@ -431,6 +432,82 @@ def pack_payloads_ref(data, offsets, lengths, pw: int):
             | x[..., 3]
         out.append(to_u32(w.t()))
     return torch.stack(out)
+
+
+# the exact parse's match lengths (csrc/sqz4_exact_parse.cu)
+MIN_MATCH, MAX_MATCH = 2, 254
+EOS_OPS = ((0, 0), (1, 0xFF)) + ((MOP_FLUSH, 0),) * 8
+
+
+def exact_find(x, i: int, window: int):
+    """The longest match at position i of the stream x (int64 [n]) among
+    every j in [max(0, i - window + 1), i), of at least 2 bytes, capped at
+    min(254, n - i), the nearest of the longest: the key (length << 16) |
+    (j - lo) of every candidate, all at once, and its max. Returns
+    (length, distance); length 0: none."""
+    n = x.shape[0]
+    cap = min(MAX_MATCH, n - i)
+    lo = max(0, i - window + 1)
+    if cap < MIN_MATCH or i == lo:
+        return 0, 0
+    alive = torch.ones(i - lo, dtype=torch.bool, device=x.device)
+    length = torch.zeros(i - lo, dtype=I64, device=x.device)
+    for k in range(cap):
+        alive &= x[lo + k:i + k] == x[i + k]
+        if not bool(alive.any()):
+            break
+        length += alive
+    key = torch.where(length >= MIN_MATCH, (length << 16)
+                      | torch.arange(i - lo, device=x.device), 0)
+    best = int(key.max())
+    return best >> 16, i - lo - (best & 0xFFFF)
+
+
+def exact_parse_ref(data, offsets, lengths, window: int, lz: bool,
+                    rows: int, warm: bool = False):
+    """data uint8 [N], lane b its bytes data[offsets[b]:offsets[b] +
+    lengths[b]] -> (m_words, s_words uint32 [n, rows], counts int64 [n]),
+    the kernel's output (csrc/sqz4_exact_parse.cu; ``warm`` as
+    ``sqz4_cuda.exact_parse`` has it): each lane's greedy walk, a find a
+    token (``exact_find``); a match of 3 bytes or fewer whose distance
+    needs more than 3 bits a literal; a match's ops 0,0 / 1,len / 3,nbits
+    / 4+k,bit k (k < nbits - 1), a literal's 0,1 / 2,byte, the stream's
+    end 0,0 / 1,0xFF and eight flushes; four ops a big-endian word, pads m
+    0xFF and s 0; a row cut at ``rows`` words, its count the whole
+    stream's."""
+    x = data.to(I64)
+    n = len(offsets)
+    hist = x[:0]
+    if warm and lz and n > 1:
+        end = int(offsets[0]) + int(lengths[0])
+        hist = x[end - min(int(lengths[0]), window):end]
+    m = torch.full((n, 4 * rows), 0xFF, dtype=I64)
+    s = torch.zeros((n, 4 * rows), dtype=I64)
+    counts = []
+    for b, (o, ln) in enumerate(zip(offsets, lengths)):
+        start = hist.shape[0] if b else 0
+        stream = torch.cat([hist[:start], x[int(o):int(o) + int(ln)]])
+        ops, i = [], start
+        while i < stream.shape[0]:
+            length, dist = exact_find(stream, i, window) if lz else (0, 0)
+            nbits = dist.bit_length()
+            if length >= MIN_MATCH and not (length <= 3 and nbits > 3):
+                ops += [(0, 0), (1, length), (3, nbits)]
+                ops += [(4 + k, (dist >> k) & 1) for k in range(nbits - 1)]
+                i += length
+            else:
+                ops += [(0, 1), (2, int(stream[i]))]
+                i += 1
+        ops += EOS_OPS
+        counts.append(len(ops))
+        kept = torch.tensor(ops[:4 * rows], dtype=I64).reshape(-1, 2)
+        m[b, :kept.shape[0]], s[b, :kept.shape[0]] = kept[:, 0], kept[:, 1]
+    words = []
+    for t in (m, s):
+        q = t.reshape(n, rows, 4)
+        words.append(to_u32((q[..., 0] << 24) | (q[..., 1] << 16)
+                            | (q[..., 2] << 8) | q[..., 3]))
+    return words[0], words[1], torch.tensor(counts, dtype=I64)
 
 
 # ops of a chunk of the model statistics kernel (csrc/sqz4_model_stats.cu

@@ -346,6 +346,70 @@ def test_wide_route_codes_literal_models_past_two_to_the_17(cuda):
                                    lanes=host.group_lanes(1)) == [data]
 
 
+# (input, blk_bits, warm) of the exact parse kernel's cases: the wide
+# cell's 96 x 1 MiB of texty, random bytes (a find a byte), and blocks of
+# 2^17 and 2^18 bytes cold and warm (blocks 1+ after block 0's tail)
+EXACT_PARSE_CASES = {
+    "texty_blk20": (lambda: corpus.texty(10 ** 8, seed=1), 20, False),
+    "random_blk20": (lambda: corpus.random_bytes(4 << 20, seed=2), 20,
+                     False),
+    "texty_blk17": (lambda: corpus.texty(3 << 17, seed=3)
+                    + corpus.texty(50_000, seed=4), 17, False),
+    "texty_blk17_warm": (lambda: corpus.texty(3 << 17, seed=3)
+                         + corpus.texty(50_000, seed=4), 17, True),
+    "mixed_blk18": (lambda: corpus.texty(1 << 18, seed=5)
+                    + corpus.random_bytes(1 << 17, seed=6)
+                    + corpus.zeros(1 << 17) + corpus.rle4(70_000), 18,
+                    False),
+    "mixed_blk18_warm": (lambda: corpus.texty(1 << 18, seed=5)
+                         + corpus.random_bytes(1 << 17, seed=6)
+                         + corpus.zeros(1 << 17) + corpus.rle4(70_000), 18,
+                         True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(EXACT_PARSE_CASES))
+def test_exact_parse_kernel_equals_native_planner(cuda, case):
+    # a CTA a block on the card gives the native planner's op words and
+    # counts word for word, and block 0's ops its warm seed
+    make, bits, warm = EXACT_PARSE_CASES[case]
+    data, bs = make(), 1 << bits
+    offs = list(range(0, len(data), bs))
+    lens = [min(bs, len(data) - o) for o in offs]
+    rows = host.op_stream_cap(bits, len(data)) // 4
+    before = sqz4_cuda.exact_parse.launches
+    m, s, counts = sqz4_cuda.exact_parse(sqz4_cuda.upload_bytes(data, cuda),
+                                         offs, lens, 1 << 15, True, rows,
+                                         warm)
+    assert sqz4_cuda.exact_parse.launches == before + 1
+    plan = native.sqz4_plan_pack(data, 1 << 15, bits, True, 1, 4 * rows,
+                                 warm=warm)
+    mw, sw = plan[0][:, :, 0], plan[1][:, :, 0]
+    np.testing.assert_array_equal(convert.to_numpy(m), mw)
+    np.testing.assert_array_equal(convert.to_numpy(s), sw)
+    want = (mw.astype(">u4").view(np.uint8) != 0xFF).sum(1)
+    assert convert.to_numpy(counts).tolist() == want.tolist()
+    if warm:
+        seed = host.seed_from_ops(mw[0], sw[0], int(want[0]))
+        np.testing.assert_array_equal(seed, plan[3])
+
+
+def test_wide_route_parses_on_the_card(cuda):
+    # the route above 64 KiB blocks parses each group with one kernel
+    # launch, and its payloads are the native engine's exact ones; one
+    # wide compress launches the parse once
+    data = (corpus.texty(2 << 20, seed=7) + corpus.random_bytes(1 << 20,
+                                                                 seed=8)
+            + corpus.texty(300_000, seed=9))
+    before = sqz4_cuda.exact_parse.launches
+    got = sqz4_cuda.encode_data_stats(data, 20, 1 << 15, True, device=cuda)
+    assert sqz4_cuda.exact_parse.launches == before + 1
+    assert got == native.blocks_compress(data, 1, 15, 20)
+    blob = sqz_tpu_torch.compress(data, blk_bits=20)
+    assert sqz4_cuda.exact_parse.launches == before + 2
+    assert sqz_tpu_torch.decompress(blob) == data
+
+
 def _model_stats_inputs(case):
     """(m, s [n, rows] u32, seed column or None, lanes, the native
     statistics [n, T] each) of one case: planned text or random bytes
